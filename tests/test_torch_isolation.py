@@ -1,0 +1,126 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX package,
+its entry points refuse to fall back to the CPU quietly, its kernels' launch
+counters count CUDA launches only, and ``chip_smoke.py`` refuses to run
+without a GPU or without the repository."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.kernels import ops  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
+
+
+def _run(code: str, cwd=ROOT, timeout=120):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'repro' or m.startswith('repro.')\n"
+        "       or m == 'jax' and sys.modules[m] is not None\n"
+        "       or m.startswith('jax.') or m.startswith('jaxlib')]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
+                        r"from\s+(jax|repro)(\s|\.)(?!_))", re.M)
+
+
+def test_sources_do_not_import_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [SMOKE]
+    assert len(files) > 20
+    for f in files:
+        hits = _FORBIDDEN.findall(f.read_text())
+        assert not hits, (f, hits)
+
+
+def test_entry_points_refuse_cpu_without_being_asked():
+    code = (
+        "import dataclasses, sys, torch\n"
+        "if torch.cuda.is_available():\n"
+        "    print('gpu'); sys.exit(0)\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import kvcache, params\n"
+        "from repro_torch.serving.engine import Engine, EngineConfig\n"
+        "cfg = get_config('qwen2.5-3b').smoke()\n"
+        "p = params.init_params(cfg, torch.Generator(), device='cpu')\n"
+        "calls = [lambda: Engine(cfg, p, EngineConfig()),\n"
+        "         lambda: kvcache.init_cache(cfg, 1, 16),\n"
+        "         lambda: params.init_params(cfg, torch.Generator())]\n"
+        "for c in calls:\n"
+        "    try:\n"
+        "        c()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'device' in str(e)\n"
+        "    else:\n"
+        "        raise AssertionError('ran on the CPU without device=cpu')\n"
+        "print('refused')\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() in ("refused", "gpu")
+
+
+def test_launch_counters_stay_zero_on_cpu_tensors():
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+    saved = ops.launch_counts()
+    ops.reset_launch_counts()
+    try:
+        cfg = get_config("mixtral-8x7b").smoke()
+        eng = Engine(cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu"),
+                     EngineConfig(ubatch=2, num_ubs=1, max_seq=32),
+                     ExecPolicy(moe_impl="grouped", use_kernels=True),
+                     device="cpu")
+        rng = np.random.default_rng(0)
+        for n in (3, 9):
+            eng.submit(rng.integers(2, cfg.vocab_size, n), 4)
+        out = eng.run_until_idle()
+        assert [len(v) for v in out.values()] == [4, 4]
+        assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    finally:
+        for name, fn in ops.KERNELS.items():
+            fn.launches = saved[name]
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, where):
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_text(SMOKE.read_text())
+        cwd, script = tmp_path, tmp_path / "chip_smoke.py"
+    elif torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would really run")
+    else:
+        cwd, script = ROOT, SMOKE
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
