@@ -5,27 +5,39 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
-  1. build   — compile the three CUDA kernels from ``src/repro_torch/kernels/
-               csrc`` (one nvcc per source, all at once) and time it.
-  2. kernels — hold each kernel against its plain PyTorch version on the card:
-               in float32 at small shapes (TF32 off) and in bf16 at the
-               shapes the served model gives it; time the kernel, its plain
-               version and one PyTorch library call beside the least time
-               the card could take (``bound_ms``).
-  3. serve   — the port's Engine at the full width of mixtral-8x7b with the
-               depth cut from 32 to 4 layers (all 32 layers of bf16 weights,
-               ~93 GB, exceed the card's 80 GB; the offloading path that
-               serves them is a later slice), random weights from a seed:
-               24 requests of 32..384 prompt tokens and 64 new tokens each,
-               with every kernel's launches counted over the run.
-  4. trace   — a separate serving window under torch.profiler: device
-               time by kernel family and the device's busy share.
-  5. check   — prefill and decode logits of two prompts through the kernels
-               against the same forward through the plain versions
-               (``ExecPolicy(impl="ref")``), and how far their greedy
-               transcripts agree.
+  1. build       — compile the four CUDA kernels from ``src/repro_torch/
+                   kernels/csrc`` (one nvcc per source, all at once), timed.
+  2. kernels     — hold each kernel against its plain PyTorch version on the
+                   card: in float32 at small shapes (TF32 off) and in bf16
+                   at the shapes the served model gives it; time the kernel,
+                   its plain version and one PyTorch library call beside the
+                   least time the card could take (``bound_ms``).  The paged
+                   decode reads an arena whose trash block is NaN, and its
+                   fused form must equal write-then-attend bit for bit.
+  3. serve       — the port's Engine at the full width of mixtral-8x7b with
+                   the depth cut from 32 to 4 layers (all 32 layers of bf16
+                   weights, ~93 GB, exceed the card's 80 GB; the offloading
+                   path that serves them is a later slice), random weights
+                   from a seed, the dense KV ring: 24 requests of 32..384
+                   prompt tokens and 64 new tokens each.
+  4. serve_paged — the same weights through the block-paged KV pool with a
+                   pinned host tier, the arena sized at r_c 0.4 of the slot
+                   pool: 24 requests of 128..640 prompt tokens, so that
+                   blocks spill to the host tier, come back on demand and
+                   are prefetched.  Each serve phase counts every kernel's
+                   launches over its own run.
+  5. trace       — one more serving window of each engine under
+                   torch.profiler: device time by kernel family (copies
+                   between the arena and the host tier included) and the
+                   device's busy share.
+  6. check       — prefill and decode logits through the kernels against
+                   the plain versions (``ExecPolicy(impl="ref")``), on the
+                   dense ring and on a paged arena with a scattered page
+                   table; how far their greedy transcripts agree; and the
+                   greedy transcripts of the paged engine against the dense
+                   engine on the same prompts.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -50,6 +62,15 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak, 700 W
 SERVE = dict(ubatch=8, num_ubs=2, max_seq=512, decode_chunk=8)
 N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 24, (32, 384), 64
+# The paged pool: 16 slots x 1024 positions = 1024 blocks of 16, of which
+# 410 fit the arena.  One group's worst case (8 x (640 + 64) tokens, 352
+# blocks) fits, so a chunk never preempts for lack of room, but the two
+# groups together hold ~450 blocks on average: every tick spills the other
+# group's cold blocks to the host tier and fetches its own back.
+SERVE_PAGED = dict(ubatch=8, num_ubs=2, max_seq=1024, decode_chunk=8,
+                   kv_paged=True, block_tokens=16, kv_gpu_ratio=0.4,
+                   kv_prefetch=True)
+PAGED_PROMPT_LENS = (128, 640)
 # bf16 tolerances.  A kernel and its plain version both compute in f32 from
 # the same bf16 inputs; an output rounded to bf16 may then differ by one
 # bf16 ulp (2^-8 relative) where the two f32 sums straddle a rounding edge.
@@ -81,15 +102,17 @@ def card_line() -> str:
 
 class Timer:
     """Median device time of one call, by CUDA events.  Before each call the
-    stream sleeps (so the host's enqueue cost is hidden) and a 64 MB buffer
-    is rewritten (so the 50 MB L2 is cold, as on the served path, where the
-    expert weights stream through it between calls)."""
+    stream sleeps (so the host's enqueue cost is hidden) and, unless
+    ``cold=False``, a 64 MB buffer is rewritten (so the 50 MB L2 is cold,
+    as on the served path, where the expert weights stream through it
+    between calls)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
 
-    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
+    def __call__(self, fn, iters: int = 10, warmup: int = 2,
+                 cold: bool = True) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
@@ -97,7 +120,8 @@ class Timer:
         pairs = []
         for _ in range(iters):
             torch.cuda._sleep(1_000_000)
-            self.flush.zero_()
+            if cold:
+                self.flush.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -220,7 +244,8 @@ def phase_kernels(torch, F):
                "ms": timer(lambda: moe_ffn(x, wi, wo)),
                "plain_ms": timer(lambda: ref.moe_ffn_ref(x, wi, wo), 3, 1),
                "bound_ms": bms, "bound_by": by,
-               "library_ms": timer(library)}
+               "library_ms": timer(library),
+               "library_call": "torch.bmm chain (up, silu * up, down)"}
         emit({"phase": "kernel_bf16", **rec})
         if label == "decode":
             records.append(rec)
@@ -255,7 +280,8 @@ def phase_kernels(torch, F):
            "bound_ms": bms, "bound_by": by,
            "library_ms": timer(sdpa_gqa(
                F, q[:, :, None], kt, vt, H // Hkv,
-               attn_mask=valid[:, None, None, :]))}
+               attn_mask=valid[:, None, None, :])),
+           "library_call": "scaled_dot_product_attention, masked"}
     emit({"phase": "kernel_bf16", **rec})
     records.append(rec)
 
@@ -279,15 +305,260 @@ def phase_kernels(torch, F):
            "plain_ms": timer(lambda: ref.flash_prefill_ref(q, k, v)),
            "bound_ms": bms, "bound_by": by,
            "library_ms": timer(sdpa_gqa(F, qt, kt, vt, H // Hkv,
-                                        is_causal=True))}
+                                        is_causal=True)),
+           "library_call": "scaled_dot_product_attention, causal"}
     emit({"phase": "kernel_bf16", **rec})
     records.append(rec)
+    records.append(kernel_paged(torch, F, timer, rn))
     return records
+
+
+def paged_inputs(torch, rng, lens, H, Hkv, D, bt, MB, NB, holes, dtype, rn):
+    """A decode step over a head-major arena of NB blocks plus the trash
+    block (NaN, so that a read of it shows): row b has written lens[b]
+    positions and maps the blocks covering them and its next one (the
+    fused token's) at physical blocks scattered over the arena; a block is
+    left unmapped with probability `holes`, and a row of length 0 maps
+    none.  Returns (q, cache, pos, new)."""
+    import numpy as np
+    B = len(lens)
+    pt = np.full((B, MB), -1, np.int32)
+    sp = np.full((NB + 1, bt), -1, np.int32)
+    perm, used = rng.permutation(NB), 0
+    for b, n in enumerate(lens):
+        for lb in range(-(-(n + 1) // bt) if n else 0):
+            if rng.random() < holes:
+                continue
+            pt[b, lb] = perm[used]
+            used += 1
+            p = lb * bt + np.arange(bt)
+            sp[pt[b, lb]] = np.where(p < n, p, -1)
+    k = rn(Hkv, NB + 1, bt, D, dtype=dtype)
+    v = rn(Hkv, NB + 1, bt, D, dtype=dtype)
+    k[:, NB] = float("nan")
+    v[:, NB] = float("nan")
+    cache = {"k": k, "v": v,
+             "slot_pos": torch.as_tensor(sp, device=DEVICE),
+             "page_table": torch.as_tensor(pt, device=DEVICE)}
+    pos = torch.as_tensor(np.asarray(lens, np.int32), device=DEVICE)
+    new = {"k": rn(B, 1, Hkv, D, dtype=dtype),
+           "v": rn(B, 1, Hkv, D, dtype=dtype)}
+    return rn(B, H, D, dtype=dtype), cache, pos, new
+
+
+def zero_trash(cache):
+    """A copy of a paged layer cache with a zero trash block: the plain
+    version gathers the trash for unmapped blocks (and masks it), so it is
+    held against the kernel on finite values."""
+    out = {n: a.clone() for n, a in cache.items()}
+    for name in ("k", "v"):
+        out[name][:, -1] = 0
+    return out
+
+
+def kernel_paged(torch, F, timer, rn):
+    """paged_gqa_decode: f32 cases at small shapes (several block sizes,
+    unmapped entries, a row with no block, window, softcap; unfused and
+    fused), then bf16 at the served shapes with its timings."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gqa_decode import gqa_decode
+    from repro_torch.kernels.paged_decode import paged_gqa_decode
+    from repro_torch.models import kvcache
+    from repro_torch.models.attention import decode_valid_mask
+    rng = np.random.default_rng(SEED)
+    f32 = torch.float32
+    errs = []
+    for B, H, Hkv, D, bt, MB, window, cap in (
+            (3, 8, 2, 64, 16, 6, 0, 0.0), (2, 4, 1, 32, 4, 12, 10, 30.0),
+            (2, 8, 8, 128, 32, 3, 0, 0.0), (2, 16, 2, 128, 8, 8, 0, 20.0)):
+        lens = [int(n) for n in rng.integers(1, MB * bt - 1, B)]
+        if B > 2:
+            lens[0] = 0                          # maps no block at all
+        q, cache, pos, new = paged_inputs(torch, rng, lens, H, Hkv, D, bt,
+                                          MB, B * MB, 0.2, f32, rn)
+        plain = zero_trash(cache)
+        kw = dict(scale=D ** -0.5, window=window, attn_softcap=cap)
+        got = ops.paged_gqa_decode(q, cache, pos, **kw)
+        want = ops.paged_gqa_decode(q, plain, pos, impl="ref", **kw)
+        fused = ops.paged_gqa_decode_fused(q, cache, new, pos, **kw)
+        want_f = ops.paged_gqa_decode_fused(q, plain, new, pos, impl="ref",
+                                            **kw)
+        after = ops.paged_gqa_decode(q, cache, pos, **kw)
+        torch.cuda.synchronize()
+        for a, b in (*zip(got, want), *zip(fused, want_f)):
+            errs.append(max_err(a, b))
+            require(close(a, b, F32_TOL), f"paged f32 bt {bt}: {errs[-1]}")
+        require(all(torch.equal(a, b) for a, b in zip(fused, after)),
+                f"paged f32 bt {bt}: fused differs from write-then-attend")
+        if lens[0] == 0:
+            require(not any(bool(t[0].any()) for t in (*got, *fused)),
+                    "paged f32: a row with no block gave nonzero partials")
+    emit({"phase": "kernels_f32", "max_abs_err": {"paged_gqa_decode":
+                                                  max(errs)},
+          "tol": F32_TOL, "trash": "NaN, never read",
+          "fused_equals_write_then_attend": "bit for bit"})
+
+    # bf16 at the served shapes: 8 rows mid-serve, blocks of 16, the
+    # paged engine's arena and page-table width
+    cfg = _mixtral()
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bt = SERVE_PAGED["block_tokens"]
+    MB = SERVE_PAGED["max_seq"] // bt
+    slots = SERVE_PAGED["ubatch"] * SERVE_PAGED["num_ubs"]
+    NB = round(SERVE_PAGED["kv_gpu_ratio"] * slots * MB)
+    lens = [int(n) for n in rng.integers(
+        PAGED_PROMPT_LENS[0], PAGED_PROMPT_LENS[1] + NEW_TOKENS,
+        SERVE_PAGED["ubatch"])]
+    q, cache, pos, new = paged_inputs(torch, rng, lens, H, Hkv, D, bt, MB,
+                                      NB, 0.0, torch.bfloat16, rn)
+    plain = zero_trash(cache)
+    kn, vn = new["k"][:, 0], new["v"][:, 0]
+    kw = dict(scale=D ** -0.5)
+    args = (q, cache["k"], cache["v"], cache["slot_pos"],
+            cache["page_table"], pos)
+    got = paged_gqa_decode(*args, k_new=kn, v_new=vn, **kw)
+    want = ref.paged_gqa_decode_ref(q, plain, pos, k_new=kn, v_new=vn, **kw)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
+            f"paged_gqa_decode bf16: {err}")
+    mapped = int((cache["page_table"] >= 0).sum())
+    valid = sum(lens) + len(lens)                # written + the fresh token
+    B = len(lens)
+    nbytes = (mapped * (Hkv * bt * 2 * D * 2 + bt * 4) + 2 * B * H * D
+              + 2 * 2 * B * Hkv * D + 4 * B * (MB + 1)
+              + 4 * B * H * (D + 2))
+    bms, by = bound(nbytes, 2 * valid * H * 2 * D)
+    view = kvcache.paged_view(plain)
+    vk, vv = view["k"].contiguous(), view["v"].contiguous()
+    vmask = decode_valid_mask(view["slot_pos"], pos, 0)
+    kt, vt = vk.transpose(1, 2), vv.transpose(1, 2)
+    rec = {"name": "paged_gqa_decode", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+           "replaces": "src/repro/kernels/paged_decode.py:167",
+           "shape": {"B": B, "H": H, "Hkv": Hkv, "D": D, "bt": bt, "MB": MB,
+                     "arena_blocks": NB, "mapped_blocks": mapped,
+                     "valid": valid, "dtype": "bf16", "fused": True},
+           "max_abs_err": err,
+           "ms": timer(lambda: paged_gqa_decode(*args, k_new=kn, v_new=vn,
+                                                **kw)),
+           "plain_ms": timer(lambda: ref.paged_gqa_decode_ref(
+               q, plain, pos, k_new=kn, v_new=vn, **kw)),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(sdpa_gqa(
+               F, q[:, :, None], kt, vt, H // Hkv,
+               attn_mask=vmask[:, None, None, :])),
+           "library_call": "scaled_dot_product_attention over the dense "
+                           "view already gathered (gather not included)",
+           "warm_ms": timer(lambda: paged_gqa_decode(
+               *args, k_new=kn, v_new=vn, **kw), cold=False),
+           "gather_ms": timer(lambda: kvcache.paged_view(plain)),
+           "dense_gqa_decode_ms": timer(lambda: gqa_decode(
+               q, vk, vv, vmask, **kw))}
+    emit({"phase": "kernel_bf16", **rec})
+    emit({"phase": "paged_sweep",
+          **paged_sweep(torch, rng, timer, rn, q, Hkv, kw)})
+    return rec
+
+
+def paged_sweep(torch, rng, timer, rn, q, Hkv, kw):
+    """Where the paged kernel's time goes, at the served shapes: its time
+    against the number of mapped blocks per row (0 = launches only), beside
+    the dense ring's ``gqa_decode`` over a max_seq-wide ring holding the
+    same positions (the dense-vs-paged crossover); and at the served page
+    table, its time against the logical blocks each thread block takes."""
+    from repro_torch.kernels import paged_decode
+    from repro_torch.kernels.gqa_decode import gqa_decode
+    B, H, D = q.shape
+    bt = SERVE_PAGED["block_tokens"]
+    MB = SERVE_PAGED["max_seq"] // bt
+    W = MB * bt
+    k, v = rn(Hkv, B * MB + 1, bt, D), rn(Hkv, B * MB + 1, bt, D)
+    kd, vd = rn(B, W, Hkv, D), rn(B, W, Hkv, D)
+    perm = torch.as_tensor(rng.permutation(B * MB).astype("int32"),
+                           device=DEVICE).view(B, MB)
+    sp = torch.arange(W, dtype=torch.int32, device=DEVICE).view(MB, bt)
+    slot_pos = torch.full((B * MB + 1, bt), -1, dtype=torch.int32,
+                          device=DEVICE)
+    slot_pos[perm.reshape(-1).long()] = sp.repeat(B, 1)
+    rows = []
+    for n in (0, 1, 8, 16, 32, 48, 64):
+        pt = torch.where(torch.arange(MB, device=DEVICE) < n, perm, -1).int()
+        pos = torch.full((B,), max(n * bt - 1, 0), dtype=torch.int32,
+                         device=DEVICE)
+        valid = (torch.arange(W, device=DEVICE) < n * bt)[None].repeat(B, 1)
+        rows.append({"blocks_per_row": n, "paged_ms": timer(
+            lambda: paged_decode.paged_gqa_decode(q, k, v, slot_pos, pt, pos,
+                                                  **kw)),
+            "dense_gqa_decode_ms": timer(
+                lambda: gqa_decode(q, kd, vd, valid, **kw))})
+    pt = torch.where(torch.arange(MB, device=DEVICE) < MB // 2, perm, -1).int()
+    pos = torch.full((B,), MB // 2 * bt - 1, dtype=torch.int32, device=DEVICE)
+    split, base = {}, paged_decode.BLOCKS_PER_SPLIT
+    try:
+        for n in (2, 4, 8, 16, 32):
+            paged_decode.BLOCKS_PER_SPLIT = n
+            split[n] = timer(lambda: paged_decode.paged_gqa_decode(
+                q, k, v, slot_pos, pt, pos, **kw))
+    finally:
+        paged_decode.BLOCKS_PER_SPLIT = base
+    return {"occupancy": rows, "blocks_per_split_ms_at_half": split}
 
 
 def _mixtral():
     from repro_torch.configs import get_config
     return get_config("mixtral-8x7b")
+
+
+def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed):
+    """Submit `n_requests` seeded prompts and run the engine until idle,
+    with every kernel's launch count set to 0 just before and read just
+    after, and admission prefill timed apart (synchronized).  Checks that
+    every request finished with in-range tokens."""
+    prefill_s = [0.0]
+    inner = eng._prefill
+
+    def timed_prefill(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        prefill_s[0] += time.perf_counter() - t
+        return out
+    eng._prefill = timed_prefill
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests)
+    prompts = [rng.integers(2, eng.cfg.vocab_size, n) for n in lens]
+    rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    tokens0, steps0 = eng.tokens_out, eng.steps
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    eng._prefill = inner
+    reqs = [eng.scheduler.requests[r] for r in rids]
+    require(all(r.done and not r.aborted for r in reqs),
+            "not every request finished")
+    for r in reqs:
+        toks = out[r.rid]
+        require(len(toks) == NEW_TOKENS or (toks and toks[-1] == 1),
+                f"request {r.rid}: {len(toks)} tokens")
+        require(all(0 <= t < eng.cfg.vocab_size for t in toks),
+                f"request {r.rid}: token out of range")
+    decode_s = wall - prefill_s[0]
+    tokens = eng.tokens_out - tokens0
+    return prompts, {
+        "requests": n_requests, "prompt_tokens": int(lens.sum()),
+        "new_tokens_each": NEW_TOKENS, "decode_tokens": tokens,
+        "engine_steps": eng.steps - steps0, "wall_s": wall,
+        "prefill_s": prefill_s[0], "decode_s": decode_s,
+        "decode_tok_per_s": tokens / decode_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches}
 
 
 def phase_serve(torch, np, ops):
@@ -302,63 +573,81 @@ def phase_serve(torch, np, ops):
     eng = Engine(cfg, params, EngineConfig(**SERVE),
                  ExecPolicy(moe_impl="grouped", use_kernels=True),
                  device=DEVICE)
-    prefill_s = [0.0]
-    inner = eng._prefill
-
-    def timed_prefill(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = inner(*args)
-        torch.cuda.synchronize()
-        prefill_s[0] += time.perf_counter() - t
-        return out
-    eng._prefill = timed_prefill
-
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, N_REQUESTS)
-    prompts = [rng.integers(2, cfg.vocab_size, n) for n in lens]
-    rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.run_until_idle()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    reqs = [eng.scheduler.requests[r] for r in rids]
-    require(all(r.done and not r.aborted for r in reqs),
-            "not every request finished")
-    for r in reqs:
-        toks = out[r.rid]
-        require(len(toks) == NEW_TOKENS or (toks and toks[-1] == 1),
-                f"request {r.rid}: {len(toks)} tokens")
-        require(all(0 <= t < cfg.vocab_size for t in toks),
-                f"request {r.rid}: token out of range")
-    decode_s = wall - prefill_s[0]
+    prompts, res = serve_run(torch, np, eng, ops, PROMPT_LENS, N_REQUESTS,
+                             SEED)
     emit({"phase": "serve", "model": "mixtral-8x7b", "layers": LAYERS,
           "of_layers": _mixtral().num_layers, "params": count_params(cfg),
-          "engine": SERVE, "requests": N_REQUESTS,
-          "prompt_tokens": int(lens.sum()), "new_tokens_each": NEW_TOKENS,
-          "decode_tokens": eng.tokens_out, "engine_steps": eng.steps,
-          "wall_s": wall, "prefill_s": prefill_s[0], "decode_s": decode_s,
-          "decode_tok_per_s": eng.tokens_out / decode_s,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": launches})
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
+          "engine": SERVE, **res})
+    launches = res["launches"]
+    require(all(launches[k] > 0 for k in
+                ("moe_ffn", "gqa_decode", "flash_prefill")),
+            f"a kernel of the dense path never launched: {launches}")
     return eng, prompts[:2], launches
 
 
-def phase_trace(torch, np, eng):
-    """A separate, profiled serving window on the same engine (8 more
-    requests): device time by kernel family and the device's busy share
-    of the window's wall time, profiler on.  The serve phase's numbers are
-    taken with the profiler off."""
+def phase_serve_paged(torch, np, ops, params):
+    """The block-paged KV path at full width: spills, on-demand fetches and
+    prefetches through the pinned host tier."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(_mixtral(), num_layers=LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, EngineConfig(**SERVE_PAGED),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    # host-side cost of the paged control plane: executing the plans
+    # (enqueueing the copies) and building + uploading the page tables
+    host = {"kv_exec_s": 0.0, "kv_exec_calls": 0, "page_table_uploads": 0,
+            "compose_s": 0.0}
+    exec_, compose = eng._kv_exec, eng._compose_kv
+
+    def timed_exec(ops_):
+        t = time.perf_counter()
+        exec_(ops_)
+        host["kv_exec_s"] += time.perf_counter() - t
+        host["kv_exec_calls"] += 1
+
+    def timed_compose(*args):
+        t = time.perf_counter()
+        out = compose(*args)
+        host["compose_s"] += time.perf_counter() - t
+        host["page_table_uploads"] += 1
+        return out
+    eng._kv_exec, eng._compose_kv = timed_exec, timed_compose
+    prompts, res = serve_run(torch, np, eng, ops, PAGED_PROMPT_LENS,
+                             N_REQUESTS, SEED + 2)
+    eng._kv_exec, eng._compose_kv = exec_, compose
+    traffic = eng.kv_traffic()
+    preempted = sum(r.preemptions for r in eng.scheduler.requests.values())
+    emit({"phase": "serve_paged", "model": "mixtral-8x7b", "layers": LAYERS,
+          "engine": SERVE_PAGED, **res, "preemptions": preempted,
+          "arena_bytes": traffic["arena_bytes"],
+          "dense_equiv_bytes": traffic["dense_equiv_bytes"],
+          "h2d_bytes": traffic["h2d_bytes"], "d2h_bytes": traffic["d2h_bytes"],
+          "host": host, "kv_traffic": traffic})
+    launches = res["launches"]
+    require(traffic["spills"] > 0 and traffic["misses"] > 0
+            and traffic["prefetches"] > 0,
+            f"the host tier was not exercised: {traffic}")
+    require(all(launches[k] > 0 for k in
+                ("moe_ffn", "paged_gqa_decode", "flash_prefill")),
+            f"a kernel of the paged path never launched: {launches}")
+    require(launches["gqa_decode"] == 0,
+            f"the paged path ran the dense decode kernel: {launches}")
+    return eng, launches
+
+
+def phase_trace(torch, np, eng, label, prompt_lens, n_requests):
+    """A separate, profiled serving window on an engine: device time by
+    kernel family (copies between the arena and the host tier included)
+    and the device's busy share of the window's wall time, profiler on.
+    The serve phases' numbers are taken with the profiler off."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(SEED + 1)
-    for n in rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, 8):
+    for n in rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests):
         eng.submit(rng.integers(2, eng.cfg.vocab_size, n), NEW_TOKENS // 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -368,9 +657,12 @@ def phase_trace(torch, np, eng):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     families = {"moe_ffn": ("moe_up", "moe_down", "moe_reduce"),
+                "paged_gqa_decode": ("paged_chunk", "paged_combine"),
                 "gqa_decode": ("gqa_chunk", "gqa_combine"),
                 "flash_prefill": ("flash_prefill",),
-                "matmul": ("gemm", "nvjet", "xmma", "cutlass", "splitk")}
+                "matmul": ("gemm", "nvjet", "xmma", "cutlass", "splitk"),
+                "memcpy_htod": ("Memcpy HtoD",),
+                "memcpy_dtoh": ("Memcpy DtoH",)}
     ms = {k: 0.0 for k in (*families, "other")}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -379,19 +671,47 @@ def phase_trace(torch, np, eng):
                     if any(k in ev.key for k in keys)), "other")
         ms[fam] += ev.self_device_time_total / 1e3
     device_ms = sum(ms.values())
-    emit({"phase": "trace", "requests": 8, "new_tokens_each": NEW_TOKENS // 2,
+    emit({"phase": "trace", "engine": label, "requests": n_requests,
+          "new_tokens_each": NEW_TOKENS // 2,
           "wall_ms": wall * 1e3, "device_ms": device_ms,
           "device_busy_share": device_ms / (wall * 1e3),
           "device_ms_by_family": ms})
 
 
-def phase_check(torch, cfg, params, prompts):
+def paged_copy(torch, cfg, dense, rng):
+    """A batch-1 paged layout of a dense prefilled cache: a fresh arena
+    whose blocks for the row (those covering its prompt and its next
+    token) sit at physical blocks scattered over the arena."""
+    from repro_torch.models import kvcache
+    bt = SERVE_PAGED["block_tokens"]
+    MB = SERVE["max_seq"] // bt
+    nb = 4 * MB
+    arena = kvcache.init_paged_arena(cfg, nb, bt, device=DEVICE)
+    n = int(dense["pos"][0]) + 1
+    pt = torch.full((1, MB), -1, dtype=torch.int32)
+    pt[0, :-(-n // bt)] = torch.as_tensor(
+        rng.permutation(nb)[:-(-n // bt)].astype("int32"))
+    ptl = pt.to(DEVICE).expand((cfg.num_periods, 1, MB))
+    cache = {"pos": dense["pos"].clone()}
+    for key, g in arena.items():
+        cache[key] = {**g, "page_table": ptl}
+    return kvcache.insert_slot(cache, dense, 0)
+
+
+def clone_cache(cache):
+    return {k: (clone_cache(v) if isinstance(v, dict)
+                else v if k == "page_table" else v.clone())
+            for k, v in cache.items()}
+
+
+def phase_check(torch, np, cfg, params, prompts, eng, eng_paged):
     from repro_torch.models import kvcache
     from repro_torch.models.model import ExecPolicy, forward, unembed
     from repro_torch.serving import steps
 
-    worst = {"prefill": 0.0, "decode": 0.0}
+    worst = {"prefill": 0.0, "decode": 0.0, "decode_paged": 0.0}
     agree, total = 0, 0
+    rng = np.random.default_rng(SEED)
     for prompt in prompts:
         outs = {}
         for impl in ("auto", "ref"):
@@ -405,10 +725,15 @@ def phase_check(torch, cfg, params, prompts):
             logits, cache = steps.make_prefill_fill_step(cfg, pol)(
                 params, tok, cache, lens)
             outs[impl] = {"prefill": logits, "cache": cache, "pol": pol}
-        # one decode step, both paths fed the kernel path's greedy token
+        # one decode step, both paths fed the kernel path's greedy token;
+        # on the paged layout both read the same arena and page table
         first = torch.argmax(outs["auto"]["prefill"], -1).to(
             torch.int32)[:, None]
+        paged = paged_copy(torch, cfg, outs["auto"]["cache"], rng)
         for impl, o in outs.items():
+            fwd = forward(cfg, params, first, cache=clone_cache(paged),
+                          mode="decode", policy=o["pol"])
+            o["decode_paged"] = unembed(cfg, params, fwd["hidden"][:, -1])
             fwd = forward(cfg, params, first, cache=o["cache"], mode="decode",
                           policy=o["pol"])
             o["decode"] = unembed(cfg, params, fwd["hidden"][:, -1])
@@ -430,9 +755,26 @@ def phase_check(torch, cfg, params, prompts):
             seqs[impl] = toks[:, 0].tolist()
         agree += sum(a == b for a, b in zip(seqs["auto"], seqs["ref"]))
         total += len(seqs["auto"])
+    # the paged engine against the dense engine, same prompts and weights
+    prng = np.random.default_rng(SEED + 3)
+    engine_prompts = [prng.integers(2, cfg.vocab_size, n) for n in
+                      prng.integers(PAGED_PROMPT_LENS[0],
+                                    SERVE["max_seq"] - NEW_TOKENS, 8)]
+    runs = []
+    for e in (eng, eng_paged):
+        rids = [e.submit(p, NEW_TOKENS // 4) for p in engine_prompts]
+        out = e.run_until_idle()
+        runs.append([out[r] for r in rids])
+    eng_agree = sum(a == b for x, y in zip(*runs) for a, b in zip(x, y))
+    eng_total = sum(len(x) for x in runs[0])
     emit({"phase": "check", "prompts": len(prompts),
+          "engine_prompts": len(engine_prompts),
           "max_abs_logit_diff": worst, "tol": LOGIT_TOL,
-          "greedy_agree": agree, "greedy_total": total})
+          "greedy_agree": agree, "greedy_total": total,
+          "paged_vs_dense_engine_agree": eng_agree,
+          "paged_vs_dense_engine_total": eng_total,
+          "paged_vs_dense_engine_identical_requests": sum(
+              x == y for x, y in zip(*runs))})
     require(all(v <= LOGIT_TOL for v in worst.values()),
             f"kernel path logits differ from the plain path: {worst}")
 
@@ -457,13 +799,17 @@ def main() -> int:
     records = phase_kernels(torch, F)
     torch.cuda.empty_cache()
     eng, prompts, launches = phase_serve(torch, np, ops)
-    phase_trace(torch, np, eng)
-    phase_check(torch, eng.cfg, eng.params, prompts)
+    eng_paged, launches_paged = phase_serve_paged(torch, np, ops, eng.params)
+    phase_trace(torch, np, eng, "dense", PROMPT_LENS, 8)
+    phase_trace(torch, np, eng_paged, "paged", PAGED_PROMPT_LENS, 16)
+    phase_check(torch, np, eng.cfg, eng.params, prompts, eng, eng_paged)
 
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = (launches_paged if rec["name"] == "paged_gqa_decode"
+                           else launches)[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call", "shape")
     emit({"kernels": [{k: r[k] for k in keys} for r in records]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

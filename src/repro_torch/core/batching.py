@@ -1,7 +1,7 @@
 """Request batching (paper Algorithm 2, Appendix A.2): the balance
 criterion applied to one request at a time, as the continuous-batching
-scheduler admits it.  The whole-queue pass of static mode is a later
-slice."""
+scheduler admits it, and the block-granular charge of the paged KV pool.
+The whole-queue pass of static mode is a later slice."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -34,3 +34,21 @@ def place_request(input_len: int, partition_sums: Sequence[int],
     if projected > cache_size:
         return None
     return idx
+
+
+def blocks_for_tokens(tokens: int, block_tokens: int) -> int:
+    """Fixed-size KV blocks covering `tokens` ring positions (ceil; 0 for
+    an empty footprint).  The unit of the block-granular paged KV cache's
+    admission accounting: a request occupies whole blocks of the shared
+    arena, so budget charges round up to the block boundary."""
+    if tokens <= 0:
+        return 0
+    return -(-tokens // block_tokens)
+
+
+def round_to_blocks(tokens: int, block_tokens: Optional[int]) -> int:
+    """Token charge of a footprint under block-granular accounting
+    (identity when block_tokens is None — the dense max_seq-wide pool)."""
+    if not block_tokens:
+        return tokens
+    return blocks_for_tokens(tokens, block_tokens) * block_tokens

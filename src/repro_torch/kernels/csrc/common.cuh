@@ -44,6 +44,40 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Merge the partials of one (row, head) over `nsplit` chunks, in chunk
+// order, under the reference's rule (repro/models/attention.py): a chunk
+// with no valid slot carries the sentinel max and adds nothing, and a row
+// with none at all yields (0, 0, 0).  Called by a combine kernel with one
+// block per (row, head): po (B*H, nsplit, Dv), pm/pl (B*H, nsplit) ->
+// o (B*H, Dv), m/l (B*H).
+__device__ __forceinline__ void combine_partials_row(
+    const float* __restrict__ po, const float* __restrict__ pm,
+    const float* __restrict__ pl, float* __restrict__ o,
+    float* __restrict__ m, float* __restrict__ l, int nsplit, int Dv) {
+  const size_t r = blockIdx.x;  // b * H + h
+  const float* pmr = pm + r * nsplit;
+  float M = REPRO_NEG_INF;
+  for (int s = 0; s < nsplit; ++s) M = fmaxf(M, pmr[s]);
+  const bool none = M <= REPRO_NEG_INF / 2;
+  for (int d = threadIdx.x; d < Dv; d += blockDim.x) {
+    float a = 0.f;
+    if (!none)
+      for (int s = 0; s < nsplit; ++s)
+        if (pmr[s] > REPRO_NEG_INF / 2)
+          a += expf(pmr[s] - M) * po[(r * nsplit + s) * Dv + d];
+    o[r * Dv + d] = a;
+  }
+  if (threadIdx.x == 0) {
+    float ls = 0.f;
+    if (!none)
+      for (int s = 0; s < nsplit; ++s)
+        if (pmr[s] > REPRO_NEG_INF / 2)
+          ls += expf(pmr[s] - M) * pl[r * nsplit + s];
+    m[r] = none ? 0.f : M;
+    l[r] = ls;
+  }
+}
+
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

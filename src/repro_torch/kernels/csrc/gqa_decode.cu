@@ -137,27 +137,7 @@ __global__ void gqa_combine_kernel(const float* __restrict__ po,
                                    float* __restrict__ m,
                                    float* __restrict__ l, int nsplit,
                                    int Dv) {
-  const size_t r = blockIdx.x;  // b * H + h
-  const float* pmr = pm + r * nsplit;
-  float M = REPRO_NEG_INF;
-  for (int s = 0; s < nsplit; ++s) M = fmaxf(M, pmr[s]);
-  const bool none = M <= REPRO_NEG_INF / 2;
-  for (int d = threadIdx.x; d < Dv; d += blockDim.x) {
-    float a = 0.f;
-    if (!none)
-      for (int s = 0; s < nsplit; ++s)
-        if (pmr[s] > REPRO_NEG_INF / 2)
-          a += expf(pmr[s] - M) * po[(r * nsplit + s) * Dv + d];
-    o[r * Dv + d] = a;
-  }
-  if (threadIdx.x == 0) {
-    float ls = 0.f;
-    if (!none)
-      for (int s = 0; s < nsplit; ++s)
-        if (pmr[s] > REPRO_NEG_INF / 2) ls += expf(pmr[s] - M) * pl[r * nsplit + s];
-    m[r] = none ? 0.f : M;
-    l[r] = ls;
-  }
+  combine_partials_row(po, pm, pl, o, m, l, nsplit, Dv);
 }
 
 template <typename T>

@@ -16,11 +16,14 @@ from typing import Dict
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import gqa_decode as _gqa
 from repro_torch.kernels import moe_ffn as _moe
+from repro_torch.kernels import paged_decode as _paged
 from repro_torch.kernels import ref as _ref
+from repro_torch.models import kvcache as _kvcache
 
 IMPLS = ("auto", "ref")
 KERNELS = {"moe_ffn": _moe.moe_ffn, "gqa_decode": _gqa.gqa_decode,
-           "flash_prefill": _fp.flash_prefill}
+           "flash_prefill": _fp.flash_prefill,
+           "paged_gqa_decode": _paged.paged_gqa_decode}
 
 
 def _check_impl(impl: str) -> None:
@@ -56,6 +59,47 @@ def gqa_decode(q, k, v, valid, *, scale: float, attn_softcap: float = 0.0,
                                    attn_softcap=attn_softcap)
     return _gqa.gqa_decode(q, k, v, valid, scale=scale,
                            attn_softcap=attn_softcap)
+
+
+def paged_gqa_decode(q, layer_cache, pos, *, scale: float,
+                     attn_softcap: float = 0.0, window: int = 0,
+                     impl: str = "auto"):
+    """Paged flash-decode GQA partials, straight through the page table.
+    layer_cache: a paged layer-cache slice — head-major arena ``k``/``v``
+    (Hkv, NB+1, bt, D), ``slot_pos`` (NB+1, bt), ``page_table`` (B, MB)."""
+    _check_impl(impl)
+    kw = dict(scale=scale, attn_softcap=attn_softcap, window=window)
+    if impl == "ref":
+        return _ref.paged_gqa_decode_ref(q, layer_cache, pos, **kw)
+    return _paged.paged_gqa_decode(
+        q, layer_cache["k"], layer_cache["v"], layer_cache["slot_pos"],
+        layer_cache["page_table"], pos, **kw)
+
+
+def paged_gqa_decode_fused(q, layer_cache, new, pos, *, scale: float,
+                           attn_softcap: float = 0.0, window: int = 0,
+                           impl: str = "auto"):
+    """Fused decode-write paged GQA: attends over the fresh token and
+    scatters it into the arena (in place) in one step.  new: ``k``/``v``
+    (B,1,Hkv,D).  Returns the partials.
+
+    The kernel merges the fresh token, cast to the arena dtype as the
+    scatter casts it, into its target block before any score math and
+    then the scatter runs on the same stream, so attention over the
+    un-written arena equals write-then-attend bit for bit; ``ref``
+    scatters first and runs the plain version."""
+    _check_impl(impl)
+    kw = dict(scale=scale, attn_softcap=attn_softcap, window=window)
+    if impl == "ref":
+        _kvcache._decode_scatter(layer_cache, new, pos)
+        return _ref.paged_gqa_decode_ref(q, layer_cache, pos, **kw)
+    dt = layer_cache["k"].dtype
+    part = _paged.paged_gqa_decode(
+        q, layer_cache["k"], layer_cache["v"], layer_cache["slot_pos"],
+        layer_cache["page_table"], pos, k_new=new["k"][:, 0].to(dt),
+        v_new=new["v"][:, 0].to(dt), **kw)
+    _kvcache._decode_scatter(layer_cache, new, pos)
+    return part
 
 
 def flash_prefill(q, k, v, kv_len=None, *, causal: bool = True,

@@ -33,6 +33,39 @@ def gqa_decode_ref(q, k, v, valid, *, scale: float, attn_softcap: float = 0.0):
                               attn_softcap=attn_softcap)
 
 
+def paged_gqa_decode_ref(q, layer_cache, pos, *, scale: float,
+                         attn_softcap: float = 0.0, window: int = 0,
+                         k_new=None, v_new=None):
+    """The paged-decode plain version: gather a dense ring view of the
+    mapped blocks (``kvcache.paged_view``) and run the partials over it.
+    q: (B,H,D); layer_cache: head-major arena ``k``/``v`` (Hkv,NB+1,bt,D),
+    ``slot_pos`` (NB+1,bt), ``page_table`` (B,MB); pos: (B,).
+
+    The fused form passes the fresh token k_new/v_new (B,Hkv,D) in the
+    arena dtype: it is merged into the gathered view at ring position
+    pos % W where that block is mapped — what the view holds after
+    ``kvcache.write_decode_paged`` — and the arena is left unwritten."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.attention import (attention_partials,
+                                              decode_valid_mask)
+    ring = kvcache.paged_view(layer_cache)
+    if k_new is not None:
+        pt = layer_cache["page_table"]
+        W = ring["slot_pos"].shape[1]
+        bt = W // pt.shape[1]
+        i = (pos % W).long()
+        hit = torch.gather(pt, 1, (i // bt)[:, None])[:, 0] >= 0
+        b = torch.arange(i.shape[0], device=i.device)
+        for name, tok in (("k", k_new), ("v", v_new)):
+            ring[name][b, i] = torch.where(hit[:, None, None], tok,
+                                           ring[name][b, i])
+        ring["slot_pos"][b, i] = torch.where(hit, pos.to(torch.int32),
+                                             ring["slot_pos"][b, i])
+    valid = decode_valid_mask(ring["slot_pos"], pos, window)
+    return attention_partials(q, ring["k"], ring["v"], valid, scale=scale,
+                              attn_softcap=attn_softcap)
+
+
 def flash_prefill_ref(q, k, v, kv_len=None, *, causal: bool = True,
                       window: int = 0, attn_softcap: float = 0.0, scale=None):
     """q: (B,S,H,D); k/v: (B,Skv,Hkv,D/Dv); kv_len: optional (B,).

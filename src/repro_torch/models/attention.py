@@ -3,8 +3,10 @@
 
 Decode attention is expressed through partials (unnormalized output,
 running max, running denominator), the contract of the flash-decode kernel.
-Decode runs the flash-decode kernel where the JAX reference runs the plain
-``attention_partials``, and full-mode prefill runs the flash-prefill kernel
+Decode over the dense ring runs the flash-decode kernel where the JAX
+reference runs the plain ``attention_partials``; decode over the block-paged
+arena runs the paged flash-decode kernel in its fused decode-write form, as
+the reference does; and full-mode prefill runs the flash-prefill kernel
 where the reference runs ``chunked_attention``; ``impl="ref"`` runs those
 plain versions instead (``kernels/ops.py``).
 """
@@ -85,11 +87,19 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
     if mode == "decode":
         if S != 1 or cache is None:
             raise ValueError("decode attends one token per row over a cache")
-        kvcache.write_decode(cache, {"k": k, "v": v}, pos)
-        valid = decode_valid_mask(cache["slot_pos"], pos, window)
-        part = ops.gqa_decode(q[:, 0], cache["k"], cache["v"], valid,
-                              scale=scale, attn_softcap=cfg.attn_softcap,
-                              impl=impl)
+        if kvcache.is_paged(cache):
+            # block-paged pool: fused decode-write straight through the
+            # page table (the kernel merges the fresh token into its
+            # block, then the arena scatter runs)
+            part = ops.paged_gqa_decode_fused(
+                q[:, 0], cache, {"k": k, "v": v}, pos, scale=scale,
+                attn_softcap=cfg.attn_softcap, window=window, impl=impl)
+        else:
+            kvcache.write_decode(cache, {"k": k, "v": v}, pos)
+            valid = decode_valid_mask(cache["slot_pos"], pos, window)
+            part = ops.gqa_decode(q[:, 0], cache["k"], cache["v"], valid,
+                                  scale=scale, attn_softcap=cfg.attn_softcap,
+                                  impl=impl)
         o = combine_partials(*part)[:, None].to(x.dtype)     # (B,1,H,Dh)
     elif mode == "full":
         # full-sequence forward always begins at absolute position 0

@@ -17,8 +17,18 @@ layers alike.
 Unlike the JAX package, whose arrays are immutable, the writes and slot
 operations here update the cache tensors in place (and return the cache for
 symmetry): the pool is allocated once and each decode step touches one slot
-per row, so copying it per step would waste memory and bandwidth.  The
-block-paged arena, int8 KV and the SSM / MLA caches are later slices.
+per row, so copying it per step would waste memory and bandwidth.
+
+Block-granular paged pool (the ``r_c`` execution path): full-attention
+period positions can swap their per-slot dense rings for one shared
+**arena** of fixed-size token blocks plus a
+``(slot, logical_block) → physical_block`` page table
+(``init_paged_arena`` / ``paged_view`` / ``write_decode_paged``; the slot
+ops below are paged-aware).  A paged layer cache is recognized by its
+``page_table`` leaf.  The arena's last physical block is the **trash
+block**: the scatter target for rows/positions with no mapped block — its
+contents are never read.  int8 KV and the SSM / MLA caches are later
+slices.
 """
 from __future__ import annotations
 
@@ -38,8 +48,10 @@ def layer_cache_width(cfg: ModelConfig, spec: LayerSpec, max_seq: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
-               device: DeviceLike = None) -> Dict:
-    """An empty cache of `batch` rows (slot_pos = -1, pos = 0)."""
+               skip_keys=(), device: DeviceLike = None) -> Dict:
+    """An empty cache of `batch` rows (slot_pos = -1, pos = 0).
+    `skip_keys` omits those period positions (the paged-pool engine
+    allocates them as a shared block arena instead of per-slot rings)."""
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     if cfg.kv_dtype == "int8":
@@ -50,6 +62,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
                                       device=device)}
     L = cfg.num_periods
     for i, spec in enumerate(cfg.period):
+        if f"p{i}" in skip_keys:
+            continue
         if spec.cache_kind() != "kv":
             raise NotImplementedError(
                 f"{spec.cache_kind()} caches are not ported yet")
@@ -65,6 +79,149 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
 
 
 # ---------------------------------------------------------------------------
+# Block-granular paged KV pool.  One shared arena of fixed-size token
+# blocks replaces the per-slot dense rings of the pageable period
+# positions; a (slot, logical_block) -> physical_block page table (managed
+# host-side by core.blockpool, uploaded per dispatch) maps each slot's
+# logical ring onto arena blocks.  Decode attention reads the arena
+# straight through the page table (kernels.ops.paged_gqa_decode_fused);
+# `paged_view` gathers the dense ring view its plain version runs on.
+#
+# Arena layout, head-major with the block axis inside the head axis:
+#
+#   k / v     (Hkv, NB+1, bt, D)     [stacked: (L, Hkv, NB+1, bt, D)]
+#   slot_pos  (NB+1, bt)             [stacked: (L, NB+1, bt)]
+#
+# so one (head, block) tile is a contiguous (bt, D) slab at every bt.
+# ---------------------------------------------------------------------------
+
+_HEAD_MAJOR = ("k", "v")
+
+
+def arena_block_axis(name: str, *, stacked: bool = False) -> int:
+    """Physical-block axis of an arena leaf (``stacked`` adds the leading
+    layer-stack axis the engine's shared arena carries)."""
+    ax = 1 if name in _HEAD_MAJOR else 0
+    return ax + 1 if stacked else ax
+
+
+def retile_arena_leaf(name: str, a, *, stacked: bool = False):
+    """Token-major block layout (…, NB, bt, Hkv, D) → the head-major arena
+    layout above (a view).  Identity for leaves without a head axis."""
+    if name not in _HEAD_MAJOR:
+        return a
+    off = 1 if stacked else 0
+    return torch.movedim(a, off + 2, off)
+
+
+def untile_arena_leaf(name: str, a, *, stacked: bool = False):
+    """Inverse of ``retile_arena_leaf`` (head-major → token-major)."""
+    if name not in _HEAD_MAJOR:
+        return a
+    off = 1 if stacked else 0
+    return torch.movedim(a, off, off + 2)
+
+
+def _to_arena_tile(name, blk):
+    """Dense-ring block tiles (…, bt, Hkv, D) → arena tiles (…, Hkv, bt, D)
+    for head-major leaves (identity otherwise)."""
+    if name not in _HEAD_MAJOR:
+        return blk
+    return torch.swapaxes(blk, -3, -2)
+
+
+def paged_period_keys(cfg: ModelConfig) -> tuple:
+    """Period positions whose KV ring is block-pageable: full-attention kv
+    layers.  Sliding-window rings are exempt (the ring already bounds
+    their footprint at `window`)."""
+    return tuple(f"p{i}" for i, spec in enumerate(cfg.period)
+                 if spec.cache_kind() == "kv" and spec.attn != ATTN_WINDOW)
+
+
+def init_paged_arena(cfg: ModelConfig, device_blocks: int,
+                     block_tokens: int, dtype=None, *,
+                     device: DeviceLike = None) -> Dict:
+    """Shared physical-block arena for the pageable period positions: each
+    per-slot ring (B, W, ...) of the dense layer cache replaced by
+    (device_blocks + 1) blocks of `block_tokens` ring slots, in the
+    head-major layout above.  Block index `device_blocks` is the trash
+    block."""
+    dense = init_cache(cfg, device_blocks + 1, block_tokens, dtype,
+                       device=device)
+    return {key: {name: retile_arena_leaf(name, a, stacked=True)
+                  .contiguous() for name, a in dense[key].items()}
+            for key in paged_period_keys(cfg)}
+
+
+def is_paged(layer_cache: Dict) -> bool:
+    return "page_table" in layer_cache
+
+
+def paged_view(layer_cache: Dict) -> Dict:
+    """Gather a dense (B, W, ...) ring view of a paged layer cache slice
+    (head-major arena leaves plus ``page_table`` (B, MB)), W = MB * bt.
+    Logical block lb covers ring positions [lb*bt, (lb+1)*bt), exactly
+    the dense ring's layout; unmapped blocks read the trash block but
+    their slot_pos is forced to -1, so they are invisible to the validity
+    masks.  The plain version of the paged decode kernel runs on it."""
+    pt = layer_cache["page_table"]                     # (B, MB)
+    B, MB = pt.shape
+    trash = layer_cache["slot_pos"].shape[0] - 1
+    bt = layer_cache["slot_pos"].shape[1]
+    mapped = pt >= 0
+    idx = torch.where(mapped, pt, trash).reshape(-1).long()
+    out = {}
+    for name, a in layer_cache.items():
+        if name == "page_table":
+            continue
+        ax = arena_block_axis(name)
+        g = a.index_select(ax, idx)
+        if ax:       # head-major: (Hkv, B·MB, bt, D) → (B·MB, bt, Hkv, D)
+            g = torch.movedim(g, 0, 2)
+        g = g.reshape((B, MB) + tuple(g.shape[1:]))
+        if name == "slot_pos":
+            g = torch.where(mapped[:, :, None], g, -1)
+        out[name] = g.reshape((B, MB * bt) + tuple(g.shape[3:]))
+    return out
+
+
+def decode_scatter_target(layer_cache: Dict, pos):
+    """The one-token decode scatter's coordinates: (pb, off) — each row's
+    physical block (trash where unmapped) and in-block offset for ring
+    position ``pos % W``."""
+    pt = layer_cache["page_table"]                     # (B, MB)
+    MB = pt.shape[1]
+    trash = layer_cache["slot_pos"].shape[0] - 1
+    bt = layer_cache["slot_pos"].shape[1]
+    i = (pos % (MB * bt)).long()                       # (B,) ring index
+    pb = torch.gather(pt, 1, (i // bt)[:, None])[:, 0]
+    return torch.where(pb >= 0, pb, trash).long(), i % bt
+
+
+def _decode_scatter(layer_cache: Dict, new: Dict, pos) -> Dict:
+    """Write one token per row (new[name]: (B, 1, Hkv, D)) into the arena
+    block its page table maps for ring position pos % W, in place; rows
+    with no mapped block there write the trash block."""
+    pb, off = decode_scatter_target(layer_cache, pos)
+    for name, val in new.items():
+        buf = layer_cache[name]
+        tok = val[:, 0].to(buf.dtype)                   # (B, Hkv, D)
+        if name in _HEAD_MAJOR:
+            buf[:, pb, off] = torch.movedim(tok, 0, 1)
+        else:
+            buf[pb, off] = tok
+    layer_cache["slot_pos"][pb, off] = pos.to(torch.int32)
+    return layer_cache
+
+
+def write_decode_paged(layer_cache: Dict, new: Dict, pos) -> Dict:
+    """Paged analogue of `write_decode`.  The decode path does not call
+    it: ``kernels.ops.paged_gqa_decode_fused`` attends over the fresh token
+    and performs the same scatter in one step."""
+    return _decode_scatter(layer_cache, new, pos)
+
+
+# ---------------------------------------------------------------------------
 # Slot-pool operations.  A cache allocated once with batch = number of slots
 # is a pool of independent per-row slots: a finished row is reset and
 # refilled with a new request without touching its neighbours (continuous
@@ -74,23 +231,51 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
 
 def reset_slot(cache: Dict, row: int) -> Dict:
     """Restore batch row `row` to its init_cache state (slot_pos = -1,
-    pos = 0, zeros elsewhere), in place; other rows are untouched."""
+    pos = 0, zeros elsewhere), in place; other rows are untouched.  Paged
+    groups are left alone: a freed slot maps no arena blocks, and fresh
+    allocations clear their slot_pos plane at map time."""
     for k, v in cache.items():
         if k == "pos":
             v[row] = 0
-        else:
+        elif not is_paged(v):
             for name, a in v.items():
                 a[:, row] = -1 if name == "slot_pos" else 0
     return cache
 
 
+def _insert_row_blocks(group: Dict, single_group: Dict, row: int,
+                       src: int) -> None:
+    """Copy a dense ring row of `single_group` into the arena blocks the
+    page table maps for slot `row` (the trash block where unmapped —
+    content discarded, as the dense ring's unwritten slot_pos=-1 span)."""
+    pt = group["page_table"][0, row]                   # (MB,) layer-invariant
+    MB = pt.shape[0]
+    trash = group["slot_pos"].shape[1] - 1
+    bt = group["slot_pos"].shape[2]
+    pb = torch.where(pt >= 0, pt, trash).long()
+    for name, a in group.items():
+        if name == "page_table":
+            continue
+        blk = single_group[name][:, src]               # (L, W[, Hkv, D])
+        blk = blk.reshape((blk.shape[0], MB, bt) + tuple(blk.shape[2:]))
+        tile = _to_arena_tile(name, blk.to(a.dtype))   # (L, MB[, Hkv], bt..)
+        if name in _HEAD_MAJOR:
+            a[:, :, pb] = torch.movedim(tile, 1, 2)
+        else:
+            a[:, pb] = tile
+
+
 def insert_slot(cache: Dict, single: Dict, row: int, src: int = 0) -> Dict:
     """Slot-indexed prefill write: copy batch row `src` of `single` (a dense
     cache freshly prefilled for one request) into batch row `row` of the
-    pooled `cache`, in place.  Only that row changes."""
+    pooled `cache`, in place.  Only that row changes.  Paged groups
+    scatter the dense ring into the slot's mapped arena blocks (the block
+    pool must have mapped blocks covering the row's footprint first)."""
     for k, v in cache.items():
         if k == "pos":
             v[row] = single[k][src]
+        elif is_paged(v):
+            _insert_row_blocks(v, single[k], row, src)
         else:
             for name, a in v.items():
                 a[:, row] = single[k][name][:, src].to(a.dtype)

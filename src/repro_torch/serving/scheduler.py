@@ -5,9 +5,13 @@ freed slots via the paper's Algorithm 2 balance criterion
 
 The continuous subset of ``repro/serving/scheduler.py``: every live request
 reserves its full remaining quota, so admission alone keeps a group's KV
-footprint within its slice of the pool.  Batch admission (static mode),
-EOS-aware reservations with recompute preemption, block-granular paged-KV
-accounting and degraded-mode shedding are later slices.
+footprint within its slice of the pool.  With the block-paged KV pool
+(``block_tokens`` set) every charge rounds up to whole blocks, and the
+engine may preempt a request when the shared arena overflows: its slot is
+freed and the request re-queued at its FCFS position with its transcript
+intact; re-admission prefills prompt + generated-so-far (recompute
+preemption), so greedy output is unchanged.  Batch admission (static mode),
+EOS-aware reservations and degraded-mode shedding are later slices.
 
 Slot lifecycle: FREE → PREFILL → DECODE → FREE.  A slot is one batch row of
 one rotation group's pooled KV cache; `Slot.history` records every request
@@ -22,7 +26,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.batching import place_request
+from repro_torch.core.batching import place_request, round_to_blocks
 
 
 @dataclass
@@ -33,14 +37,27 @@ class ServeRequest:
     generated: List[int] = field(default_factory=list)
     done: bool = False
     aborted: bool = False
+    preemptions: int = 0             # times evicted + re-queued
 
     @property
     def input_len(self) -> int:
         return len(self.prompt)
 
     @property
+    def effective_prompt(self) -> np.ndarray:
+        """What (re-)admission must prefill: the prompt plus everything
+        generated before a preemption.  Greedy re-prefill of this prefix
+        reproduces the request's continuation exactly (the final-position
+        logits are the logits that produced the next token)."""
+        if not self.generated:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.generated, np.int32)])
+
+    @property
     def footprint(self) -> int:
-        """KV tokens this request occupies once its pending token lands."""
+        """KV tokens this request occupies once its pending token lands:
+        prompt + generated so far (invariant across preemptions)."""
         return self.input_len + len(self.generated)
 
     @property
@@ -64,12 +81,17 @@ class Slot:
 
 
 class Scheduler:
-    def __init__(self, *, ubatch: int, num_ubs: int, max_seq: int):
+    def __init__(self, *, ubatch: int, num_ubs: int, max_seq: int,
+                 block_tokens: Optional[int] = None):
         self.ubatch = ubatch
         self.num_ubs = num_ubs
         self.max_seq = max_seq
         # per-group KV budget: the group's physical slice of the pool
         self.cache_tokens = max_seq * ubatch
+        # block-granular paged KV: a request occupies whole arena blocks,
+        # so every budget charge rounds up to the block boundary (None =
+        # dense max_seq-wide pool, token-exact accounting)
+        self.block_tokens = block_tokens
         self._rid = itertools.count()
         self.queue: List[ServeRequest] = []
         self.requests: Dict[int, ServeRequest] = {}
@@ -90,13 +112,18 @@ class Scheduler:
             self.queue.append(req)
         return rid
 
+    def _charge(self, tokens: int) -> int:
+        """Budget charge of a footprint: block-rounded when the paged
+        arena is in play (whole blocks are occupied), exact otherwise."""
+        return round_to_blocks(tokens, self.block_tokens)
+
     def group_load(self, gid: int) -> Tuple[int, int]:
-        """(token footprint + remaining quota over occupied slots, live
-        request count)."""
+        """(charge of token footprint + remaining quota over occupied
+        slots, live request count)."""
         toks = cnt = 0
         for s in self.slots[gid]:
             if s.state in (SlotState.PREFILL, SlotState.DECODE) and s.req:
-                toks += s.req.footprint + s.req.remaining
+                toks += self._charge(s.req.footprint + s.req.remaining)
                 cnt += 1
         return toks, cnt
 
@@ -112,7 +139,8 @@ class Scheduler:
             open_mask = [any(s.state == SlotState.FREE for s in grp)
                          for grp in self.slots]
             gid = place_request(
-                req.footprint + req.remaining, [t for t, _ in loads],
+                self._charge(req.footprint + req.remaining),
+                [t for t, _ in loads],
                 [c for _, c in loads], gen_len=0, reserve=0,
                 cache_size=self.cache_tokens, open_mask=open_mask)
             if gid is None:
@@ -130,14 +158,31 @@ class Scheduler:
         assert slot.state == SlotState.PREFILL
         slot.state = SlotState.DECODE
 
-    def finish(self, slot: Slot) -> None:
-        """Request completed (quota met or EOS): mark it done and return
-        the slot to the free pool; its cache row stays masked until the
-        next admission's slot-insert fully overwrites it."""
-        assert slot.state in (SlotState.PREFILL, SlotState.DECODE)
-        slot.req.done = True
+    def preempt(self, slot: Slot) -> None:
+        """Evict a decoding request: free its slot and re-queue it at its
+        FCFS position (every queued request was submitted later than any
+        admitted one, so ordering by rid restores first-come order)."""
+        assert slot.state == SlotState.DECODE and slot.req is not None
+        req = slot.req
+        req.preemptions += 1
+        self.release(slot)
+        i = 0
+        while i < len(self.queue) and self.queue[i].rid < req.rid:
+            i += 1
+        self.queue.insert(i, req)
+
+    def release(self, slot: Slot) -> None:
+        """Slot re-enters the free pool; its cache row stays masked until
+        the next admission's slot-insert fully overwrites it."""
         slot.state = SlotState.FREE
         slot.req = None
+
+    def finish(self, slot: Slot) -> None:
+        """Request completed (quota met or EOS): mark it done and return
+        the slot to the free pool."""
+        assert slot.state in (SlotState.PREFILL, SlotState.DECODE)
+        slot.req.done = True
+        self.release(slot)
 
     def has_live_slots(self) -> bool:
         return any(s.state in (SlotState.PREFILL, SlotState.DECODE)

@@ -19,7 +19,10 @@ torch.set_num_threads(1)
 from repro_torch.kernels import flash_prefill as t_flash  # noqa: E402
 from repro_torch.kernels import gqa_decode as t_gqa  # noqa: E402
 from repro_torch.kernels import moe_ffn as t_moe  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_decode as t_paged  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models import kvcache  # noqa: E402
 
 TOL = 2e-5     # f32: both sides accumulate in f32, only the order differs
 
@@ -165,6 +168,47 @@ def test_flash_prefill_plain_matches_pallas(pallas, case):
                                rtol=TOL, atol=TOL)
 
 
+PAGED_CASES = [
+    # (B, H, Hkv, D, bt, MB, window, softcap)
+    (3, 8, 2, 32, 16, 4, 0, 0.0),      # GQA; row 0 maps no block at all
+    (2, 4, 1, 16, 4, 9, 6, 30.0),      # MQA, small blocks, window, softcap
+    (2, 8, 8, 64, 8, 5, 0, 0.0),       # MHA
+    (1, 16, 2, 128, 32, 3, 0, 0.0),    # group of 8, D 128, large blocks
+]
+
+
+def paged_inputs(case, seed, trash=0.0):
+    """A head-major arena whose rows map scattered physical blocks, with
+    unmapped holes, positions past `pos` and empty slots, plus the fresh
+    decode token.  Returns numpy arrays: q, k, v, slot_pos, page_table,
+    pos, k_new, v_new.  The trash block (the last) holds `trash`."""
+    B, H, Hkv, D, bt, MB = case[:6]
+    rng = np.random.default_rng(seed)
+    NB = B * MB + 2
+    q = rng.normal(0, 1, (B, H, D)).astype(np.float32)
+    k = rng.normal(0, 1, (Hkv, NB + 1, bt, D)).astype(np.float32)
+    v = rng.normal(0, 1, (Hkv, NB + 1, bt, D)).astype(np.float32)
+    k[:, NB] = v[:, NB] = trash
+    slot_pos = rng.integers(-1, MB * bt, (NB + 1, bt)).astype(np.int32)
+    pt = np.full((B, MB), -1, np.int32)
+    pos = np.zeros((B,), np.int32)
+    perm = rng.permutation(NB)
+    for b in range(B):
+        n = int(rng.integers(1, MB * bt))        # tokens written so far
+        pos[b] = n - 1 + int(rng.integers(0, 2))  # the query position
+        for lb in range(-(-n // bt)):
+            if (b == 0 and B > 2) or rng.random() < 0.15:
+                continue                         # unmapped: masked whole
+            pb = perm[b * MB + lb]
+            pt[b, lb] = pb
+            p = lb * bt + np.arange(bt)
+            stale = rng.random(bt) < 0.2
+            slot_pos[pb] = np.where(p < n, p, np.where(stale, p, -1))
+    k_new = rng.normal(0, 1, (B, Hkv, D)).astype(np.float32)
+    v_new = rng.normal(0, 1, (B, Hkv, D)).astype(np.float32)
+    return q, k, v, slot_pos, pt, pos, k_new, v_new
+
+
 # ---------------------------------------------------------------- on the card
 
 @pytest.fixture
@@ -236,3 +280,43 @@ def test_flash_prefill_cuda_matches_plain(cuda_fp32, case, dtype):
     tol = CARD_TOL[dtype]
     torch.testing.assert_close(got.float().cpu()[rows],
                                want.float().cpu()[rows], rtol=tol, atol=tol)
+
+
+def _paged_on(case, seed, device, dt, trash):
+    q, k, v, sp, pt, pos, kn, vn = paged_inputs(case, seed, trash)
+    q, k, v, kn, vn = (_t(a, device).to(dt) for a in (q, k, v, kn, vn))
+    cache = {"k": k, "v": v, "slot_pos": _t(sp, device),
+             "page_table": _t(pt, device)}
+    return q, cache, _t(pos, device), {"k": kn[:, None], "v": vn[:, None]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_gqa_decode_cuda_matches_plain(cuda_fp32, case, dtype):
+    """The kernel on an arena whose trash block is NaN against the plain
+    version on the same arena with a zero trash block (the plain version
+    reads the trash for unmapped blocks and masks it), unfused and fused;
+    then fused against write-then-attend, both through the kernel, bit for
+    bit, and the kernel's arena scatter against the plain one's."""
+    dt = getattr(torch, dtype)
+    kw = dict(scale=case[3] ** -0.5, window=case[6], attn_softcap=case[7])
+    q, nan_c, pos, new = _paged_on(case, 6, cuda_fp32, dt, np.nan)
+    _, zero_c, _, _ = _paged_on(case, 6, cuda_fp32, dt, 0.0)
+    got = ops.paged_gqa_decode(q, nan_c, pos, **kw)
+    want = ops.paged_gqa_decode(q, zero_c, pos, impl="ref", **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    fused = ops.paged_gqa_decode_fused(q, nan_c, new, pos, **kw)
+    want = ops.paged_gqa_decode_fused(q, zero_c, new, pos, impl="ref", **kw)
+    for g, w in zip(fused, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    after = ops.paged_gqa_decode(q, nan_c, pos, **kw)   # over the scatter
+    torch.cuda.synchronize()
+    for g, w in zip(fused, after):
+        assert torch.equal(g, w)
+    nb = nan_c["slot_pos"].shape[0] - 1                  # trash excluded
+    for name in ("k", "v"):
+        assert torch.equal(nan_c[name][:, :nb], zero_c[name][:, :nb])
+    assert torch.equal(nan_c["slot_pos"][:nb], zero_c["slot_pos"][:nb])
+    assert t_paged.paged_gqa_decode.launches >= 3
