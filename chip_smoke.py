@@ -7,15 +7,17 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing JSON lines:
 
-  1. build       — compile the four CUDA kernels from ``src/repro_torch/
+  1. build       — compile the five CUDA kernels from ``src/repro_torch/
                    kernels/csrc`` (one nvcc per source, all at once), timed.
   2. kernels     — hold each kernel against its plain PyTorch version on the
                    card: in float32 at small shapes (TF32 off) and in bf16
-                   at the shapes the served model gives it; time the kernel,
-                   its plain version and one PyTorch library call beside the
-                   least time the card could take (``bound_ms``).  The paged
-                   decode reads an arena whose trash block is NaN, and its
-                   fused form must equal write-then-attend bit for bit.
+                   at the shapes the served models give it (mixtral's, and
+                   DeepSeek-V3's for moe_ffn, flash_prefill and the MLA
+                   decode); time the kernel, its plain version and one
+                   PyTorch library call beside the least time the card
+                   could take (``bound_ms``).  The paged decodes read an
+                   arena whose trash block is NaN, and their fused forms
+                   must equal write-then-attend bit for bit.
   3. serve       — the port's Engine at the full width of mixtral-8x7b with
                    the depth cut from 32 to 4 layers (all 32 layers of bf16
                    weights, ~93 GB, exceed the card's 80 GB; the offloading
@@ -38,6 +40,16 @@ Phases, each printing JSON lines:
                    table; how far their greedy transcripts agree; and the
                    greedy transcripts of the paged engine against the dense
                    engine on the same prompts.
+  7. serve_mla   — the mixtral engines are released; deepseek-v3-671b at
+                   full width with the depth cut from 61 to 5 layers (its 3
+                   dense-FFN prologue layers and 2 MoE layers, 53.2 GB of
+                   bf16 weights; all 61 are 1.3 TB), random weights from a
+                   seed, over the block-paged latent arena at r_c 0.4 with
+                   the same engine settings and traffic as serve_paged; the
+                   prologue's latent rings stay dense.  Then a trace window
+                   of it, and ``check_mla``: its logits through the kernels
+                   against the plain path, on the dense cache and on a
+                   paged latent arena with a scattered page table.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -47,6 +59,7 @@ this file outside the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -58,8 +71,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 SEED = 0
 LAYERS = 4                    # of mixtral-8x7b's 32
+MLA_LAYERS = 5                # of deepseek-v3-671b's 61: 3 prologue + 2 MoE
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak, 700 W
+CUDA_CORE_F32_OPS_PER_S = 67e12   # f32 outside the tensor cores, 700 W
 SERVE = dict(ubatch=8, num_ubs=2, max_seq=512, decode_chunk=8)
 N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 24, (32, 384), 64
 # The paged pool: 16 slots x 1024 positions = 1024 blocks of 16, of which
@@ -310,6 +325,8 @@ def phase_kernels(torch, F):
     emit({"phase": "kernel_bf16", **rec})
     records.append(rec)
     records.append(kernel_paged(torch, F, timer, rn))
+    kernel_deepseek(torch, F, timer, rn, records)
+    records.append(kernel_mla(torch, timer, rn))
     return records
 
 
@@ -351,8 +368,12 @@ def zero_trash(cache):
     version gathers the trash for unmapped blocks (and masks it), so it is
     held against the kernel on finite values."""
     out = {n: a.clone() for n, a in cache.items()}
-    for name in ("k", "v"):
-        out[name][:, -1] = 0
+    for name in ("k", "v"):                  # head-major: block axis 1
+        if name in out:
+            out[name][:, -1] = 0
+    for name in ("ckv", "kr"):               # latents: block axis 0
+        if name in out:
+            out[name][-1] = 0
     return out
 
 
@@ -503,6 +524,223 @@ def paged_sweep(torch, rng, timer, rn, q, Hkv, kw):
     finally:
         paged_decode.BLOCKS_PER_SPLIT = base
     return {"occupancy": rows, "blocks_per_split_ms_at_half": split}
+
+
+def _deepseek():
+    from repro_torch.configs import get_config
+    return get_config("deepseek-v3-671b")
+
+
+def kernel_deepseek(torch, F, timer, rn, records):
+    """moe_ffn at DeepSeek-V3's 256 experts (the decode bucket, C 1, and
+    the largest prefill bucket) and flash_prefill at its MLA prefill shape
+    (H = Hkv = 128, D 192, Dv 128), each against its plain version; the
+    decode and prefill records join the mixtral ones as "deepseek"."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.moe_ffn import moe_ffn
+    cfg = _deepseek()
+    E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
+    by_name = {r["name"]: r for r in records}
+    # 22.5 GB of bf16 expert weights: every expert is streamed whether or
+    # not its bucket holds a token, as the TPU kernel does
+    wi = rn(E, D, 2, Fd, std=D ** -0.5)
+    wo = rn(E, Fd, D, std=Fd ** -0.5)
+    wi3 = wi.view(E, D, 2 * Fd)
+    for tokens, label in ((SERVE_PAGED["ubatch"], "decode"),
+                          (PAGED_PROMPT_LENS[1], "prefill")):
+        C = max(1, int(tokens * cfg.top_k * cfg.capacity_factor / E + 0.999))
+        x = rn(E, C, D)
+        got, want = moe_ffn(x, wi, wo), ref.moe_ffn_ref(x, wi, wo)
+        err = max_err(got, want)
+        require(close(got, want, BF16_OUT_TOL),
+                f"moe_ffn bf16 deepseek {label}: {err}")
+        del got, want
+
+        def library():
+            h = torch.bmm(x, wi3)
+            return torch.bmm(F.silu(h[..., :Fd]) * h[..., Fd:], wo)
+        bms, by = bound(2 * (2 * E * C * D + 3 * E * D * Fd),
+                        6 * E * C * D * Fd)
+        rec = {"shape": {"E": E, "C": C, "D": D, "F": Fd, "dtype": "bf16",
+                         "at": label},
+               "max_abs_err": err,
+               "ms": timer(lambda: moe_ffn(x, wi, wo), 5, 1),
+               "plain_ms": timer(lambda: ref.moe_ffn_ref(x, wi, wo), 3, 1),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": timer(library, 5, 1),
+               "library_call": "torch.bmm chain (up, silu * up, down)"}
+        emit({"phase": "kernel_bf16", "name": "moe_ffn",
+              "model": "deepseek-v3-671b", **rec})
+        by_name["moe_ffn"].setdefault("deepseek", {})[label] = rec
+    del wi, wo, wi3, x
+    torch.cuda.empty_cache()
+
+    H, dv = cfg.num_heads, cfg.v_head_dim
+    dq = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    S = PROMPT_LENS[1]
+    q, k, v = rn(1, S, H, dq), rn(1, S, H, dq), rn(1, S, H, dv)
+    kw = dict(scale=dq ** -0.5)
+    got, want = flash_prefill(q, k, v, **kw), ref.flash_prefill_ref(q, k, v,
+                                                                    **kw)
+    err = max_err(got, want)
+    require(close(got, want, BF16_OUT_TOL), f"flash_prefill bf16 D 192: {err}")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    causal_pairs = S * (S + 1) // 2
+    bms, by = bound(2 * (2 * S * H * dq + 2 * S * H * dv),
+                    2 * causal_pairs * H * (dq + dv))
+    rec = {"shape": {"B": 1, "S": S, "H": H, "Hkv": H, "D": dq, "Dv": dv,
+                     "dtype": "bf16"},
+           "max_abs_err": err,
+           "ms": timer(lambda: flash_prefill(q, k, v, **kw)),
+           "plain_ms": timer(lambda: ref.flash_prefill_ref(q, k, v, **kw)),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(sdpa_gqa(F, qt, kt, vt, 1, is_causal=True,
+                                        **kw)),
+           "library_call": "scaled_dot_product_attention, causal"}
+    emit({"phase": "kernel_bf16", "name": "flash_prefill",
+          "model": "deepseek-v3-671b", **rec})
+    by_name["flash_prefill"]["deepseek"] = {"prefill": rec}
+
+
+def mla_inputs(torch, rng, lens, H, lat, dr, bt, MB, NB, holes, dtype, rn):
+    """A decode step over a latent arena of NB blocks plus the trash block
+    (NaN, so that a read of it shows), laid out as ``paged_inputs`` lays
+    out the GQA arena.  Returns (qcat, cache, pos, new)."""
+    import numpy as np
+    B = len(lens)
+    pt = np.full((B, MB), -1, np.int32)
+    sp = np.full((NB + 1, bt), -1, np.int32)
+    perm, used = rng.permutation(NB), 0
+    for b, n in enumerate(lens):
+        for lb in range(-(-(n + 1) // bt) if n else 0):
+            if rng.random() < holes:
+                continue
+            pt[b, lb] = perm[used]
+            used += 1
+            p = lb * bt + np.arange(bt)
+            sp[pt[b, lb]] = np.where(p < n, p, -1)
+    ckv = rn(NB + 1, bt, lat, dtype=dtype)
+    kr = rn(NB + 1, bt, dr, dtype=dtype)
+    ckv[NB] = float("nan")
+    kr[NB] = float("nan")
+    cache = {"ckv": ckv, "kr": kr,
+             "slot_pos": torch.as_tensor(sp, device=DEVICE),
+             "page_table": torch.as_tensor(pt, device=DEVICE)}
+    pos = torch.as_tensor(np.asarray(lens, np.int32), device=DEVICE)
+    new = {"ckv": rn(B, 1, lat, dtype=dtype), "kr": rn(B, 1, dr, dtype=dtype)}
+    return rn(B, H, lat + dr, dtype=dtype), cache, pos, new
+
+
+def kernel_mla(torch, timer, rn):
+    """paged_mla_decode: f32 cases (blocks of 4, 8 and 16, unmapped
+    entries, a row that maps nothing, a NaN trash block; unfused and
+    fused, and fused against write-then-attend bit for bit), then bf16 at
+    DeepSeek-V3's served shape with its timings."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_mla_decode import paged_mla_decode
+    from repro_torch.models import kvcache
+    from repro_torch.models.attention import decode_valid_mask
+    rng = np.random.default_rng(SEED + 5)
+    f32 = torch.float32
+    errs = []
+    for B, H, lat, dr, bt, MB in ((3, 16, 512, 64, 16, 6),
+                                  (2, 4, 32, 8, 4, 12),
+                                  (2, 32, 128, 32, 8, 9),
+                                  (2, 128, 512, 64, 16, 5)):
+        lens = [int(n) for n in rng.integers(1, MB * bt - 1, B)]
+        if B > 2:
+            lens[0] = 0                          # maps no block at all
+        q, cache, pos, new = mla_inputs(torch, rng, lens, H, lat, dr, bt,
+                                        MB, B * MB, 0.2, f32, rn)
+        plain = zero_trash(cache)
+        kw = dict(scale=(lat // 4 + dr) ** -0.5)
+        got = ops.paged_mla_decode(q, cache, pos, **kw)
+        want = ops.paged_mla_decode(q, plain, pos, impl="ref", **kw)
+        fused = ops.paged_mla_decode_fused(q, cache, new, pos, **kw)
+        want_f = ops.paged_mla_decode_fused(q, plain, new, pos, impl="ref",
+                                            **kw)
+        after = ops.paged_mla_decode(q, cache, pos, **kw)
+        torch.cuda.synchronize()
+        for a, b in (*zip(got, want), *zip(fused, want_f)):
+            errs.append(max_err(a, b))
+            require(close(a, b, F32_TOL), f"mla f32 bt {bt}: {errs[-1]}")
+        require(all(torch.equal(a, b) for a, b in zip(fused, after)),
+                f"mla f32 bt {bt}: fused differs from write-then-attend")
+        if lens[0] == 0:
+            require(not any(bool(t[0].any()) for t in (*got, *fused)),
+                    "mla f32: a row with no block gave nonzero partials")
+    emit({"phase": "kernels_f32", "max_abs_err": {"paged_mla_decode":
+                                                  max(errs)},
+          "tol": F32_TOL, "trash": "NaN, never read",
+          "fused_equals_write_then_attend": "bit for bit"})
+
+    # bf16 at the served shape: 8 rows mid-serve over the paged engine's
+    # arena (r_c 0.4 of 16 slots x 64 blocks of 16)
+    cfg = _deepseek()
+    H, lat, dr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    bt = SERVE_PAGED["block_tokens"]
+    MB = SERVE_PAGED["max_seq"] // bt
+    slots = SERVE_PAGED["ubatch"] * SERVE_PAGED["num_ubs"]
+    NB = round(SERVE_PAGED["kv_gpu_ratio"] * slots * MB)
+    lens = [int(n) for n in rng.integers(
+        PAGED_PROMPT_LENS[0], PAGED_PROMPT_LENS[1] + NEW_TOKENS,
+        SERVE_PAGED["ubatch"])]
+    q, cache, pos, new = mla_inputs(torch, rng, lens, H, lat, dr, bt, MB, NB,
+                                    0.0, torch.bfloat16, rn)
+    plain = zero_trash(cache)
+    cn, rn_ = new["ckv"][:, 0], new["kr"][:, 0]
+    scale = (cfg.qk_nope_head_dim + dr) ** -0.5
+    args = (q, cache["ckv"], cache["kr"], cache["slot_pos"],
+            cache["page_table"], pos)
+    got = paged_mla_decode(*args, scale=scale, ckv_new=cn, kr_new=rn_)
+    want = ref.paged_mla_decode_ref(q, plain, pos, scale=scale, ckv_new=cn,
+                                    kr_new=rn_)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
+            f"paged_mla_decode bf16: {err}")
+    mapped = int((cache["page_table"] >= 0).sum())
+    valid = sum(lens) + len(lens)                # written + the fresh token
+    B = len(lens)
+    # the mapped blocks' latents and slot_pos, qcat, the fresh latents, the
+    # page table and positions read once; the f32 partials written once
+    nbytes = (mapped * bt * ((lat + dr) * 2 + 4) + 2 * B * H * (lat + dr)
+              + 2 * B * (lat + dr) + 4 * B * (MB + 1) + 4 * B * H * (lat + 2))
+    ops_ = 2 * valid * H * (lat + dr) + 2 * valid * H * lat
+    bms, by = bound(nbytes, ops_)
+
+    def library():
+        """The gather, then one matmul / masked softmax / matmul chain over
+        the gathered dense view (normalized output)."""
+        view = kvcache.paged_view(plain)
+        keys = torch.cat([view["ckv"], view["kr"]], -1)        # (B, W, 576)
+        s = torch.matmul(q, keys.transpose(1, 2)) * scale      # (B, H, W)
+        vm = decode_valid_mask(view["slot_pos"], pos, 0)
+        s = s.masked_fill(~vm[:, None, :], float("-inf"))
+        return torch.matmul(torch.softmax(s.float(), -1).to(q.dtype),
+                            view["ckv"])
+    rec = {"name": "paged_mla_decode", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/paged_mla_decode.cu",
+           "replaces": "src/repro/kernels/paged_decode.py:322",
+           "shape": {"B": B, "H": H, "lat": lat, "dr": dr, "bt": bt,
+                     "MB": MB, "arena_blocks": NB, "mapped_blocks": mapped,
+                     "valid": valid, "dtype": "bf16", "fused": True},
+           "max_abs_err": err,
+           "ms": timer(lambda: paged_mla_decode(*args, scale=scale,
+                                                ckv_new=cn, kr_new=rn_)),
+           "plain_ms": timer(lambda: ref.paged_mla_decode_ref(
+               q, plain, pos, scale=scale, ckv_new=cn, kr_new=rn_)),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(library),
+           "library_call": "kvcache.paged_view gather + torch.matmul, "
+                           "masked softmax, torch.matmul over the dense view "
+                           "(normalized output)",
+           "warm_ms": timer(lambda: paged_mla_decode(
+               *args, scale=scale, ckv_new=cn, kr_new=rn_), cold=False),
+           "cuda_core_f32_bound_ms": ops_ / CUDA_CORE_F32_OPS_PER_S * 1e3}
+    emit({"phase": "kernel_bf16", **rec})
+    return rec
 
 
 def _mixtral():
@@ -657,6 +895,7 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     families = {"moe_ffn": ("moe_up", "moe_down", "moe_reduce"),
+                "paged_mla_decode": ("mla_chunk", "mla_combine"),
                 "paged_gqa_decode": ("paged_chunk", "paged_combine"),
                 "gqa_decode": ("gqa_chunk", "gqa_combine"),
                 "flash_prefill": ("flash_prefill",),
@@ -681,10 +920,12 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests):
 def paged_copy(torch, cfg, dense, rng):
     """A batch-1 paged layout of a dense prefilled cache: a fresh arena
     whose blocks for the row (those covering its prompt and its next
-    token) sit at physical blocks scattered over the arena."""
+    token) sit at physical blocks scattered over the arena; the rings that
+    stay dense (the prologue's) are copied."""
     from repro_torch.models import kvcache
     bt = SERVE_PAGED["block_tokens"]
-    MB = SERVE["max_seq"] // bt
+    keys = kvcache.paged_period_keys(cfg)
+    MB = dense[keys[0]]["slot_pos"].shape[-1] // bt
     nb = 4 * MB
     arena = kvcache.init_paged_arena(cfg, nb, bt, device=DEVICE)
     n = int(dense["pos"][0]) + 1
@@ -692,7 +933,8 @@ def paged_copy(torch, cfg, dense, rng):
     pt[0, :-(-n // bt)] = torch.as_tensor(
         rng.permutation(nb)[:-(-n // bt)].astype("int32"))
     ptl = pt.to(DEVICE).expand((cfg.num_periods, 1, MB))
-    cache = {"pos": dense["pos"].clone()}
+    cache = {k: (clone_cache(v) if isinstance(v, dict) else v.clone())
+             for k, v in dense.items() if k not in arena}
     for key, g in arena.items():
         cache[key] = {**g, "page_table": ptl}
     return kvcache.insert_slot(cache, dense, 0)
@@ -779,6 +1021,111 @@ def phase_check(torch, np, cfg, params, prompts, eng, eng_paged):
             f"kernel path logits differ from the plain path: {worst}")
 
 
+def phase_serve_mla(torch, np, ops):
+    """DeepSeek-V3 at full width, 5 of its 61 layers (the 3 dense-FFN
+    prologue layers and 2 MoE layers), over the block-paged latent arena
+    with its pinned host tier; the prologue's latent rings stay dense."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(_deepseek(), num_layers=MLA_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = Engine(cfg, params, EngineConfig(**SERVE_PAGED),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    prompts, res = serve_run(torch, np, eng, ops, PAGED_PROMPT_LENS,
+                             N_REQUESTS, SEED + 4)
+    traffic = eng.kv_traffic()
+    preempted = sum(r.preemptions for r in eng.scheduler.requests.values())
+    weight_bytes = sum(t.nbytes for t in _leaves(params))
+    emit({"phase": "serve_mla", "model": "deepseek-v3-671b",
+          "layers": MLA_LAYERS, "of_layers": _deepseek().num_layers,
+          "params": count_params(cfg), "weight_bytes": weight_bytes,
+          "init_s": init_s, "engine": SERVE_PAGED, **res,
+          "preemptions": preempted, "arena_bytes": traffic["arena_bytes"],
+          "dense_equiv_bytes": traffic["dense_equiv_bytes"],
+          "h2d_bytes": traffic["h2d_bytes"],
+          "d2h_bytes": traffic["d2h_bytes"], "kv_traffic": traffic})
+    launches = res["launches"]
+    require(traffic["spills"] > 0 and traffic["misses"] > 0
+            and traffic["prefetches"] > 0,
+            f"the host tier was not exercised: {traffic}")
+    require(all(launches[k] > 0 for k in
+                ("moe_ffn", "paged_mla_decode", "flash_prefill")),
+            f"a kernel of the MLA path never launched: {launches}")
+    require(launches["gqa_decode"] == launches["paged_gqa_decode"] == 0,
+            f"the MLA path ran a GQA decode kernel: {launches}")
+    return eng, prompts[:2], launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def phase_check_mla(torch, np, cfg, params, prompts):
+    """Prefill and decode logits of the MLA model through the kernels
+    against the plain path, on the dense cache and on a paged latent arena
+    with a scattered page table.  The plain path runs the attention
+    kernels' plain versions and the grouped MoE's plain einsums in bf16:
+    moe_ffn's plain version casts a layer's 22.5 GB of expert weights to
+    f32 (45 GB), which the card cannot hold beside the model; the kernel
+    phase holds moe_ffn against it at this shape."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import ExecPolicy, forward, unembed
+    from repro_torch.serving import steps
+
+    pols = {"auto": ExecPolicy(moe_impl="grouped", use_kernels=True),
+            "ref": ExecPolicy(moe_impl="grouped", use_kernels=False,
+                              impl="ref")}
+    worst = {"prefill": 0.0, "decode": 0.0, "decode_paged": 0.0}
+    rng = np.random.default_rng(SEED + 6)
+    for prompt in prompts:
+        outs = {}
+        for impl, pol in pols.items():
+            cache = kvcache.init_cache(cfg, 1, SERVE_PAGED["max_seq"],
+                                       device=DEVICE)
+            tok = torch.as_tensor(prompt[None].astype("int32"),
+                                  device=DEVICE)
+            lens = torch.tensor([len(prompt)], dtype=torch.int32,
+                                device=DEVICE)
+            logits, cache = steps.make_prefill_fill_step(cfg, pol)(
+                params, tok, cache, lens)
+            outs[impl] = {"prefill": logits, "cache": cache}
+        # one decode step, both paths fed the kernel path's greedy token;
+        # on the paged layout both read the same arena and page table
+        first = torch.argmax(outs["auto"]["prefill"], -1).to(
+            torch.int32)[:, None]
+        paged = paged_copy(torch, cfg, outs["auto"]["cache"], rng)
+        for impl, o in outs.items():
+            fwd = forward(cfg, params, first, cache=clone_cache(paged),
+                          mode="decode", policy=pols[impl])
+            o["decode_paged"] = unembed(cfg, params, fwd["hidden"][:, -1])
+            fwd = forward(cfg, params, first, cache=o["cache"],
+                          mode="decode", policy=pols[impl])
+            o["decode"] = unembed(cfg, params, fwd["hidden"][:, -1])
+        for key in worst:
+            a, b = outs["auto"][key], outs["ref"][key]
+            require(bool(torch.isfinite(a).all()) and a.shape == b.shape
+                    == (1, cfg.vocab_size), f"bad MLA {key} logits")
+            worst[key] = max(worst[key], max_err(a, b))
+    emit({"phase": "check_mla", "prompts": len(prompts),
+          "prompt_tokens": [len(p) for p in prompts],
+          "max_abs_logit_diff": worst, "tol": LOGIT_TOL})
+    require(all(v <= LOGIT_TOL for v in worst.values()),
+            f"MLA kernel path logits differ from the plain path: {worst}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -803,14 +1150,25 @@ def main() -> int:
     phase_trace(torch, np, eng, "dense", PROMPT_LENS, 8)
     phase_trace(torch, np, eng_paged, "paged", PAGED_PROMPT_LENS, 16)
     phase_check(torch, np, eng.cfg, eng.params, prompts, eng, eng_paged)
+    # the DeepSeek phase needs the card's memory: mixtral goes first
+    del eng, eng_paged
+    gc.collect()
+    eng_mla, mla_prompts, launches_mla = phase_serve_mla(torch, np, ops)
+    phase_trace(torch, np, eng_mla, "mla", PAGED_PROMPT_LENS, 16)
+    phase_check_mla(torch, np, eng_mla.cfg, eng_mla.params, mla_prompts)
 
+    by_path = {"paged_gqa_decode": launches_paged,
+               "paged_mla_decode": launches_mla}
     for rec in records:
-        rec["launches"] = (launches_paged if rec["name"] == "paged_gqa_decode"
-                           else launches)[rec["name"]]
+        rec["launches"] = by_path.get(rec["name"], launches)[rec["name"]]
+        if "deepseek" in rec:
+            rec["deepseek"]["launches"] = launches_mla[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "shape")
-    emit({"kernels": [{k: r[k] for k in keys} for r in records]})
+    emit({"kernels": [{**{k: r[k] for k in keys},
+                       **({"deepseek": r["deepseek"]} if "deepseek" in r
+                          else {})} for r in records]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Architecture registry of the PyTorch port: ``get_config("mixtral-8x7b")``.
 
 The port carries the configs its slices run: the paper's own model
-(mixtral-8x7b) and the dense qwen2.5-3b.  ``get_config(arch).smoke()`` is
-the reduced same-family config the CPU tests use.
+(mixtral-8x7b), the dense qwen2.5-3b and the MLA model deepseek-v3-671b.
+``get_config(arch).smoke()`` is the reduced same-family config the CPU tests
+use.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from repro_torch.configs.base import (ModelConfig, ShapeConfig, SHAPES,
 _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)

@@ -17,13 +17,15 @@ from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import gqa_decode as _gqa
 from repro_torch.kernels import moe_ffn as _moe
 from repro_torch.kernels import paged_decode as _paged
+from repro_torch.kernels import paged_mla_decode as _mla
 from repro_torch.kernels import ref as _ref
 from repro_torch.models import kvcache as _kvcache
 
 IMPLS = ("auto", "ref")
 KERNELS = {"moe_ffn": _moe.moe_ffn, "gqa_decode": _gqa.gqa_decode,
            "flash_prefill": _fp.flash_prefill,
-           "paged_gqa_decode": _paged.paged_gqa_decode}
+           "paged_gqa_decode": _paged.paged_gqa_decode,
+           "paged_mla_decode": _mla.paged_mla_decode}
 
 
 def _check_impl(impl: str) -> None:
@@ -98,6 +100,38 @@ def paged_gqa_decode_fused(q, layer_cache, new, pos, *, scale: float,
         q, layer_cache["k"], layer_cache["v"], layer_cache["slot_pos"],
         layer_cache["page_table"], pos, k_new=new["k"][:, 0].to(dt),
         v_new=new["v"][:, 0].to(dt), **kw)
+    _kvcache._decode_scatter(layer_cache, new, pos)
+    return part
+
+
+def paged_mla_decode(qcat, layer_cache, pos, *, scale: float,
+                     impl: str = "auto"):
+    """Absorbed-MLA paged decode partials over the latent arena, straight
+    through the page table.  qcat: (B,H,lat+dr); layer_cache: ``ckv``
+    (NB+1,bt,lat), ``kr`` (NB+1,bt,dr), ``slot_pos`` (NB+1,bt),
+    ``page_table`` (B,MB).  The attended value is the latent itself."""
+    _check_impl(impl)
+    if impl == "ref":
+        return _ref.paged_mla_decode_ref(qcat, layer_cache, pos, scale=scale)
+    return _mla.paged_mla_decode(
+        qcat, layer_cache["ckv"], layer_cache["kr"], layer_cache["slot_pos"],
+        layer_cache["page_table"], pos, scale=scale)
+
+
+def paged_mla_decode_fused(qcat, layer_cache, new, pos, *, scale: float,
+                           impl: str = "auto"):
+    """Fused decode-write paged MLA (see ``paged_gqa_decode_fused``).
+    new: ``ckv`` (B,1,lat) / ``kr`` (B,1,dr).  Returns the partials."""
+    _check_impl(impl)
+    if impl == "ref":
+        _kvcache._decode_scatter(layer_cache, new, pos)
+        return _ref.paged_mla_decode_ref(qcat, layer_cache, pos, scale=scale)
+    dt = layer_cache["ckv"].dtype
+    part = _mla.paged_mla_decode(
+        qcat, layer_cache["ckv"], layer_cache["kr"], layer_cache["slot_pos"],
+        layer_cache["page_table"], pos, scale=scale,
+        ckv_new=new["ckv"][:, 0].to(dt).contiguous(),
+        kr_new=new["kr"][:, 0].to(dt).contiguous())
     _kvcache._decode_scatter(layer_cache, new, pos)
     return part
 

@@ -33,6 +33,23 @@ def gqa_decode_ref(q, k, v, valid, *, scale: float, attn_softcap: float = 0.0):
                               attn_softcap=attn_softcap)
 
 
+def _merge_fresh(ring, page_table, pos, fresh):
+    """The fused form's merge: each row's fresh token (``fresh[name]``,
+    one row per batch row, in the arena dtype) written into the gathered
+    view at ring position pos % W where that block is mapped, with its
+    slot_pos set to pos — what the view holds after the arena scatter."""
+    W = ring["slot_pos"].shape[1]
+    bt = W // page_table.shape[1]
+    i = (pos % W).long()
+    hit = torch.gather(page_table, 1, (i // bt)[:, None])[:, 0] >= 0
+    b = torch.arange(i.shape[0], device=i.device)
+    for name, tok in fresh.items():
+        sel = hit.reshape((-1,) + (1,) * (tok.dim() - 1))
+        ring[name][b, i] = torch.where(sel, tok, ring[name][b, i])
+    ring["slot_pos"][b, i] = torch.where(hit, pos.to(torch.int32),
+                                         ring["slot_pos"][b, i])
+
+
 def paged_gqa_decode_ref(q, layer_cache, pos, *, scale: float,
                          attn_softcap: float = 0.0, window: int = 0,
                          k_new=None, v_new=None):
@@ -50,20 +67,35 @@ def paged_gqa_decode_ref(q, layer_cache, pos, *, scale: float,
                                               decode_valid_mask)
     ring = kvcache.paged_view(layer_cache)
     if k_new is not None:
-        pt = layer_cache["page_table"]
-        W = ring["slot_pos"].shape[1]
-        bt = W // pt.shape[1]
-        i = (pos % W).long()
-        hit = torch.gather(pt, 1, (i // bt)[:, None])[:, 0] >= 0
-        b = torch.arange(i.shape[0], device=i.device)
-        for name, tok in (("k", k_new), ("v", v_new)):
-            ring[name][b, i] = torch.where(hit[:, None, None], tok,
-                                           ring[name][b, i])
-        ring["slot_pos"][b, i] = torch.where(hit, pos.to(torch.int32),
-                                             ring["slot_pos"][b, i])
+        _merge_fresh(ring, layer_cache["page_table"], pos,
+                     {"k": k_new, "v": v_new})
     valid = decode_valid_mask(ring["slot_pos"], pos, window)
     return attention_partials(q, ring["k"], ring["v"], valid, scale=scale,
                               attn_softcap=attn_softcap)
+
+
+def paged_mla_decode_ref(qcat, layer_cache, pos, *, scale: float,
+                         ckv_new=None, kr_new=None):
+    """The absorbed-MLA paged-decode plain version: the dense latent ring
+    view of the mapped blocks, key = concat(ckv, kr) as one kv head shared
+    by every query head, value = the latent ckv.  qcat: (B,H,lat+dr);
+    layer_cache: arena ``ckv`` (NB+1,bt,lat), ``kr`` (NB+1,bt,dr),
+    ``slot_pos`` (NB+1,bt), ``page_table`` (B,MB); pos: (B,).  Returns
+    partials (o_unnorm (B,H,lat) f32, m, l).
+
+    The fused form passes the fresh latents ckv_new (B,lat) / kr_new
+    (B,dr) in the arena dtype, merged as in ``paged_gqa_decode_ref``."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.attention import (attention_partials,
+                                              decode_valid_mask)
+    ring = kvcache.paged_view(layer_cache)
+    if ckv_new is not None:
+        _merge_fresh(ring, layer_cache["page_table"], pos,
+                     {"ckv": ckv_new, "kr": kr_new})
+    valid = decode_valid_mask(ring["slot_pos"], pos, 0)
+    kcat = torch.cat([ring["ckv"], ring["kr"]], -1)[:, :, None, :]
+    return attention_partials(qcat, kcat.to(qcat.dtype),
+                              ring["ckv"][:, :, None, :], valid, scale=scale)
 
 
 def flash_prefill_ref(q, k, v, kv_len=None, *, causal: bool = True,

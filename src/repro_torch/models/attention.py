@@ -1,14 +1,15 @@
-"""GQA attention of the PyTorch port (``repro/models/attention.py``), in the
-``full`` (train / prefill with an optional ring write) and ``decode`` modes.
+"""Attention blocks of the PyTorch port (``repro/models/attention.py``): GQA
+and DeepSeek-style MLA, in the ``full`` (train / prefill with an optional
+ring write) and ``decode`` modes.
 
 Decode attention is expressed through partials (unnormalized output,
-running max, running denominator), the contract of the flash-decode kernel.
-Decode over the dense ring runs the flash-decode kernel where the JAX
+running max, running denominator), the contract of the flash-decode kernels.
+GQA decode over the dense ring runs the flash-decode kernel where the JAX
 reference runs the plain ``attention_partials``; decode over the block-paged
-arena runs the paged flash-decode kernel in its fused decode-write form, as
-the reference does; and full-mode prefill runs the flash-prefill kernel
-where the reference runs ``chunked_attention``; ``impl="ref"`` runs those
-plain versions instead (``kernels/ops.py``).
+arena runs the paged flash-decode kernels (GQA and absorbed MLA) in their
+fused decode-write form, as the reference does; and full-mode prefill runs
+the flash-prefill kernel where the reference runs ``chunked_attention``;
+``impl="ref"`` runs those plain versions instead (``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 from repro_torch.configs.base import ATTN_MLA, ATTN_WINDOW, LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache
-from repro_torch.models.common import NEG_INF, apply_rope, softcap
+from repro_torch.models.common import NEG_INF, apply_rope, rmsnorm, softcap
 
 
 def attention_partials(q, k, v, valid, *, scale: float,
@@ -70,8 +71,6 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
     """x: (B,S,E).  mode: 'full' (train / prefill, writing the ring when a
     cache is given) or 'decode' (S == 1: write the ring, then attend over
     it).  Returns (out, layer_cache); the cache is updated in place."""
-    if spec.attn == ATTN_MLA:
-        raise NotImplementedError("MLA attention is not ported yet")
     B, S, E = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = cfg.query_scale or Dh ** -0.5
@@ -114,3 +113,90 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
         raise ValueError(f"attention mode {mode!r} is not ported")
     out = _proj(o.reshape(B, S, H * Dh), p["wo"])
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V3).
+#
+# Prefill uses the naive (decompressed) form; decode uses the absorbed form
+# — W_uk folded into the query and W_uv applied after attention over the
+# latent cache — so the per-token cache is kv_lora + rope values and decode
+# attends over the compressed latents.
+# ---------------------------------------------------------------------------
+
+def mla_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
+                cache: Optional[Dict], mode: str, pos=None,
+                causal: bool = True, impl: str = "auto"):
+    """x: (B,S,E); modes as `gqa_forward`.  Returns (out, layer_cache)."""
+    B, S, E = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    lat = cfg.kv_lora_rank
+    scale = (dn + dr) ** -0.5
+
+    cq = rmsnorm(_proj(x, p["wdq"]), p["q_norm"], cfg.norm_eps)
+    q = _proj(cq, p["wuq"]).reshape(B, S, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    ckv = rmsnorm(_proj(x, p["wdkv"]), p["kv_norm"], cfg.norm_eps)  # (B,S,r)
+    kr = _proj(x, p["wkr"]).reshape(B, S, 1, dr)
+    kr = apply_rope(kr, positions, cfg.rope_theta)[:, :, 0]         # (B,S,dr)
+    wuk = p["wuk"].reshape(lat, H, dn)
+    wuv = p["wuv"].reshape(lat, H, dv)
+
+    if mode == "decode":
+        if S != 1 or cache is None:
+            raise ValueError("decode attends one token per row over a cache")
+        # absorbed queries: q_lat (B,H,r) = q_nope @ W_uk^T, in f32; the
+        # rope half joins along the latent axis, so that the score is
+        # q_lat . ckv + q_rope . kr, and qcat is cast to the activations'
+        # dtype as in the reference
+        q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(),
+                             wuk.float())
+        qcat = torch.cat([q_lat, q_rope[:, 0].float()], -1).to(x.dtype)
+        new = {"ckv": ckv, "kr": kr}
+        if kvcache.is_paged(cache):
+            # the paged latent arena: fused decode-write through the page
+            # table (the kernel merges the fresh latent into its block,
+            # then the arena scatter runs)
+            part = ops.paged_mla_decode_fused(qcat, cache, new, pos,
+                                              scale=scale, impl=impl)
+        else:
+            # the dense latent rings of the prologue layers: the plain
+            # partials, as in the reference.  The dense flash-decode
+            # kernel does not take this shape: its group of G = 128 query
+            # heads against one latent head of D = 576 would need
+            # 128 * (576 + 64) * 4 bytes = 327 KB of shared memory per
+            # block, above the 227 KB a Hopper block may have
+            kvcache.write_decode(cache, new, pos)
+            valid = decode_valid_mask(cache["slot_pos"], pos, 0)
+            kcat = torch.cat([cache["ckv"], cache["kr"]], -1)[:, :, None, :]
+            part = attention_partials(qcat, kcat.to(x.dtype),
+                                      cache["ckv"][:, :, None, :], valid,
+                                      scale=scale)
+        o_lat = combine_partials(*part)                      # (B,H,r) f32
+        # decompress with W_uv, in f32
+        o = torch.einsum("bhr,rhd->bhd", o_lat, wuv.float())
+        o = o[:, None].to(x.dtype)                           # (B,1,H,dv)
+    elif mode == "full":
+        k_nope = torch.einsum("bsr,rhd->bshd", ckv, wuk.to(ckv.dtype))
+        v = torch.einsum("bsr,rhd->bshd", ckv, wuv.to(ckv.dtype))
+        k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, dr)], -1)
+        qfull = torch.cat([q_nope, q_rope], -1)
+        o = ops.flash_prefill(qfull, k, v.contiguous(), causal=causal,
+                              scale=scale, impl=impl)
+        if cache is not None:    # prefill: persist the latents into the ring
+            seq_pos = (positions if positions.ndim == 1
+                       else positions[0]).to(torch.int32)
+            kvcache.write_prefill(cache, {"ckv": ckv, "kr": kr}, seq_pos)
+    else:
+        raise ValueError(f"attention mode {mode!r} is not ported")
+    out = _proj(o.reshape(B, S, H * dv), p["wo"])
+    return out, cache
+
+
+def attn_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions,
+                 **kw):
+    if spec.attn == ATTN_MLA:
+        return mla_forward(cfg, spec, p, x, positions, **kw)
+    return gqa_forward(cfg, spec, p, x, positions, **kw)

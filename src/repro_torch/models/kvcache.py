@@ -5,30 +5,34 @@ A cache is a plain nested dict with the JAX package's layout:
 
   cache = {
     "pos":  (B,) int32 — current sequence length per row,
-    "p{i}": per period position, stacked over its layers:
-        {"k": (L,B,W,Hkv,Dh), "v": (L,B,W,Hkv,Dh), "slot_pos": (L,B,W) int32}
+    "p{i}": per period position, stacked over its layers, one of
+        kv:  {"k": (L,B,W,Hkv,Dh), "v": ..., "slot_pos": (L,B,W) int32}
+        mla: {"ckv": (L,B,W,kv_lora), "kr": (L,B,W,rope), "slot_pos": ...}
+    "prologue": the same for the non-periodic leading layers (stacked
+        over them), when the architecture has any
   }
 
 W is the ring width: ``min(window, max_seq)`` for sliding-window layers,
 ``max_seq`` otherwise.  ``slot_pos`` holds the absolute position stored in
 each ring slot (-1 = empty), which makes masking exact for full and windowed
-layers alike.
+layers alike.  An MLA layer caches one compressed latent ``ckv`` and one
+rope key ``kr`` per token, shared by every head.
 
 Unlike the JAX package, whose arrays are immutable, the writes and slot
 operations here update the cache tensors in place (and return the cache for
 symmetry): the pool is allocated once and each decode step touches one slot
 per row, so copying it per step would waste memory and bandwidth.
 
-Block-granular paged pool (the ``r_c`` execution path): full-attention
-period positions can swap their per-slot dense rings for one shared
+Block-granular paged pool (the ``r_c`` execution path): full-attention kv
+and mla period positions can swap their per-slot dense rings for one shared
 **arena** of fixed-size token blocks plus a
 ``(slot, logical_block) → physical_block`` page table
 (``init_paged_arena`` / ``paged_view`` / ``write_decode_paged``; the slot
 ops below are paged-aware).  A paged layer cache is recognized by its
 ``page_table`` leaf.  The arena's last physical block is the **trash
 block**: the scatter target for rows/positions with no mapped block — its
-contents are never read.  int8 KV and the SSM / MLA caches are later
-slices.
+contents are never read.  The prologue's rings stay dense.  int8 KV and the
+SSM caches are later slices.
 """
 from __future__ import annotations
 
@@ -47,6 +51,26 @@ def layer_cache_width(cfg: ModelConfig, spec: LayerSpec, max_seq: int) -> int:
     return max_seq
 
 
+def _spec_cache(cfg: ModelConfig, spec: LayerSpec, stack: int, batch: int,
+                max_seq: int, dtype, device: torch.device) -> Dict:
+    """The empty ring of one period position (or of the prologue),
+    stacked over its `stack` layers."""
+    kind = spec.cache_kind()
+    W = layer_cache_width(cfg, spec, max_seq)
+    if kind == "mla":
+        data = {"ckv": (cfg.kv_lora_rank,), "kr": (cfg.qk_rope_head_dim,)}
+    elif kind == "kv":
+        data = {name: (cfg.num_kv_heads, cfg.head_dim) for name in ("k", "v")}
+    else:
+        raise NotImplementedError(f"{kind} caches are not ported yet")
+    out = {name: torch.zeros((stack, batch, W) + tail, dtype=dtype,
+                             device=device)
+           for name, tail in data.items()}
+    out["slot_pos"] = torch.full((stack, batch, W), -1, dtype=torch.int32,
+                                 device=device)
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
                skip_keys=(), device: DeviceLike = None) -> Dict:
     """An empty cache of `batch` rows (slot_pos = -1, pos = 0).
@@ -56,25 +80,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
     dtype = dtype or torch_dtype(cfg.dtype)
     if cfg.kv_dtype == "int8":
         raise NotImplementedError("int8 KV is not ported yet")
-    if cfg.prologue or cfg.encoder_layers:
-        raise NotImplementedError("prologue / encoder caches are not ported")
+    if cfg.encoder_layers:
+        raise NotImplementedError("encoder caches are not ported")
     cache: Dict = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                       device=device)}
-    L = cfg.num_periods
     for i, spec in enumerate(cfg.period):
-        if f"p{i}" in skip_keys:
-            continue
-        if spec.cache_kind() != "kv":
-            raise NotImplementedError(
-                f"{spec.cache_kind()} caches are not ported yet")
-        W = layer_cache_width(cfg, spec, max_seq)
-        shape = (L, batch, W, cfg.num_kv_heads, cfg.head_dim)
-        cache[f"p{i}"] = {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "slot_pos": torch.full((L, batch, W), -1, dtype=torch.int32,
-                                   device=device),
-        }
+        if f"p{i}" not in skip_keys:
+            cache[f"p{i}"] = _spec_cache(cfg, spec, cfg.num_periods, batch,
+                                         max_seq, dtype, device)
+    if cfg.prologue:
+        cache["prologue"] = _spec_cache(cfg, cfg.prologue[0],
+                                        len(cfg.prologue), batch, max_seq,
+                                        dtype, device)
     return cache
 
 
@@ -84,15 +101,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
 # positions; a (slot, logical_block) -> physical_block page table (managed
 # host-side by core.blockpool, uploaded per dispatch) maps each slot's
 # logical ring onto arena blocks.  Decode attention reads the arena
-# straight through the page table (kernels.ops.paged_gqa_decode_fused);
-# `paged_view` gathers the dense ring view its plain version runs on.
+# straight through the page table (kernels.ops.paged_gqa_decode_fused
+# and kernels.ops.paged_mla_decode_fused); `paged_view` gathers the dense
+# ring view their plain versions run on.
 #
 # Arena layout, head-major with the block axis inside the head axis:
 #
-#   k / v     (Hkv, NB+1, bt, D)     [stacked: (L, Hkv, NB+1, bt, D)]
-#   slot_pos  (NB+1, bt)             [stacked: (L, NB+1, bt)]
+#   k / v      (Hkv, NB+1, bt, D)     [stacked: (L, Hkv, NB+1, bt, D)]
+#   slot_pos   (NB+1, bt)             [stacked: (L, NB+1, bt)]
+#   ckv / kr   (NB+1, bt, lat|dr)     (MLA latents have no head axis)
 #
-# so one (head, block) tile is a contiguous (bt, D) slab at every bt.
+# so one (head, block) tile is a contiguous (bt, D) slab at every bt, and
+# one MLA block is a contiguous (bt, lat) latent slab.
 # ---------------------------------------------------------------------------
 
 _HEAD_MAJOR = ("k", "v")
@@ -132,10 +152,11 @@ def _to_arena_tile(name, blk):
 
 def paged_period_keys(cfg: ModelConfig) -> tuple:
     """Period positions whose KV ring is block-pageable: full-attention kv
-    layers.  Sliding-window rings are exempt (the ring already bounds
-    their footprint at `window`)."""
+    and mla layers.  Sliding-window rings are exempt (the ring already
+    bounds their footprint at `window`); prologue layers stay dense."""
     return tuple(f"p{i}" for i, spec in enumerate(cfg.period)
-                 if spec.cache_kind() == "kv" and spec.attn != ATTN_WINDOW)
+                 if spec.cache_kind() in ("kv", "mla")
+                 and spec.attn != ATTN_WINDOW)
 
 
 def init_paged_arena(cfg: ModelConfig, device_blocks: int,
@@ -146,11 +167,15 @@ def init_paged_arena(cfg: ModelConfig, device_blocks: int,
     (device_blocks + 1) blocks of `block_tokens` ring slots, in the
     head-major layout above.  Block index `device_blocks` is the trash
     block."""
-    dense = init_cache(cfg, device_blocks + 1, block_tokens, dtype,
-                       device=device)
-    return {key: {name: retile_arena_leaf(name, a, stacked=True)
-                  .contiguous() for name, a in dense[key].items()}
-            for key in paged_period_keys(cfg)}
+    device = resolve_device(device)
+    dtype = dtype or torch_dtype(cfg.dtype)
+    arena = {}
+    for key in paged_period_keys(cfg):
+        dense = _spec_cache(cfg, cfg.period[int(key[1:])], cfg.num_periods,
+                            device_blocks + 1, block_tokens, dtype, device)
+        arena[key] = {name: retile_arena_leaf(name, a, stacked=True)
+                      .contiguous() for name, a in dense.items()}
+    return arena
 
 
 def is_paged(layer_cache: Dict) -> bool:
@@ -199,13 +224,14 @@ def decode_scatter_target(layer_cache: Dict, pos):
 
 
 def _decode_scatter(layer_cache: Dict, new: Dict, pos) -> Dict:
-    """Write one token per row (new[name]: (B, 1, Hkv, D)) into the arena
+    """Write one token per row (new[name]: (B, 1, Hkv, D), or (B, 1, lat)
+    for an MLA latent) into the arena
     block its page table maps for ring position pos % W, in place; rows
     with no mapped block there write the trash block."""
     pb, off = decode_scatter_target(layer_cache, pos)
     for name, val in new.items():
         buf = layer_cache[name]
-        tok = val[:, 0].to(buf.dtype)                   # (B, Hkv, D)
+        tok = val[:, 0].to(buf.dtype)              # (B, Hkv, D) | (B, lat)
         if name in _HEAD_MAJOR:
             buf[:, pb, off] = torch.movedim(tok, 0, 1)
         else:
@@ -216,8 +242,8 @@ def _decode_scatter(layer_cache: Dict, new: Dict, pos) -> Dict:
 
 def write_decode_paged(layer_cache: Dict, new: Dict, pos) -> Dict:
     """Paged analogue of `write_decode`.  The decode path does not call
-    it: ``kernels.ops.paged_gqa_decode_fused`` attends over the fresh token
-    and performs the same scatter in one step."""
+    it: ``kernels.ops.paged_gqa_decode_fused`` / ``paged_mla_decode_fused``
+    attend over the fresh token and perform the same scatter in one step."""
     return _decode_scatter(layer_cache, new, pos)
 
 

@@ -1,6 +1,7 @@
 """Model assembly of the PyTorch port (``repro/models/model.py``):
-embedding → periodic blocks → final norm → unembed, for the attention
-families the port runs (GQA attention with dense or MoE FFNs).
+embedding → prologue blocks → periodic blocks → final norm → unembed, for
+the attention families the port runs (GQA and MLA attention with dense or
+MoE FFNs).
 
 JAX's ``lax.scan`` over the stacked layers becomes a Python loop over layer
 slices: each layer's parameters and cache are views into the stacked
@@ -17,7 +18,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.models.attention import gqa_forward
+from repro_torch.models.attention import attn_forward
 from repro_torch.models.common import act_fn, apply_norm, softcap
 from repro_torch.models.moe import gated_ffn, moe_apply
 
@@ -46,9 +47,9 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
     """One layer.  Returns (x, aux_loss); a given cache is written in place."""
     aux = 0.0
     h = apply_norm(cfg, p.get("attn_norm", {}), x)
-    y, _ = gqa_forward(cfg, spec, p["attn"], h, positions, cache=cache,
-                       mode=mode, pos=pos,
-                       impl=policy.impl if policy else "auto")
+    y, _ = attn_forward(cfg, spec, p["attn"], h, positions, cache=cache,
+                        mode=mode, pos=pos,
+                        impl=policy.impl if policy else "auto")
     if cfg.post_block_norm:
         y = apply_norm(cfg, p["post_attn_norm"], y)
     x = x + y
@@ -84,9 +85,10 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
 
     prefill writes the prompt's KV into the cache ring at positions 0..S-1;
     decode reads and writes it at each row's ``cache["pos"]``.  The cache
-    is updated in place and returned (its "pos" advances by S, or 1)."""
-    if cfg.prologue or cfg.encoder_layers or cfg.vision_tokens \
-            or cfg.pos == "learned":
+    is updated in place and returned (its "pos" advances by S, or 1).
+    The prologue's layers (``params["prologue"]["p0"]``, with their dense
+    rings in ``cache["prologue"]``) run before the periodic stack."""
+    if cfg.encoder_layers or cfg.vision_tokens or cfg.pos == "learned":
         raise NotImplementedError(f"{cfg.name}: not ported yet")
     B, S = tokens.shape
     if mode == "decode":
@@ -102,15 +104,18 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
 
     x = embed_tokens(cfg, params, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in range(cfg.num_periods):
-        for i, spec in enumerate(cfg.period):
-            key = f"p{i}"
-            x, aux = block_apply(
-                cfg, spec, _layer(params["blocks"][key], layer), x,
-                positions=positions,
-                cache=_layer(cache[key], layer) if cache is not None else None,
-                mode=run_mode, pos=pos, policy=policy)
-            aux_total = aux_total + aux
+    # the prologue's layers share its first spec, as they share one stack
+    stacks = [(cfg.prologue[0], params["prologue"]["p0"], "prologue", layer)
+              for layer in range(len(cfg.prologue))]
+    stacks += [(spec, params["blocks"][f"p{i}"], f"p{i}", layer)
+               for layer in range(cfg.num_periods)
+               for i, spec in enumerate(cfg.period)]
+    for spec, p, key, layer in stacks:
+        x, aux = block_apply(
+            cfg, spec, _layer(p, layer), x, positions=positions,
+            cache=_layer(cache[key], layer) if cache is not None else None,
+            mode=run_mode, pos=pos, policy=policy)
+        aux_total = aux_total + aux
     if cache is not None:
         cache["pos"] = cache["pos"] + (1 if mode == "decode" else S)
 

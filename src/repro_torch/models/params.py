@@ -11,8 +11,10 @@ Stacking matches the JAX package: the layers of each position in the
 repeating period are stacked on a leading "layers" axis, so the keys,
 shapes and stacking of both packages are the same (``models.convert``
 moves JAX weights over leaf by leaf).  The port covers the attention
-families it runs — GQA attention with dense or MoE FFNs; MLA, mamba,
-prologue and encoder layers raise until their slice is ported.
+families it runs — GQA and MLA attention with dense or MoE FFNs, and the
+non-periodic prologue layers (stacked under ``params["prologue"]["p0"]``);
+mamba, cross-attention and encoder layers raise until their slice is
+ported.
 """
 from __future__ import annotations
 
@@ -62,9 +64,25 @@ def _norm_def(cfg: ModelConfig, stack: int) -> Dict[str, ParamDef]:
 
 
 def _attn_defs(cfg: ModelConfig, spec: LayerSpec, stack: int) -> Dict[str, ParamDef]:
-    if spec.attn == ATTN_MLA:
-        raise NotImplementedError("MLA attention is not ported yet")
     E, Dh = cfg.d_model, cfg.head_dim
+    if spec.attn == ATTN_MLA:
+        qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        return {
+            "wdq": _lin(E, cfg.q_lora_rank, "embed", "lora", stack),
+            "q_norm": _vec(cfg.q_lora_rank, None, "ones", stack),
+            "wuq": _lin(cfg.q_lora_rank, cfg.num_heads * qk_dim, "lora",
+                        "heads", stack),
+            "wdkv": _lin(E, cfg.kv_lora_rank, "embed", "lora", stack),
+            "kv_norm": _vec(cfg.kv_lora_rank, None, "ones", stack),
+            "wkr": _lin(E, cfg.qk_rope_head_dim, "embed", None, stack),
+            "wuk": _lin(cfg.kv_lora_rank,
+                        cfg.num_heads * cfg.qk_nope_head_dim, "lora",
+                        "heads", stack),
+            "wuv": _lin(cfg.kv_lora_rank, cfg.num_heads * cfg.v_head_dim,
+                        "lora", "heads", stack),
+            "wo": _lin(cfg.num_heads * cfg.v_head_dim, E, "heads", "embed",
+                       stack),
+        }
     d = {
         "wq": _lin(E, cfg.num_heads * Dh, "embed", "heads", stack),
         "wk": _lin(E, cfg.num_kv_heads * Dh, "embed", "kv_heads", stack),
@@ -141,8 +159,8 @@ def _block_defs(cfg: ModelConfig, spec: LayerSpec, stack: int) -> Dict:
 
 
 def param_defs(cfg: ModelConfig) -> Dict:
-    if cfg.prologue or cfg.encoder_layers:
-        raise NotImplementedError("prologue / encoder layers are not ported")
+    if cfg.encoder_layers:
+        raise NotImplementedError("encoder layers are not ported")
     defs: Dict = {
         "embed": {"tokens": ParamDef((cfg.vocab_size, cfg.d_model),
                                      ("vocab", "embed"), "embed",
@@ -151,6 +169,10 @@ def param_defs(cfg: ModelConfig) -> Dict:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = _lin(cfg.d_model, cfg.vocab_size, "embed", "vocab")
+    if cfg.prologue:
+        # the prologue's layers share one spec and stack together
+        defs["prologue"] = {"p0": _block_defs(cfg, cfg.prologue[0],
+                                              len(cfg.prologue))}
     defs["blocks"] = {f"p{i}": _block_defs(cfg, spec, cfg.num_periods)
                       for i, spec in enumerate(cfg.period)}
     return defs

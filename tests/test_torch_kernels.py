@@ -21,6 +21,7 @@ from repro_torch.kernels import gqa_decode as t_gqa  # noqa: E402
 from repro_torch.kernels import moe_ffn as t_moe  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as t_paged  # noqa: E402
+from repro_torch.kernels import paged_mla_decode as t_mla  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import kvcache  # noqa: E402
 
@@ -320,3 +321,82 @@ def test_paged_gqa_decode_cuda_matches_plain(cuda_fp32, case, dtype):
         assert torch.equal(nan_c[name][:, :nb], zero_c[name][:, :nb])
     assert torch.equal(nan_c["slot_pos"][:nb], zero_c["slot_pos"][:nb])
     assert t_paged.paged_gqa_decode.launches >= 3
+
+
+MLA_CASES = [
+    # (B, H, lat, dr, bt, MB)
+    (3, 4, 32, 8, 16, 4),       # the DeepSeek smoke's widths; row 0 empty
+    (2, 4, 16, 8, 4, 9),        # small blocks
+    (2, 8, 64, 16, 8, 5),
+    (2, 20, 128, 32, 16, 3),    # a head group past 16 heads
+]
+
+
+def mla_inputs(case, seed, trash=0.0):
+    """A latent arena laid out as ``paged_inputs`` lays out the GQA arena,
+    plus the fresh decode latents.  Returns numpy arrays: qcat, ckv, kr,
+    slot_pos, page_table, pos, ckv_new, kr_new.  The trash block (the
+    last) holds `trash`."""
+    B, H, lat, dr, bt, MB = case
+    rng = np.random.default_rng(seed)
+    NB = B * MB + 2
+    qcat = rng.normal(0, 1, (B, H, lat + dr)).astype(np.float32)
+    ckv = rng.normal(0, 1, (NB + 1, bt, lat)).astype(np.float32)
+    kr = rng.normal(0, 1, (NB + 1, bt, dr)).astype(np.float32)
+    ckv[NB] = kr[NB] = trash
+    slot_pos = rng.integers(-1, MB * bt, (NB + 1, bt)).astype(np.int32)
+    pt = np.full((B, MB), -1, np.int32)
+    pos = np.zeros((B,), np.int32)
+    perm = rng.permutation(NB)
+    for b in range(B):
+        n = int(rng.integers(1, MB * bt))        # tokens written so far
+        pos[b] = n - 1 + int(rng.integers(0, 2))  # the query position
+        for lb in range(-(-n // bt)):
+            if (b == 0 and B > 2) or rng.random() < 0.15:
+                continue                         # unmapped: masked whole
+            pb = perm[b * MB + lb]
+            pt[b, lb] = pb
+            p = lb * bt + np.arange(bt)
+            stale = rng.random(bt) < 0.2
+            slot_pos[pb] = np.where(p < n, p, np.where(stale, p, -1))
+    ckv_new = rng.normal(0, 1, (B, lat)).astype(np.float32)
+    kr_new = rng.normal(0, 1, (B, dr)).astype(np.float32)
+    return qcat, ckv, kr, slot_pos, pt, pos, ckv_new, kr_new
+
+
+def _mla_on(case, seed, device, dt, trash):
+    q, ckv, kr, sp, pt, pos, cn, rn = mla_inputs(case, seed, trash)
+    q, ckv, kr, cn, rn = (_t(a, device).to(dt) for a in (q, ckv, kr, cn, rn))
+    cache = {"ckv": ckv, "kr": kr, "slot_pos": _t(sp, device),
+             "page_table": _t(pt, device)}
+    return q, cache, _t(pos, device), {"ckv": cn[:, None], "kr": rn[:, None]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLA_CASES)
+def test_paged_mla_decode_cuda_matches_plain(cuda_fp32, case, dtype):
+    """As the paged GQA case: the kernel on a NaN trash block against the
+    plain version on a zero one, unfused and fused; fused against
+    write-then-attend through the kernel, bit for bit; the arena scatter
+    against the plain one's."""
+    dt = getattr(torch, dtype)
+    kw = dict(scale=(case[2] + case[3]) ** -0.5)
+    q, nan_c, pos, new = _mla_on(case, 7, cuda_fp32, dt, np.nan)
+    _, zero_c, _, _ = _mla_on(case, 7, cuda_fp32, dt, 0.0)
+    got = ops.paged_mla_decode(q, nan_c, pos, **kw)
+    want = ops.paged_mla_decode(q, zero_c, pos, impl="ref", **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    fused = ops.paged_mla_decode_fused(q, nan_c, new, pos, **kw)
+    want = ops.paged_mla_decode_fused(q, zero_c, new, pos, impl="ref", **kw)
+    for g, w in zip(fused, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    after = ops.paged_mla_decode(q, nan_c, pos, **kw)   # over the scatter
+    torch.cuda.synchronize()
+    for g, w in zip(fused, after):
+        assert torch.equal(g, w)
+    nb = nan_c["slot_pos"].shape[0] - 1                  # trash excluded
+    for name in ("ckv", "kr", "slot_pos"):
+        assert torch.equal(nan_c[name][:nb], zero_c[name][:nb])
+    assert t_mla.paged_mla_decode.launches >= 3
