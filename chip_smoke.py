@@ -13,7 +13,9 @@ Phases, each printing JSON lines:
                    card: in float32 at small shapes (TF32 off) and in bf16
                    at the shapes the served models give it (mixtral's, and
                    DeepSeek-V3's for moe_ffn, flash_prefill and the MLA
-                   decode); time the kernel, its plain version and one
+                   decode; moe_ffn's decode bucket both full and as 8
+                   routed rows fill it, its empty rows exactly zero);
+                   time the kernel, its plain version and one
                    PyTorch library call beside the least time the card
                    could take (``bound_ms``).  The paged decodes read an
                    arena whose trash block is NaN, and their fused forms
@@ -232,8 +234,9 @@ def phase_kernels(torch, F):
     B, W = SERVE["ubatch"], SERVE["max_seq"]
     records = []
 
-    # moe_ffn at the decode bucket (the most launched shape) and at the
-    # largest prefill bucket
+    # moe_ffn at the decode bucket (the most launched shape) with every
+    # bucket row full (the worst case), at the occupancy 8 routed rows give
+    # it, and at the largest prefill bucket
     wi = rn(E, D, 2, Fd, std=D ** -0.5)
     wo = rn(E, Fd, D, std=Fd ** -0.5)
     for tokens, label in ((B, "decode"), (PROMPT_LENS[1], "prefill")):
@@ -264,6 +267,8 @@ def phase_kernels(torch, F):
         emit({"phase": "kernel_bf16", **rec})
         if label == "decode":
             records.append(rec)
+            rec["served_occupancy"] = moe_occupancy_case(
+                torch, F, timer, rn, wi, wo, cfg_full, B, C)
     del wi, wo, x
 
     # gqa_decode over a half-filled 512-slot ring, as mid-serve
@@ -526,6 +531,63 @@ def paged_sweep(torch, rng, timer, rn, q, Hkv, kw):
     return {"occupancy": rows, "blocks_per_split_ms_at_half": split}
 
 
+def routed_xbuf(torch, rn, E, C, D, top_k, rows):
+    """The bucket buffer of one decode step: `rows` token rows, each routed
+    to top_k of E experts drawn from a seeded generator, placed with
+    first-come capacity C as moe_grouped places them
+    (``moe.stage_bucket``); the slots no token reached stay zero.  Returns
+    (xbuf, occupied experts)."""
+    from repro_torch.models import moe
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    x = rn(rows, D)
+    idx = torch.rand(rows, E, generator=g, device=DEVICE).topk(top_k, -1)[1]
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(rows, device=DEVICE).repeat_interleave(top_k)
+    slot, keep = moe.stage_bucket(flat_e, E, C)
+    xbuf = torch.zeros((E, C, D), dtype=x.dtype, device=DEVICE)
+    xbuf[flat_e[keep], slot[keep]] = x[flat_t[keep]]
+    return xbuf, int(xbuf.ne(0).any(-1).any(-1).sum())
+
+
+def moe_occupancy_case(torch, F, timer, rn, wi, wo, cfg, rows, C):
+    """moe_ffn at the decode bucket as `rows` routed rows fill it: held
+    against its plain version, the empty rows exactly zero; the bound
+    counts the weight bytes of the occupied experts only (the work this
+    input needs)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn
+    E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
+    x, occ = routed_xbuf(torch, rn, E, C, D, cfg.top_k, rows)
+    got, want = moe_ffn(x, wi, wo), ref.moe_ffn_ref(x, wi, wo)
+    err = max_err(got, want)
+    empty = ~x.ne(0).any(-1)
+    require(close(got, want, BF16_OUT_TOL),
+            f"moe_ffn bf16 {cfg.name} at served occupancy: {err}")
+    require(bool((got[empty] == 0).all()),
+            f"moe_ffn {cfg.name}: an empty bucket row gave a nonzero output")
+    del got, want
+    wi3 = wi.view(E, D, 2 * Fd)
+
+    def library():
+        h = torch.bmm(x, wi3)
+        return torch.bmm(F.silu(h[..., :Fd]) * h[..., Fd:], wo)
+    bms, by = bound(2 * (2 * E * C * D + 3 * occ * D * Fd),
+                    6 * occ * C * D * Fd)
+    rec = {"shape": {"E": E, "C": C, "D": D, "F": Fd, "dtype": "bf16",
+                     "at": "decode", "routed_rows": rows,
+                     "top_k": cfg.top_k, "occupied_experts": occ,
+                     "occupied_rows": int((~empty).sum())},
+           "max_abs_err": err, "empty_rows_exact_zero": True,
+           "ms": timer(lambda: moe_ffn(x, wi, wo), 5, 1),
+           "plain_ms": timer(lambda: ref.moe_ffn_ref(x, wi, wo), 3, 1),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(library, 5, 1),
+           "library_call": "torch.bmm chain (up, silu * up, down)"}
+    emit({"phase": "kernel_bf16", "name": "moe_ffn", "model": cfg.name,
+          "case": "served_occupancy", **rec})
+    return rec
+
+
 def _deepseek():
     from repro_torch.configs import get_config
     return get_config("deepseek-v3-671b")
@@ -542,8 +604,9 @@ def kernel_deepseek(torch, F, timer, rn, records):
     cfg = _deepseek()
     E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
     by_name = {r["name"]: r for r in records}
-    # 22.5 GB of bf16 expert weights: every expert is streamed whether or
-    # not its bucket holds a token, as the TPU kernel does
+    # 22.5 GB of bf16 expert weights: with every bucket full (the worst
+    # case) the kernel streams them all; at the occupancy 8 routed rows
+    # give, only the occupied experts'
     wi = rn(E, D, 2, Fd, std=D ** -0.5)
     wo = rn(E, Fd, D, std=Fd ** -0.5)
     wi3 = wi.view(E, D, 2 * Fd)
@@ -573,6 +636,10 @@ def kernel_deepseek(torch, F, timer, rn, records):
         emit({"phase": "kernel_bf16", "name": "moe_ffn",
               "model": "deepseek-v3-671b", **rec})
         by_name["moe_ffn"].setdefault("deepseek", {})[label] = rec
+        if label == "decode":
+            by_name["moe_ffn"]["deepseek"]["decode_served_occupancy"] = \
+                moe_occupancy_case(torch, F, timer, rn, wi, wo, cfg, tokens,
+                                   C)
     del wi, wo, wi3, x
     torch.cuda.empty_cache()
 
@@ -894,7 +961,7 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests):
         eng.run_until_idle()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    families = {"moe_ffn": ("moe_up", "moe_down", "moe_reduce"),
+    families = {"moe_ffn": ("moe_flags", "moe_up", "moe_down", "moe_reduce"),
                 "paged_mla_decode": ("mla_chunk", "mla_combine"),
                 "paged_gqa_decode": ("paged_chunk", "paged_combine"),
                 "gqa_decode": ("gqa_chunk", "gqa_combine"),
@@ -1167,8 +1234,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "shape")
     emit({"kernels": [{**{k: r[k] for k in keys},
-                       **({"deepseek": r["deepseek"]} if "deepseek" in r
-                          else {})} for r in records]})
+                       **{k: r[k] for k in ("served_occupancy", "deepseek")
+                          if k in r}} for r in records]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

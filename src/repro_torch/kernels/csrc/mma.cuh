@@ -1,0 +1,88 @@
+// Tensor-core building blocks of the port's bf16 kernel bodies (sm_90a):
+// 16-byte cp.async staging into shared memory, ldmatrix fragment loads and
+// the warp-level mma.sync m16n8k16 bf16 -> f32 product.
+//
+// Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 * g + t, with
+// g = lane / 4 and t = lane % 4):
+//   A (16 x 16, row-major): a0 = (row g,   cols 2t, 2t+1)
+//                           a1 = (row g+8, cols 2t, 2t+1)
+//                           a2 = (row g,   cols 2t+8, 2t+9)
+//                           a3 = (row g+8, cols 2t+8, 2t+9)
+//   B (16 x 8, k by n):     b0 = (k 2t, 2t+1;   n g)
+//                           b1 = (k 2t+8, 2t+9; n g)
+//   C (16 x 8, f32):        c0, c1 = (row g, cols 2t, 2t+1)
+//                           c2, c3 = (row g+8, cols 2t, 2t+1)
+// Each 32-bit register holds two bf16 values, the lower index in the low
+// half.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously, bypassing L1
+// and prefetching the 128-byte line into L2; with `full` false nothing is
+// read and the 16 bytes are zero-filled.  `src` must be 16-byte aligned
+// and valid either way.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(full ? 16 : 0)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row (l % 8) of
+// matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Two 8x8 b16 matrices; lanes 0-15 give the addresses (the others' are
+// read but unused).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// d += a * b on the tensor cores, bf16 operands, f32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as one bf16x2 register (lo in the low half), rounded to
+// nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}

@@ -1,10 +1,12 @@
 """Grouped gated expert FFN: the wrapper of ``csrc/moe_ffn.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/moe_ffn.py::moe_ffn``.  On the
-H100 it is bound by the expert weight bytes at decode (E·D·3F·2 in bf16, one
-read per bucket tile) and by operations at prefill; see the source for the
-design.  A CPU tensor takes the plain version (``ref.moe_ffn_ref``); a CUDA
-tensor launches the kernel or raises.
+H100 it is bound by the weight bytes of the experts that hold a token at
+decode (D·3F·2 each in bf16) and by bytes or operations at prefill; see the
+source for the design.  bf16 takes the tensor-core body, which skips the
+bucket tiles that hold only zeros (their outputs are exactly 0); float32
+takes the CUDA-core body.  A CPU tensor takes the plain version
+(``ref.moe_ffn_ref``); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -16,19 +18,25 @@ from repro_torch.kernels import build, ref
 
 _ACTS = {"silu": 0, "gelu": 1}
 _THREADS = 128           # columns per block (csrc/moe_ffn.cu kThreads)
-_TARGET_BLOCKS = 1056    # ~8 blocks per SM for the down pass
+_TARGET_BLOCKS = 1056    # ~8 blocks per SM for the f32 down pass
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-             + [ctypes.c_void_p])
+# both launch functions: 8 pointers, 7 ints, the stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _rows_per_block(C: int) -> int:
+    """f32 body: bucket rows per block."""
     return 4 if C <= 4 else (8 if C <= 8 else 32)
 
 
 def _f_split(E: int, C: int, D: int, ct: int) -> int:
     base = -(-D // _THREADS) * -(-C // ct) * E
     return max(1, min(16, -(-_TARGET_BLOCKS // base)))
+
+
+def _row_tile(C: int) -> int:
+    """bf16 body: bucket rows per block (the mma.sync N side)."""
+    return next((n for n in (8, 16, 32, 64) if C <= n), 128)
 
 
 def moe_ffn(xbuf, wi, wo, wi_scale=None, wo_scale=None, *, act: str = "silu"):
@@ -60,19 +68,32 @@ def moe_ffn(xbuf, wi, wo, wi_scale=None, wo_scale=None, *, act: str = "silu"):
             build.require_operands("moe_ffn", torch.float32, xbuf.device,
                                    **{name: s})
         scales.append(build.ptr(s) if s is not None else None)
+    if xbuf.dtype == torch.bfloat16:
+        if D % 8 or any(t.data_ptr() % 16 for t in (xbuf, wi, wo)):
+            raise ValueError(f"moe_ffn bf16 kernel needs D % 8 == 0 (got "
+                             f"{D}) and 16-byte aligned xbuf, wi and wo")
     out = torch.empty_like(xbuf)
     if E * C * D == 0:
         return out
-    ct = _rows_per_block(C)
-    fsplit = _f_split(E, C, D, ct)
-    hid = torch.empty((E, C, F), dtype=torch.float32, device=xbuf.device)
-    part = torch.empty((fsplit, E, C, D), dtype=torch.float32,
-                       device=xbuf.device)
-    fn = build.function("moe_ffn", "moe_ffn_launch", _ARGTYPES)
-    err = fn(build.DTYPE_CODES[xbuf.dtype], build.ptr(xbuf), build.ptr(wi),
-             build.ptr(wo), scales[0], scales[1], build.ptr(out),
-             build.ptr(hid), build.ptr(part), E, C, D, F, ct, fsplit,
-             _ACTS[act], build.stream(xbuf.device))
+    dev = xbuf.device
+    if xbuf.dtype == torch.bfloat16:
+        nt = _row_tile(C)
+        fp = -(-F // 8) * 8
+        hid = torch.empty((E, C, fp), dtype=torch.bfloat16, device=dev)
+        flags = torch.empty((E, C), dtype=torch.int32, device=dev)
+        fn = build.function("moe_ffn", "moe_ffn_bf16_launch", _ARGTYPES)
+        err = fn(build.ptr(xbuf), build.ptr(wi), build.ptr(wo), scales[0],
+                 scales[1], build.ptr(out), build.ptr(hid), build.ptr(flags),
+                 E, C, D, F, fp, nt, _ACTS[act], build.stream(dev))
+    else:
+        ct = _rows_per_block(C)
+        fsplit = _f_split(E, C, D, ct)
+        hid = torch.empty((E, C, F), dtype=torch.float32, device=dev)
+        part = torch.empty((fsplit, E, C, D), dtype=torch.float32, device=dev)
+        fn = build.function("moe_ffn", "moe_ffn_f32_launch", _ARGTYPES)
+        err = fn(build.ptr(xbuf), build.ptr(wi), build.ptr(wo), scales[0],
+                 scales[1], build.ptr(out), build.ptr(hid), build.ptr(part),
+                 E, C, D, F, ct, fsplit, _ACTS[act], build.stream(dev))
     build.check("moe_ffn", err)
     moe_ffn.launches += 1
     return out

@@ -95,7 +95,8 @@ def grouped_ffn(cfg: ModelConfig, wi, wo, xbuf, use_kernel: bool = False,
                 wi_scale=None, wo_scale=None, impl: str = "auto"):
     """xbuf: (E, C, D); wi: (E, D, 2, F); wo: (E, F, D) -> (E, C, D).
     use_kernel: the grouped expert FFN kernel (``ops.moe_ffn``, f32
-    internally); otherwise plain einsums in xbuf's dtype, as the JAX path."""
+    accumulation); otherwise plain einsums in xbuf's dtype, as the JAX
+    path."""
     if use_kernel:
         return ops.moe_ffn(xbuf, wi, wo, wi_scale, wo_scale,
                            act=cfg.ffn_act, impl=impl)

@@ -28,17 +28,37 @@ from repro_torch.models import kvcache  # noqa: E402
 TOL = 2e-5     # f32: both sides accumulate in f32, only the order differs
 
 MOE_CASES = [
-    # (E, C, D, F, block_c, block_f, act, weights)
-    (4, 3, 32, 128, 128, 64, "silu", "f32"),      # decode-like C
-    (2, 10, 64, 300, 8, 128, "gelu", "scaled"),   # ragged C and F, scales
-    (2, 5, 32, 64, 8, 64, "silu", "int8"),        # int8 weights + scales
+    # (E, C, D, F, block_c, block_f, act, weights, empty)
+    (4, 3, 32, 128, 128, 64, "silu", "f32", "none"),      # decode-like C
+    (2, 10, 64, 300, 8, 128, "gelu", "scaled", "none"),   # ragged C, F; scales
+    (2, 5, 32, 64, 8, 64, "silu", "int8", "none"),        # int8 weights + scales
+    (4, 6, 32, 64, 8, 64, "silu", "f32", "rows"),         # some rows all-zero
+    (3, 5, 32, 128, 8, 64, "gelu", "scaled", "expert"),   # one expert empty
+    (2, 4, 32, 64, 8, 64, "silu", "f32", "all"),          # every bucket empty
+    (3, 40, 64, 136, 16, 64, "silu", "f32", "rows"),      # C past a row tile
 ]
 
 
+def _moe_empty_rows(case, rng):
+    """(E, C) bool: the bucket rows a case leaves all-zero, as capacity
+    bucketing leaves the slots no token reached."""
+    E, C, empty = case[0], case[1], case[8]
+    rows = np.zeros((E, C), bool)
+    if empty in ("rows", "expert"):
+        rows = rng.random((E, C)) < 0.4
+        rows[0, 0] = True
+    if empty == "expert":
+        rows[1] = True
+    if empty == "all":
+        rows[:] = True
+    return rows
+
+
 def _moe_inputs(case, seed):
-    E, C, D, F, _, _, _, kind = case
+    E, C, D, F, _, _, _, kind, _ = case
     rng = np.random.default_rng(seed)
     x = rng.normal(0, 1, (E, C, D)).astype(np.float32)
+    x[_moe_empty_rows(case, rng)] = 0.0
     if kind == "int8":
         wi = rng.integers(-127, 128, (E, D, 2, F)).astype(np.int8)
         wo = rng.integers(-127, 128, (E, F, D)).astype(np.int8)
@@ -69,7 +89,7 @@ def _t(a, device="cpu"):
 def test_moe_ffn_plain_matches_pallas(pallas, case):
     jnp = pallas["jnp"]
     x, wi, wo, si, so = _moe_inputs(case, 0)
-    _, _, _, _, bc, bf, act, _ = case
+    _, _, _, _, bc, bf, act, _, _ = case
     want = pallas["moe"](jnp.asarray(x), jnp.asarray(wi), jnp.asarray(wo),
                          wi_scale=None if si is None else jnp.asarray(si),
                          wo_scale=None if so is None else jnp.asarray(so),
@@ -77,6 +97,62 @@ def test_moe_ffn_plain_matches_pallas(pallas, case):
     got = t_moe.moe_ffn(_t(x), _t(wi), _t(wo), _t(si), _t(so), act=act)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=TOL, atol=TOL)
+
+
+def test_moe_ffn_zero_rows_give_zero_outputs(pallas):
+    """The premise of the CUDA kernel's empty-bucket skip: no bias, and
+    act(0) = 0 for silu and gelu, so an all-zero xbuf row gives an exactly
+    zero output row, in the port's plain version and in the JAX kernel."""
+    jnp = pallas["jnp"]
+    for case in MOE_CASES[3:]:
+        x, wi, wo, si, so = _moe_inputs(case, 8)
+        act = case[6]
+        zero = ~x.any(-1)
+        assert zero.any()
+        want = np.asarray(pallas["moe"](
+            jnp.asarray(x), jnp.asarray(wi), jnp.asarray(wo),
+            wi_scale=None if si is None else jnp.asarray(si),
+            wo_scale=None if so is None else jnp.asarray(so), act=act,
+            block_c=case[4], block_f=case[5], interpret=True))
+        got = ref.moe_ffn_ref(_t(x), _t(wi), _t(wo), _t(si), _t(so),
+                              act=act).numpy()
+        assert (want[zero] == 0).all() and (got[zero] == 0).all()
+        assert (got[~zero] != 0).any(-1).all()
+
+
+def test_moe_grouped_xbuf_rows_are_the_kept_assignments(monkeypatch):
+    """At a decode shape (T 8, E 16, top-2) the bucket buffer that
+    moe_grouped hands to the expert FFN is nonzero exactly at the (expert,
+    slot) pairs of the kept assignments; every other row is zero, which is
+    what the kernel's skip reads."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").smoke(),
+                              num_experts=16, top_k=2)
+    T, D, E, F = 8, cfg.d_model, cfg.num_experts, cfg.d_ff
+    rng = np.random.default_rng(9)
+    p = {"router": _t(rng.normal(0, 1, (D, E)).astype(np.float32)),
+         "wi": _t(rng.normal(0, 0.1, (E, D, 2, F)).astype(np.float32)),
+         "wo": _t(rng.normal(0, 0.1, (E, F, D)).astype(np.float32))}
+    x = _t(rng.normal(0, 1, (T, D)).astype(np.float32))
+    seen = []
+    inner = moe.grouped_ffn
+
+    def spy(cfg_, wi, wo, xbuf, *args, **kw):
+        seen.append(xbuf.clone())
+        return inner(cfg_, wi, wo, xbuf, *args, **kw)
+    monkeypatch.setattr(moe, "grouped_ffn", spy)
+    moe.moe_grouped(cfg, p, x, use_kernel=True)
+    (xbuf,) = seen
+    _, idx, _ = moe.route(cfg, p["router"], x)
+    cap = xbuf.shape[1]
+    slot, keep = moe.stage_bucket(idx.reshape(-1), E, cap)
+    want = torch.zeros((E, cap), dtype=torch.bool)
+    want[idx.reshape(-1)[keep], slot[keep]] = True
+    assert torch.equal(xbuf.ne(0).any(-1), want)
+    assert int(want.sum()) == int(keep.sum()) and 0 < want.sum() < E * cap
 
 
 GQA_CASES = [
@@ -124,7 +200,9 @@ FLASH_CASES = [
     (1, 24, 24, 4, 1, 16, 24, True, 8, 0.0, 8, 8),       # window, Dv != D
     (1, 16, 16, 2, 2, 32, 32, True, 0, 30.0, 8, 8),      # softcap
     (1, 12, 24, 2, 2, 16, 16, False, 0, 0.0, 8, 8),      # cross, kv_len<Skv
-]
+    (2, 100, 100, 8, 2, 48, 32, True, 0, 0.0, 32, 32),   # D 48, group 4
+    (1, 150, 150, 4, 1, 48, 32, True, 70, 0.0, 32, 32),  # window over a
+]                                                        # 64-key tile edge
 
 
 def _flash_inputs(case, seed):
@@ -236,6 +314,8 @@ CARD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", [c for c in MOE_CASES if c[7] != "int8"])
 def test_moe_ffn_cuda_matches_plain(cuda_fp32, case, dtype):
+    """The kernel against its plain version; the all-zero bucket rows
+    (which the bf16 body skips) give exact zeros."""
     dt = getattr(torch, dtype)
     x, wi, wo, si, so = _moe_inputs(case, 3)
     args = [_t(a, cuda_fp32).to(dt) for a in (x, wi, wo)]
@@ -245,6 +325,8 @@ def test_moe_ffn_cuda_matches_plain(cuda_fp32, case, dtype):
     torch.cuda.synchronize()
     tol = CARD_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    zero = torch.from_numpy(~x.any(-1))
+    assert bool((got.cpu()[zero] == 0).all())
 
 
 @pytest.mark.cuda
