@@ -14,7 +14,9 @@ Phases, each printing JSON lines:
                    at the shapes the served models give it (mixtral's, and
                    DeepSeek-V3's for moe_ffn, flash_prefill and the MLA
                    decode; moe_ffn's decode bucket both full and as 8
-                   routed rows fill it, its empty rows exactly zero);
+                   routed rows fill it, its empty rows exactly zero;
+                   gqa_decode's ring both half-filled, as mid-serve, and
+                   full);
                    time the kernel, its plain version and one
                    PyTorch library call beside the least time the card
                    could take (``bound_ms``).  The paged decodes read an
@@ -271,37 +273,43 @@ def phase_kernels(torch, F):
                 torch, F, timer, rn, wi, wo, cfg_full, B, C)
     del wi, wo, x
 
-    # gqa_decode over a half-filled 512-slot ring, as mid-serve
+    # gqa_decode over a half-filled 512-slot ring, as mid-serve, and over
+    # the full ring (every slot valid)
     q, k, v = rn(B, H, Dh), rn(B, W, Hkv, Dh), rn(B, W, Hkv, Dh)
     lens = torch.randint(PROMPT_LENS[0], PROMPT_LENS[1] + NEW_TOKENS,
                          (B,), generator=g, device=DEVICE)
-    valid = torch.arange(W, device=DEVICE)[None, :] < lens[:, None]
-    kw = dict(scale=Dh ** -0.5)
-    got, want = gqa_decode(q, k, v, valid, **kw), \
-        ref.gqa_decode_ref(q, k, v, valid, **kw)
-    err = max(max_err(a, b) for a, b in zip(got, want))
-    require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
-            f"gqa_decode bf16: {err}")
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    # q, the K and V rows of the valid slots only (the rest are never
-    # needed), the mask, and the f32 (o_unnorm, m, l) outputs
-    nvalid = int(valid.sum())
-    nbytes = 2 * B * H * Dh + 2 * nvalid * Hkv * 2 * Dh + B * W \
-        + 4 * B * H * (Dh + 2)
-    bms, by = bound(nbytes, 2 * nvalid * H * 2 * Dh)
+    kw = dict(scale=Dh ** -0.5)
+    cases = []
+    for valid in (torch.arange(W, device=DEVICE)[None, :] < lens[:, None],
+                  torch.ones((B, W), dtype=torch.bool, device=DEVICE)):
+        got, want = gqa_decode(q, k, v, valid, **kw), \
+            ref.gqa_decode_ref(q, k, v, valid, **kw)
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        nvalid = int(valid.sum())
+        require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
+                f"gqa_decode bf16 ({nvalid} valid): {err}")
+        # q, the K and V rows of the valid slots only (the rest are never
+        # needed), the mask, and the f32 (o_unnorm, m, l) outputs
+        nbytes = 2 * B * H * Dh + 2 * nvalid * Hkv * 2 * Dh + B * W \
+            + 4 * B * H * (Dh + 2)
+        bms, by = bound(nbytes, 2 * nvalid * H * 2 * Dh)
+        cases.append({
+            "shape": {"B": B, "H": H, "Hkv": Hkv, "D": Dh, "W": W,
+                      "valid": nvalid, "dtype": "bf16"},
+            "max_abs_err": err,
+            "ms": timer(lambda: gqa_decode(q, k, v, valid, **kw)),
+            "plain_ms": timer(lambda: ref.gqa_decode_ref(q, k, v, valid,
+                                                         **kw)),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": timer(sdpa_gqa(
+                F, q[:, :, None], kt, vt, H // Hkv,
+                attn_mask=valid[:, None, None, :])),
+            "library_call": "scaled_dot_product_attention, masked"})
     rec = {"name": "gqa_decode", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
-           "replaces": "src/repro/kernels/gqa_decode.py:85",
-           "shape": {"B": B, "H": H, "Hkv": Hkv, "D": Dh, "W": W,
-                     "valid": nvalid, "dtype": "bf16"},
-           "max_abs_err": err,
-           "ms": timer(lambda: gqa_decode(q, k, v, valid, **kw)),
-           "plain_ms": timer(lambda: ref.gqa_decode_ref(q, k, v, valid, **kw)),
-           "bound_ms": bms, "bound_by": by,
-           "library_ms": timer(sdpa_gqa(
-               F, q[:, :, None], kt, vt, H // Hkv,
-               attn_mask=valid[:, None, None, :])),
-           "library_call": "scaled_dot_product_attention, masked"}
+           "replaces": "src/repro/kernels/gqa_decode.py:85", **cases[0],
+           "full_ring": cases[1]}
     emit({"phase": "kernel_bf16", **rec})
     records.append(rec)
 
@@ -962,9 +970,9 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     families = {"moe_ffn": ("moe_flags", "moe_up", "moe_down", "moe_reduce"),
-                "paged_mla_decode": ("mla_chunk", "mla_combine"),
+                "paged_mla_decode": ("mla_chunk", "mla_tc", "mla_combine"),
                 "paged_gqa_decode": ("paged_chunk", "paged_combine"),
-                "gqa_decode": ("gqa_chunk", "gqa_combine"),
+                "gqa_decode": ("gqa_chunk", "gqa_tc", "gqa_combine"),
                 "flash_prefill": ("flash_prefill",),
                 "matmul": ("gemm", "nvjet", "xmma", "cutlass", "splitk"),
                 "memcpy_htod": ("Memcpy HtoD",),
@@ -1234,7 +1242,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "shape")
     emit({"kernels": [{**{k: r[k] for k in keys},
-                       **{k: r[k] for k in ("served_occupancy", "deepseek")
+                       **{k: r[k] for k in ("served_occupancy", "deepseek",
+                                            "full_ring")
                           if k in r}} for r in records]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -86,3 +86,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// Two f32 values as the bf16x2 pair hi = bf16(x) and lo = bf16(x - hi):
+// an A operand split in two so that hi . b + lo . b keeps about 16 bits
+// of each x (|x - hi - lo| <= 2^-18 |x|) instead of bf16's 8.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}

@@ -3,8 +3,11 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/gqa_decode.py::gqa_decode``.
 On the H100 it is bound by the K and V bytes of the valid slots
-(nvalid·Hkv·(D+Dv)·2 in bf16); see the source for the design.  A CPU tensor takes the plain version
-(``ref.gqa_decode_ref``); a CUDA tensor launches the kernel or raises.
+(nvalid·Hkv·(D+Dv)·2 in bf16); see the source for the design.  bf16 takes
+the tensor-core body (D and Dv multiples of 8 up to 256, 16-byte aligned
+q, k, v; the wrapper raises on others), float32 the CUDA-core body.  A CPU
+tensor takes the plain version (``ref.gqa_decode_ref``); a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 W_CHUNK = 64     # ring slots per block; the chunks' partials merge after
+MAX_D = 256      # D and Dv the bf16 body takes, at most
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
@@ -40,6 +44,12 @@ def gqa_decode(q, k, v, valid, *, scale: float, attn_softcap: float = 0.0,
                          f"valid {tuple(valid.shape)}")
     build.require_operands("gqa_decode", q.dtype, q.device, q=q, k=k, v=v)
     build.require_operands("gqa_decode", torch.bool, q.device, valid=valid)
+    if q.dtype == torch.bfloat16 and (
+            D % 8 or Dv % 8 or max(D, Dv) > MAX_D
+            or any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError(f"gqa_decode bf16 kernel takes D, Dv multiples of "
+                         f"8 up to {MAX_D} and 16-byte aligned q, k, v; got "
+                         f"D {D}, Dv {Dv}")
     dev = q.device
     o = torch.empty((B, H, Dv), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)

@@ -2,10 +2,18 @@
 the wrapper of ``csrc/paged_mla_decode.cu``.
 
 Replaces the Pallas TPU kernel
-``repro/kernels/paged_decode.py::paged_mla_decode``.  On the H100 its
-CUDA-core f32 products, not its bytes, set its bound; see the source for
-the design.  A CPU tensor takes the plain version
-(``ref.paged_mla_decode_ref``); a CUDA tensor launches the kernel or raises.
+``repro/kernels/paged_decode.py::paged_mla_decode``.  On the H100 it is
+bound by its bytes (the mapped blocks' latents, qcat and the f32 partials);
+its products, a real GEMM for 128 heads, run on the tensor cores in bf16
+with f32 accumulation, so they are far from the operation bound; see the
+source for the design.  bf16 takes the tensor-core body, float32 the
+CUDA-core body; both take lat and dr in 16-byte multiples with lat <= 512
+and lat + dr <= 576, any page-table width, and the float32 body blocks of
+at most 128 positions (the wrapper raises on others).  The source sizes
+the chunks of a row whose partials merge after
+(``paged_mla_decode_splits``).  A CPU tensor takes the plain version
+(``ref.paged_mla_decode_ref``); a CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -15,12 +23,10 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-BLOCKS_PER_SPLIT = 8   # logical blocks per thread block; chunks merge after
 MAX_D = 576            # lat + dr the kernel takes, at most
 MAX_LAT = 512
-MAX_CHUNK_POSITIONS = 1024   # BLOCKS_PER_SPLIT * bt, at most
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -57,13 +63,10 @@ def paged_mla_decode(qcat, ckv, kr, slot_pos, page_table, pos, *,
                          f"slot_pos {tuple(slot_pos.shape)}, page_table "
                          f"{tuple(page_table.shape)}, pos {tuple(pos.shape)}")
     vec = 16 // qcat.element_size()
-    if (L % vec or R % vec or L + R > MAX_D or L > MAX_LAT
-            or BLOCKS_PER_SPLIT * bt > MAX_CHUNK_POSITIONS):
+    if L % vec or R % vec or L + R > MAX_D or L > MAX_LAT:
         raise ValueError(f"paged_mla_decode kernel takes lat and dr in "
-                         f"multiples of {vec}, lat <= {MAX_LAT}, lat + dr <= "
-                         f"{MAX_D} and bt <= "
-                         f"{MAX_CHUNK_POSITIONS // BLOCKS_PER_SPLIT}; got "
-                         f"lat {L}, dr {R}, bt {bt}")
+                         f"multiples of {vec}, lat <= {MAX_LAT} and lat + dr "
+                         f"<= {MAX_D}; got lat {L}, dr {R}")
     dev = qcat.device
     data = dict(qcat=qcat, ckv=ckv, kr=kr)
     if fused:
@@ -79,20 +82,26 @@ def paged_mla_decode(qcat, ckv, kr, slot_pos, page_table, pos, *,
     l = torch.empty((B, H), dtype=torch.float32, device=dev)
     if B * H == 0:
         return o, m, l
-    nsplit = -(-MB // BLOCKS_PER_SPLIT)
+    # the chunks of a row, as the source sizes them (0: bt not taken)
+    dtype = build.DTYPE_CODES[qcat.dtype]
+    nsplit = build.function("paged_mla_decode", "paged_mla_decode_splits",
+                            [ctypes.c_int] * 3)(dtype, MB, bt)
+    if nsplit < 1:
+        raise ValueError(f"paged_mla_decode {qcat.dtype} kernel does not "
+                         f"take {MB} blocks of {bt} positions")
     po = torch.empty((B, H, nsplit, L), dtype=torch.float32, device=dev)
     pm = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
     pl = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
     fn = build.function("paged_mla_decode", "paged_mla_decode_launch",
                         _ARGTYPES)
-    err = fn(build.DTYPE_CODES[qcat.dtype], build.ptr(qcat), build.ptr(ckv),
+    err = fn(dtype, build.ptr(qcat), build.ptr(ckv),
              build.ptr(kr), build.ptr(slot_pos), build.ptr(page_table),
              build.ptr(pos),
              build.ptr(ckv_new) if fused else None,
              build.ptr(kr_new) if fused else None,
              build.ptr(po), build.ptr(pm), build.ptr(pl), build.ptr(o),
-             build.ptr(m), build.ptr(l), B, H, bt, L, R, MB,
-             BLOCKS_PER_SPLIT, float(scale), build.stream(dev))
+             build.ptr(m), build.ptr(l), B, H, bt, L, R, MB, float(scale),
+             build.stream(dev))
     build.check("paged_mla_decode", err)
     paged_mla_decode.launches += 1
     return o, m, l

@@ -329,20 +329,66 @@ def test_moe_ffn_cuda_matches_plain(cuda_fp32, case, dtype):
     assert bool((got.cpu()[zero] == 0).all())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", GQA_CASES)
-def test_gqa_decode_cuda_matches_plain(cuda_fp32, case, dtype):
+def _gqa_card_check(device, case, dtype, inputs):
     dt = getattr(torch, dtype)
-    q, k, v, valid = _gqa_inputs(case, 4)
-    q, k, v = (_t(a, cuda_fp32).to(dt) for a in (q, k, v))
-    valid = _t(valid, cuda_fp32)
+    q, k, v, valid = inputs
+    q, k, v = (_t(a, device).to(dt) for a in (q, k, v))
+    valid = _t(valid, device)
     kw = dict(scale=case[3] ** -0.5, attn_softcap=case[7])
     got = t_gqa.gqa_decode(q, k, v, valid, **kw)
     want = ref.gqa_decode_ref(q, k, v, valid, **kw)
     torch.cuda.synchronize()
     for g, w in zip(got, want):             # f32 partials on both sides
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GQA_CASES)
+def test_gqa_decode_cuda_matches_plain(cuda_fp32, case, dtype):
+    _gqa_card_check(cuda_fp32, case, dtype, _gqa_inputs(case, 4))
+
+
+# mixtral's served decode widths (G 4, D 128, a 512-slot ring), and a
+# long ring with more chunks per row (W / 64) than the merge weighs at once
+# (256); card only
+GQA_SERVED_CASES = [
+    # (B, H, Hkv, D, Dv, W, block_w, softcap, all_invalid_row)
+    (3, 32, 8, 128, 128, 512, 128, 0.0, True),
+    (3, 8, 2, 64, 64, 17000, 128, 0.0, True),
+]
+
+
+def _gqa_ring_inputs(case, seed):
+    """A dense ring mid-serve: each row's valid slots are one run of
+    consecutive slots that wraps past the ring's end (not a prefix), and
+    row 0 holds none."""
+    B, H, Hkv, D, Dv, W = case[:6]
+    rng = np.random.default_rng(seed)
+    q = rng.normal(0, 1, (B, H, D)).astype(np.float32)
+    k = rng.normal(0, 1, (B, W, Hkv, D)).astype(np.float32)
+    v = rng.normal(0, 1, (B, W, Hkv, Dv)).astype(np.float32)
+    valid = np.zeros((B, W), bool)
+    for b in range(1, B):
+        n = int(rng.integers(W // 4, W - 1))
+        start = int(rng.integers(W - n + 1, W))     # the run wraps
+        valid[b, (start + np.arange(n)) % W] = True
+    return q, k, v, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GQA_SERVED_CASES)
+def test_gqa_decode_cuda_served_ring(cuda_fp32, case, dtype):
+    """Over a ring whose valid slots wrap; the row with no valid slot gives
+    all-zero partials."""
+    inputs = _gqa_ring_inputs(case, 11)
+    assert inputs[3][1:].any(-1).all() and not inputs[3][0].any()
+    ring = inputs[3][1:]                     # wrapped: both ends valid
+    assert ring[:, 0].all() and ring[:, -1].all() and not ring.all()
+    got = _gqa_card_check(cuda_fp32, case, dtype, inputs)
+    assert not any(bool(t[0].any()) for t in got)
 
 
 @pytest.mark.cuda
@@ -462,6 +508,29 @@ def test_paged_mla_decode_cuda_matches_plain(cuda_fp32, case, dtype):
     plain version on a zero one, unfused and fused; fused against
     write-then-attend through the kernel, bit for bit; the arena scatter
     against the plain one's."""
+    _mla_card_check(cuda_fp32, case, dtype)
+
+
+# DeepSeek-V3's served widths (128 heads, lat 512, dr 64, blocks of 16),
+# and a long context: a page table wider than 1024 blocks, more chunks per
+# row than the merge weighs at once (256); card only
+MLA_SERVED_CASES = [
+    # (B, H, lat, dr, bt, MB)
+    (3, 128, 512, 64, 16, 6),   # row 0 maps nothing
+    (2, 16, 512, 64, 16, 1100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLA_SERVED_CASES)
+def test_paged_mla_decode_cuda_served_widths(cuda_fp32, case, dtype):
+    """The checks of the case above at the served widths and over a long
+    context."""
+    _mla_card_check(cuda_fp32, case, dtype)
+
+
+def _mla_card_check(cuda_fp32, case, dtype):
     dt = getattr(torch, dtype)
     kw = dict(scale=(case[2] + case[3]) ** -0.5)
     q, nan_c, pos, new = _mla_on(case, 7, cuda_fp32, dt, np.nan)
