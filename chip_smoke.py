@@ -499,8 +499,8 @@ def paged_sweep(torch, rng, timer, rn, q, Hkv, kw):
     """Where the paged kernel's time goes, at the served shapes: its time
     against the number of mapped blocks per row (0 = launches only), beside
     the dense ring's ``gqa_decode`` over a max_seq-wide ring holding the
-    same positions (the dense-vs-paged crossover); and at the served page
-    table, its time against the logical blocks each thread block takes."""
+    same positions (the dense-vs-paged crossover behind ``auto`` taking the
+    paged kernel for a paged cache)."""
     from repro_torch.kernels import paged_decode
     from repro_torch.kernels.gqa_decode import gqa_decode
     B, H, D = q.shape
@@ -526,17 +526,7 @@ def paged_sweep(torch, rng, timer, rn, q, Hkv, kw):
                                                   **kw)),
             "dense_gqa_decode_ms": timer(
                 lambda: gqa_decode(q, kd, vd, valid, **kw))})
-    pt = torch.where(torch.arange(MB, device=DEVICE) < MB // 2, perm, -1).int()
-    pos = torch.full((B,), MB // 2 * bt - 1, dtype=torch.int32, device=DEVICE)
-    split, base = {}, paged_decode.BLOCKS_PER_SPLIT
-    try:
-        for n in (2, 4, 8, 16, 32):
-            paged_decode.BLOCKS_PER_SPLIT = n
-            split[n] = timer(lambda: paged_decode.paged_gqa_decode(
-                q, k, v, slot_pos, pt, pos, **kw))
-    finally:
-        paged_decode.BLOCKS_PER_SPLIT = base
-    return {"occupancy": rows, "blocks_per_split_ms_at_half": split}
+    return {"occupancy": rows}
 
 
 def routed_xbuf(torch, rn, E, C, D, top_k, rows):
@@ -971,7 +961,8 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests):
         wall = time.perf_counter() - t0
     families = {"moe_ffn": ("moe_flags", "moe_up", "moe_down", "moe_reduce"),
                 "paged_mla_decode": ("mla_chunk", "mla_tc", "mla_combine"),
-                "paged_gqa_decode": ("paged_chunk", "paged_combine"),
+                "paged_gqa_decode": ("paged_chunk", "paged_tc",
+                                     "paged_combine"),
                 "gqa_decode": ("gqa_chunk", "gqa_tc", "gqa_combine"),
                 "flash_prefill": ("flash_prefill",),
                 "matmul": ("gemm", "nvjet", "xmma", "cutlass", "splitk"),

@@ -44,86 +44,123 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Merge the partials of one (row, head) over `nsplit` chunks, in chunk
-// order, under the reference's rule (repro/models/attention.py): a chunk
-// with no valid slot carries the sentinel max and adds nothing, and a row
-// with none at all yields (0, 0, 0).  Called by a combine kernel with one
-// block per (row, head): po (B*H, nsplit, Dv), pm/pl (B*H, nsplit) ->
-// o (B*H, Dv), m/l (B*H); any nsplit.  The chunks' weights exp(m_s - M)
-// go to shared memory kSeg chunks at a time; each thread then issues the
-// po loads of four chunks together (none for an empty chunk) before it
-// adds them, in chunk order.
-constexpr int kSeg = 256;
+// Merge the partials of one (row, head) over `nsplit` chunks under the
+// reference's rule (repro/models/attention.py): a chunk with no valid slot
+// carries the sentinel max and adds nothing, and a row with none at all
+// yields (0, 0, 0).  Called by a combine kernel of kCombineThreads threads
+// with one block per (row, head): po (B*H, nsplit, Dv), pm/pl (B*H,
+// nsplit) -> o (B*H, Dv), m/l (B*H); any nsplit and Dv.  Two dependent
+// trips to memory where nsplit <= kSeg and Dv <= 4 * kCombineThreads:
+// every thread loads its chunks' (m, l) into shared memory while the
+// row's max is taken, and then the po rows of kBatch chunks at once.  A
+// thread takes four adjacent columns; where a row has fewer than
+// 4 * kCombineThreads columns the threads split into groups that take
+// every ng-th chunk, summed group by group after, so the sum runs in a
+// fixed order.
+constexpr int kCombineThreads = 128;
+constexpr int kSeg = 256;   // chunks weighed per pass
+constexpr int kBatch = 8;   // po loads a thread issues together
 
 __device__ __forceinline__ void combine_partials_row(
     const float* __restrict__ po, const float* __restrict__ pm,
     const float* __restrict__ pl, float* __restrict__ o,
     float* __restrict__ m, float* __restrict__ l, int nsplit, int Dv) {
-  __shared__ float ws[kSeg];  // a chunk's weight; 0 when it is empty
-  __shared__ float big_m;
+  constexpr int T = kCombineThreads, NW = T / 32;
+  __shared__ float ms_s[kSeg];  // a chunk's max, then its weight
+  __shared__ float ls_s[kSeg];  // a chunk's l
+  __shared__ float red[NW];
+  __shared__ float4 gsum[T];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t r = blockIdx.x;  // b * H + h
   const float* pmr = pm + r * nsplit;
-  if (threadIdx.x < 32) {
-    float M = REPRO_NEG_INF;
-    for (int s = threadIdx.x; s < nsplit; s += 32) M = fmaxf(M, pmr[s]);
-    M = warp_max(M);
-    if (threadIdx.x == 0) big_m = M;
+  const float* plr = pl + r * nsplit;
+  float M = REPRO_NEG_INF;
+  for (int s = tid; s < nsplit; s += T) {
+    const float x = pmr[s];
+    M = fmaxf(M, x);
+    if (s < kSeg) {
+      ms_s[s] = x;
+      ls_s[s] = plr[s];
+    }
   }
+  M = warp_max(M);
+  if (lane == 0) red[warp] = M;
   __syncthreads();
-  const float M = big_m;
-  const bool none = M <= REPRO_NEG_INF / 2;
-  // a pass takes 4 * blockDim.x columns, four adjacent ones a thread (one
-  // 16-byte load a chunk when Dv % 4 == 0); every thread takes every pass,
-  // since the passes meet at barriers
+  M = red[0];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) M = fmaxf(M, red[w]);
+  const int q4 = (Dv + 3) / 4;                   // column quads of a row
+  int gw = 32;                                   // threads of a group
+  while (gw < T && gw < q4) gw *= 2;
+  const int ng = T / gw;                         // groups
+  const int grp = tid / gw, gt = tid % gw;
   const bool vec = Dv % 4 == 0;
-  for (int base = 0; base < Dv; base += 4 * blockDim.x) {
-    const int d0 = base + 4 * threadIdx.x;
+  float lsum = 0.f;  // thread 0: the row's l, in chunk order
+  for (int base = 0; base < q4; base += gw) {
+    const int cq = base + gt, d0 = 4 * cq;
     float a[4] = {0.f, 0.f, 0.f, 0.f};
     for (int s0 = 0; s0 < nsplit; s0 += kSeg) {
       const int ns = min(kSeg, nsplit - s0);
-      __syncthreads();  // the previous segment's weights are read
-      for (int j = threadIdx.x; j < ns; j += blockDim.x) {
-        const float ms = pmr[s0 + j];
-        ws[j] = ms > REPRO_NEG_INF / 2 ? expf(ms - M) : 0.f;
+      if (base > 0 || s0 > 0) {  // the first was staged with the max
+        __syncthreads();           // the previous weights are read
+        for (int j = tid; j < ns; j += T) {
+          ms_s[j] = pmr[s0 + j];
+          ls_s[j] = plr[s0 + j];
+        }
       }
       __syncthreads();
-      for (int j0 = 0; j0 < ns; j0 += 4) {
-        float x[4][4];
+      for (int j = tid; j < ns; j += T) {
+        const float x = ms_s[j];
+        ms_s[j] = x > REPRO_NEG_INF / 2 ? expf(x - M) : 0.f;
+      }
+      __syncthreads();
+      if (base == 0 && tid == 0)
+        for (int j = 0; j < ns; ++j)
+          if (ms_s[j] > 0.f) lsum += ms_s[j] * ls_s[j];
+      for (int j0 = grp; j0 < ns; j0 += ng * kBatch) {
+        float x[kBatch][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool busy = j0 + j < ns && ws[j0 + j] > 0.f;
-          const float* src = po + (r * nsplit + s0 + j0 + j) * Dv + d0;
-          if (vec && busy && d0 < Dv) {
+        for (int k = 0; k < kBatch; ++k) {
+          const int j = j0 + k * ng;
+          const bool busy = j < ns && ms_s[j] > 0.f && d0 < Dv;
+          const float* src = po + (r * nsplit + s0 + j) * Dv + d0;
+          if (vec && busy) {
             const float4 v = *reinterpret_cast<const float4*>(src);
-            x[j][0] = v.x; x[j][1] = v.y; x[j][2] = v.z; x[j][3] = v.w;
+            x[k][0] = v.x; x[k][1] = v.y; x[k][2] = v.z; x[k][3] = v.w;
           } else {
 #pragma unroll
             for (int c = 0; c < 4; ++c)
-              x[j][c] = busy && d0 + c < Dv ? src[c] : 0.f;
+              x[k][c] = busy && d0 + c < Dv ? src[c] : 0.f;
           }
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float w = j0 + j < ns ? ws[j0 + j] : 0.f;
+        for (int k = 0; k < kBatch; ++k) {
+          const int j = j0 + k * ng;
+          const float w = j < ns ? ms_s[j] : 0.f;
           if (w > 0.f) {
 #pragma unroll
-            for (int c = 0; c < 4; ++c) a[c] += w * x[j][c];
+            for (int c = 0; c < 4; ++c) a[c] += w * x[k][c];
           }
         }
       }
     }
+    if (ng > 1) {  // the groups' sums, added in group order
+      gsum[tid] = make_float4(a[0], a[1], a[2], a[3]);
+      __syncthreads();
+      if (grp == 0)
+        for (int g = 1; g < ng; ++g) {
+          const float4 v = gsum[g * gw + gt];
+          a[0] += v.x; a[1] += v.y; a[2] += v.z; a[3] += v.w;
+        }
+    }
+    if (grp == 0)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (d0 + c < Dv) o[r * Dv + d0 + c] = a[c];
+      for (int c = 0; c < 4; ++c)
+        if (d0 + c < Dv) o[r * Dv + d0 + c] = a[c];
   }
-  if (threadIdx.x == 0) {
-    float ls = 0.f;
-    if (!none)
-      for (int s = 0; s < nsplit; ++s)
-        if (pmr[s] > REPRO_NEG_INF / 2)
-          ls += expf(pmr[s] - M) * pl[r * nsplit + s];
-    m[r] = none ? 0.f : M;
-    l[r] = ls;
+  if (tid == 0) {
+    m[r] = M <= REPRO_NEG_INF / 2 ? 0.f : M;
+    l[r] = lsum;
   }
 }
 

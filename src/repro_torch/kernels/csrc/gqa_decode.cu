@@ -17,7 +17,7 @@
 // Two bodies, chosen by dtype.  Both cut W into chunks of 64 slots, one
 // block per (chunk, kv head, row), so that a batch of 8 rows still fills
 // the SMs, and the G = H/Hkv query heads of the group share every K/V row
-// the block reads; a second launch merges the chunks' partials in chunk
+// the block reads; a second launch merges the chunks' partials in a fixed
 // order under the reference's rule (repro/models/attention.py: m_safe = 0
 // when nothing is valid, p = 0 on invalid slots).  A chunk with no valid
 // slot writes its sentinel (m, l) and nothing else.  int8 K/V are refused
@@ -31,24 +31,19 @@
 // 16-byte cp.async, all in flight at once (V in its own group, landing
 // while the scores run); an invalid slot and the padding columns are
 // zero-filled by the copy and never read from memory, so no compaction
-// and no data-dependent branch is needed.  Each warp scores 16 slots for
-// all heads of the group at once on mma.sync m16n8k16 (the heads padded
-// to 16 rows, Q and K through ldmatrix, f32 accumulators), applies scale,
-// softcap and then the mask (p = 0 exactly on an invalid slot) and writes
-// its scores to a shared f32 tile; 8 threads per head then take the
-// chunk's max, exponentials and sum.  P.V runs on the tensor cores with P
-// split into hi = bf16(P) and lo = bf16(P - hi), both multiplied, so P
-// keeps ~16 bits (the Pallas kernel keeps P in f32); each warp owns a
-// quarter of the Dv columns, V through ldmatrix.trans.  G > 16 loops over
-// head tiles.  Takes D, Dv multiples of 8 up to 256 (padded to 32, 64, 128
-// or 256) and 16-byte aligned rows; the wrapper raises otherwise.
+// and no data-dependent branch is needed.  The staged tile then runs the
+// tile body shared with paged_decode.cu (decode_tile.cuh): S on mma.sync
+// m16n8k16 with the heads padded to 16 rows, the masked softmax on a
+// shared f32 score tile, P.V with P split into bf16 hi + lo, G > 16
+// looping over head tiles.  Takes D, Dv multiples of 8 up to 256 (padded
+// to 32, 64, 128 or 256) and 16-byte aligned rows; the wrapper raises
+// otherwise.
 //
 // f32: the first design, on CUDA cores, kept so that f32 checks hold to
 // 1e-4: a block compacts its chunk's valid slots (one warp, ballots),
 // scores them one warp per slot, takes the softmax one warp per head and
 // the V sum one thread per column for all G heads.
-#include "common.cuh"
-#include "mma.cuh"
+#include "decode_tile.cuh"
 
 namespace {
 
@@ -162,16 +157,9 @@ __global__ void gqa_combine_kernel(const float* __restrict__ po,
 
 // ----------------------------------------------------- bf16 body (tensor cores)
 
-using bf16 = __nv_bfloat16;
-constexpr int kTcThreads = 128;      // 4 warps, 16 slots of the chunk each
-constexpr int kTcSlots = 64;         // ring slots per block
-constexpr int kPad = 8;              // bf16 elements of padding per shared row
-constexpr int kLdP = kTcSlots + 8;   // f32 row stride of the score tile
-
-size_t smem_bytes_tc(int GP, int DP) {
-  return sizeof(bf16) * static_cast<size_t>(GP + 2 * kTcSlots) * (DP + kPad) +
-         sizeof(float) * 16 * kLdP;
-}
+using decode_tile::bf16;
+using decode_tile::kSlots;
+constexpr int kTcThreads = decode_tile::kThreads;  // 4 warps
 
 // DP: max(D, Dv) rounded up to 32, 64, 128 or 256; the shared columns past
 // D (Dv) are zero-filled by the copies.
@@ -183,36 +171,27 @@ __global__ void __launch_bounds__(kTcThreads)
                   float* __restrict__ po, float* __restrict__ pm,
                   float* __restrict__ pl, int H, int Hkv, int W, int D,
                   int Dv, float scale, float cap) {
-  constexpr int LD = DP + kPad;   // row stride of Q, K and V in shared memory
-  constexpr int CH = DP / 8;      // 16-byte chunks of a padded row
-  constexpr int KD = DP / 16;     // k16 steps of Q.K^T
-  constexpr int NT = DP / 32;     // n8 output tiles of each warp
+  using Tile = decode_tile::Tile<DP>;
+  constexpr int LD = Tile::LD, CH = Tile::CH;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ unsigned char ok_s[kTcSlots];
+  __shared__ unsigned char ok_s[kSlots];
   const int G = H / Hkv, GP = (G + 15) / 16 * 16;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);              // [GP][LD]
-  bf16* ks = qs + GP * LD;                                   // [64][LD]
-  bf16* vs = ks + kTcSlots * LD;                             // [64][LD]
-  float* ps = reinterpret_cast<float*>(vs + kTcSlots * LD);  // [16][kLdP]
+  const Tile tl(smem_raw, GP);
   const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int nsplit = gridDim.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int w0 = sp * kTcSlots;
-  const int nw = min(kTcSlots, W - w0);
+  const int tid = threadIdx.x;
+  const int w0 = sp * kSlots;
+  const int nw = min(kSlots, W - w0);
   const size_t row0 = static_cast<size_t>(b) * H + hk * G;  // (b, 1st head)
 
   bool any = false;
-  if (tid < kTcSlots) {
+  if (tid < kSlots) {
     any = tid < nw && valid[static_cast<size_t>(b) * W + w0 + tid];
     ok_s[tid] = any;
   }
   if (!__syncthreads_or(any)) {
     // a chunk with no valid slot: the sentinel max and nothing else
-    for (int i = tid; i < G; i += kTcThreads) {
-      pm[(row0 + i) * nsplit + sp] = REPRO_NEG_INF;
-      pl[(row0 + i) * nsplit + sp] = 0.f;
-    }
+    decode_tile::write_empty(pm, pl, row0, G, nsplit, sp);
     return;
   }
   // every copy in flight at once: Q and K in one group, V in the next;
@@ -221,137 +200,26 @@ __global__ void __launch_bounds__(kTcThreads)
   for (int i = tid; i < GP * CH; i += kTcThreads) {
     const int r = i / CH, c = i % CH;
     const bool in = r < G && c < dch;
-    cp_async16(qs + r * LD + c * 8, q + (in ? (row0 + r) * D + c * 8 : 0), in);
+    cp_async16(tl.qs + r * LD + c * 8, q + (in ? (row0 + r) * D + c * 8 : 0),
+               in);
   }
   const size_t kvrow = static_cast<size_t>(b) * W + w0;  // slot w0 of row b
-  for (int i = tid; i < kTcSlots * CH; i += kTcThreads) {
+  for (int i = tid; i < kSlots * CH; i += kTcThreads) {
     const int j = i / CH, c = i % CH;
     const bool in = ok_s[j] && c < dch;
-    cp_async16(ks + j * LD + c * 8,
+    cp_async16(tl.ks + j * LD + c * 8,
                k + (in ? ((kvrow + j) * Hkv + hk) * D + c * 8 : 0), in);
   }
   cp_async_commit();
-  for (int i = tid; i < kTcSlots * CH; i += kTcThreads) {
+  for (int i = tid; i < kSlots * CH; i += kTcThreads) {
     const int j = i / CH, c = i % CH;
     const bool in = ok_s[j] && c < vch;
-    cp_async16(vs + j * LD + c * 8,
+    cp_async16(tl.vs + j * LD + c * 8,
                v + (in ? ((kvrow + j) * Hkv + hk) * Dv + c * 8 : 0), in);
   }
   cp_async_commit();
-  cp_async_wait<1>();  // Q and K have landed
-  __syncthreads();
-
-  for (int h0 = 0; h0 < G; h0 += 16) {
-    // S = Q.K^T: heads h0..h0+15 against this warp's 16 slots
-    float sacc[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
-    const int mi = lane >> 3;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qf[4], kf[4];
-      ldmatrix_x4(qf, qs + (h0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-      ldmatrix_x4(kf, ks + (warp * 16 + (mi >> 1) * 8 + (lane & 7)) * LD +
-                          kk * 16 + (mi & 1) * 8);
-      mma_bf16(sacc[0], qf, kf[0], kf[1]);
-      mma_bf16(sacc[1], qf, kf[2], kf[3]);
-    }
-    // scale, softcap, then mask, into the shared score tile
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int slot = warp * 16 + j * 8 + 2 * t;
-        float s[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x = sacc[j][2 * r + e] * scale;
-          if (cap > 0.f) x = cap * tanhf(x / cap);
-          s[e] = ok_s[slot + e] ? x : REPRO_NEG_INF;
-        }
-        *reinterpret_cast<float2*>(ps + (g + 8 * r) * kLdP + slot) =
-            make_float2(s[0], s[1]);
-      }
-    }
-    __syncthreads();
-    // the chunk's max, exponentials and sum: 8 threads per head, 8 slots
-    // each
-    {
-      const int r = tid >> 3, j8 = tid & 7;
-      float4* pr = reinterpret_cast<float4*>(ps + r * kLdP + j8 * 8);
-      float x[8];
-      *reinterpret_cast<float4*>(x) = pr[0];
-      *reinterpret_cast<float4*>(x + 4) = pr[1];
-      float mx = REPRO_NEG_INF;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) mx = fmaxf(mx, x[e]);
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_safe = mx <= REPRO_NEG_INF / 2 ? 0.f : mx;
-      float l = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        x[e] = x[e] > REPRO_NEG_INF / 2 ? expf(x[e] - m_safe) : 0.f;
-        l += x[e];
-      }
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-      pr[0] = *reinterpret_cast<const float4*>(x);
-      pr[1] = *reinterpret_cast<const float4*>(x + 4);
-      if (j8 == 0 && h0 + r < G) {
-        pm[(row0 + h0 + r) * nsplit + sp] = mx;  // the chunk's true max
-        pl[(row0 + h0 + r) * nsplit + sp] = l;
-      }
-    }
-    cp_async_wait<0>();  // V has landed
-    __syncthreads();
-    // O += P.V with P split into hi + lo; this warp's n8 tiles are warp,
-    // warp + 4, ...
-    float oacc[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-      oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-#pragma unroll
-    for (int k2 = 0; k2 < kTcSlots / 32; ++k2) {  // 32 slots at a time
-      uint32_t ah[2][4], al[2][4];
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const int c = k2 * 32 + kk * 16 + 2 * t;
-#pragma unroll
-        for (int f = 0; f < 4; ++f) {  // a0..a3: rows g / g+8, cols c / c+8
-          const float2 x = *reinterpret_cast<const float2*>(
-              ps + (g + 8 * (f & 1)) * kLdP + c + 8 * (f >> 1));
-          split_bf16(x.x, x.y, ah[kk][f], al[kk][f]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        // matrix m of the x4 holds slots k2*32 + 8m .. +7: b0, b1 of the
-        // first k16 step, then of the second
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + (k2 * 32 + lane) * LD + (warp + 4 * i) * 8);
-        mma_bf16(oacc[i], ah[0], vf[0], vf[1]);
-        mma_bf16(oacc[i], al[0], vf[0], vf[1]);
-        mma_bf16(oacc[i], ah[1], vf[2], vf[3]);
-        mma_bf16(oacc[i], al[1], vf[2], vf[3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const int col = (warp + 4 * i) * 8 + 2 * t;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int h = h0 + g + 8 * r;
-        if (col < Dv && h < G)
-          *reinterpret_cast<float2*>(po + ((row0 + h) * nsplit + sp) * Dv +
-                                     col) =
-              make_float2(oacc[i][2 * r], oacc[i][2 * r + 1]);
-      }
-    }
-    __syncthreads();  // the score tile is rewritten by the next head tile
-  }
+  decode_tile::attend<DP>(tl, ok_s, G, Dv, scale, cap, po, pm, pl, row0,
+                          nsplit, sp);
 }
 
 template <int DP>
@@ -360,18 +228,19 @@ int launch_tc(const void* q, const void* k, const void* v,
               float* o, float* m, float* l, int B, int H, int Hkv, int W,
               int D, int Dv, float scale, float cap, cudaStream_t st) {
   const int G = H / Hkv;
-  const size_t smem = smem_bytes_tc((G + 15) / 16 * 16, DP);
+  const size_t smem = decode_tile::smem_bytes((G + 15) / 16 * 16, DP);
   const cudaError_t err = cudaFuncSetAttribute(
       gqa_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nsplit = (W + kTcSlots - 1) / kTcSlots;
+  const int nsplit = (W + kSlots - 1) / kSlots;
   const dim3 grid(nsplit, Hkv, B);
   gqa_tc_kernel<DP><<<grid, kTcThreads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), valid, po, pm, pl, H, Hkv, W, D, Dv, scale,
       cap);
-  gqa_combine_kernel<<<B * H, 128, 0, st>>>(po, pm, pl, o, m, l, nsplit, Dv);
+  gqa_combine_kernel<<<B * H, kCombineThreads, 0, st>>>(po, pm, pl, o, m, l,
+                                                        nsplit, Dv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -395,7 +264,8 @@ int launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), valid, po, pm, pl, H, Hkv, W, D, Dv, wchunk,
       scale, cap);
-  gqa_combine_kernel<<<B * H, 128, 0, st>>>(po, pm, pl, o, m, l, nsplit, Dv);
+  gqa_combine_kernel<<<B * H, kCombineThreads, 0, st>>>(po, pm, pl, o, m, l,
+                                                        nsplit, Dv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,7 +289,7 @@ extern "C" int gqa_decode_launch(int dtype, const void* q, const void* k,
     return launch<float>(q, k, v, vm, po, pm, pl, o, m, l, B, H, Hkv, W, D,
                          Dv, wchunk, scale, cap, st);
   const int dm = D > Dv ? D : Dv;
-  if (dtype != DT_BF16 || wchunk != kTcSlots || D % 8 || Dv % 8 || dm > 256)
+  if (dtype != DT_BF16 || wchunk != kSlots || D % 8 || Dv % 8 || dm > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dm <= 32)
     return launch_tc<32>(q, k, v, vm, po, pm, pl, o, m, l, B, H, Hkv, W, D,

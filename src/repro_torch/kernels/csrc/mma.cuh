@@ -36,6 +36,26 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
       : "memory");
 }
 
+// An L2 policy under which the lines a copy brings in are the first to be
+// evicted: for data read once, so that streaming it does not push out
+// lines that are used again or dirty.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  return pol;
+}
+
+// cp_async16 under an L2 policy (l2_evict_first).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full, uint64_t pol) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint.L2::128B [%0], [%1], 16, %2, "
+      "%3;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(full ? 16 : 0), "l"(pol)
+      : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -12,57 +12,87 @@
 //   s = softcap(scale * q . k),  m = max s (0 for a row with none),
 //   l = sum exp(s - m),  o_unnorm = sum exp(s - m) v,
 // all in f32: the (o_unnorm, m, l) contract of models.attention.
-// An unmapped logical block is skipped whole and none of its bytes are
+// An unmapped logical block is masked whole and none of its bytes are
 // loaded; the trash block (index NB, the scatter target of unmapped rows)
 // is therefore never read.
 //
-// Fused decode-write epilogue: given the fresh token k_new/v_new
-// (B, Hkv, D) in the arena dtype, the row's token at ring position
-// i = pos % (MB*bt) replaces position i % bt of logical block i / bt in
-// registers, before any score math, when that block is mapped; its
-// slot_pos reads as pos.  Attention over the un-written arena then equals
-// attention after the scatter bit for bit (the Python wrapper performs the
-// scatter right after, on the same stream).
+// Fused decode-write: given the fresh token k_new/v_new (B, Hkv, D) in the
+// arena dtype, the row's token at ring position i = pos % (MB*bt) takes
+// the place of position i % bt of logical block i / bt, before any score
+// math, when that block is mapped; its slot_pos reads as pos.  Attention
+// over the un-written arena then equals attention after the scatter bit
+// for bit (the Python wrapper performs the scatter right after, on the
+// same stream).  A fresh token whose block is unmapped is masked with it.
 //
 // Bound on the H100: the K and V bytes of the mapped blocks, each read
-// once (mapped*Hkv*bt*2D*2 in bf16; about 18 MB for 8 rows of ~700
-// tokens of mixtral, ~5.5 us at 3.35 TB/s), plus slot_pos, q and the
-// f32 partials.  Its 4*valid*H*D operations are far below the card's
-// rate, so it is bound by bytes.
+// once (mapped*Hkv*bt*2D*2 in bf16; about 16 MB for 8 rows of ~480
+// tokens of mixtral, ~5 us at 3.35 TB/s), plus slot_pos, q and the f32
+// partials.  Its 4*valid*H*D operations are far below the card's rate,
+// so it is bound by bytes.
 //
-// Design, and how it differs from csrc/gqa_decode.cu.  As there, a block
-// takes one (chunk of logical blocks, kv head, row), so a batch of 8 rows
-// still fills the SMs, the G = H/Hkv query heads of the group share every
-// K/V row, and a second, fixed-order launch merges the chunks' partials.
-// The dense kernel was bound by its block's serial phases: one warp per
-// slot and a block-wide barrier between scores, softmax and the V sum.
-// Here each warp of the block walks its own logical blocks and keeps its
-// own running (max, sum, accumulator) in registers, so the main loop has
-// no barrier and no shared-memory score array.  Per logical block the
-// warp reads the validity of up to 32 positions with one slot_pos load and
-// one ballot; per tile of 8 positions that holds a valid one, it issues
-// every K and V load of the tile back to back, with no branch between them
-// (lanes across D, each lane a contiguous vector of D/32 elements; a row
-// past the block's end reads inside the block and is dropped), so that
-// the 16 loads are in flight together, and only then converts them and
-// computes the scores, the tile's online-softmax update and the V sum.
-// A load inside a per-row branch, followed in the same branch by its use,
-// made the warp wait for each row in turn: 16 round trips to memory per
-// tile, which set the time of the first design (PERF.md).  The
-// warps' states merge once, through shared memory, at the end.
-#include "common.cuh"
+// Two bodies, chosen by dtype.  The source sizes a row's chunks, whose
+// partials a second launch merges in a fixed order (combine_partials_row):
+// paged_gqa_decode_splits.
+//
+// bf16 (the served type): tensor cores, the tile body of gqa_decode.cu
+// (decode_tile.cuh) over the paged arena.  The first design (the f32 body
+// below, once for both types) walked each warp's logical blocks in turn,
+// a chain of dependent loads per block (slot_pos, a ballot, then one
+// 8-position tile of K and V), scored on the CUDA cores with 5 shuffle
+// rounds per 8 positions, and merged its 4 warps through a barrier and a
+// 4*G*D f32 shared-memory pass in every block, empty ones included.  Now
+// a block takes one tile of 64 logical positions of one row and kv head,
+// so a row's chunk count is ceil(MB*bt / 64) whatever bt is: a tile may
+// hold part of a block (bt > 64, or a bt that does not divide 64), and
+// each position finds its page-table entry and offset from its own
+// logical position.  The chunk is the grid's slowest dimension, so the
+// low chunks, busy in every row, are dispatched first.  The first 64
+// threads each read one position's page-table entry; a tile whose
+// positions are all unmapped writes its sentinel and leaves (at the
+// served shape about half the grid).  Then each of those threads loads
+// its position's slot_pos while the block issues Q and the K rows of
+// every mapped position by 16-byte cp.async (each (kv head, physical
+// block) slab is one contiguous bt*D run): K does not wait for slot_pos,
+// since a K row of an invalid position only feeds a score that the mask
+// replaces.  V rows are issued once validity is known, those of the valid
+// positions only; the others are zero-filled without a read (P is 0
+// there, and 0 * NaN would not be).  Unmapped positions and padding
+// columns are zero-filled too, and the fresh token's rows are copied from
+// k_new / v_new in place of its arena rows.  K and V are read once per
+// step and not again before the next step has streamed every other layer
+// through L2, so their copies carry an evict-first L2 policy: they do not
+// push out lines that are used again, or dirty lines that would have to
+// be written back first.
+// The rest is the shared tile body: S on mma.sync m16n8k16 with the heads
+// padded to 16 rows (any G, G > 16 looping over head tiles), the masked
+// softmax on a shared f32 score tile, P.V with P split into bf16 hi + lo.
+// Takes any G, D a multiple of 8 up to 256, any bt and MB (at most 65535
+// chunks a row), 16-byte aligned rows.
+//
+// What bounds it: with a cold L2 the tile kernel streams the mapped
+// blocks' K and V near the card's memory rate, counting the dirty lines
+// their reads evict; the rest of the call is the two launches and the
+// merge (PERF.md).
+//
+// f32: the first design, on CUDA cores, kept so that f32 checks hold to
+// 1e-4.  Each of a block's 4 warps walks its own logical blocks of a
+// chunk of kChunk and keeps its own running (max, sum, accumulator) in
+// registers; per tile of 8 positions that holds a valid one it issues
+// every K and V load of the tile back to back (lanes across D, D/32
+// elements a lane), then scores them (shuffle sums), and the warps merge
+// through shared memory at the end.  Takes G in {1, 2, 4, 8} and
+// D <= 128.
+#include "decode_tile.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 8;        // positions per register tile
-constexpr int kMaxChunk = 64;   // logical blocks per thread block, at most
+constexpr int kChunk = 8;       // logical blocks per thread block
 
 template <int N>
 struct Raw;
-template <>
-struct Raw<2> { using type = unsigned short; };
 template <>
 struct Raw<4> { using type = unsigned int; };
 template <>
@@ -107,7 +137,7 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ pm, float* __restrict__ pl,
                        int H, int Hkv, int NB1, int bt, int D, int MB,
                        int chunk, float scale, float cap, int window) {
-  __shared__ int pts[kMaxChunk];
+  __shared__ int pts[kChunk];
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
   extern __shared__ float sm_acc[];  // [kWarps][G][D]
@@ -333,8 +363,8 @@ int launch(const void* q, const void* k, const void* v, const int* slot_pos,
       static_cast<const T*>(v), slot_pos, pt, pos,
       static_cast<const T*>(k_new), static_cast<const T*>(v_new), po, pm,
       pl, H, Hkv, NB1, bt, D, MB, chunk, scale, cap, window);
-  paged_combine_kernel<<<B * H, 128, 0, st>>>(po, pm, pl, o, m, l, nsplit,
-                                              D);
+  paged_combine_kernel<<<B * H, kCombineThreads, 0, st>>>(po, pm, pl, o, m,
+                                                          l, nsplit, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,36 +403,185 @@ int launch_g(int G, int vpl, const void* q, const void* k, const void* v,
 }
 #undef REPRO_PAGED_ARGS
 
+// ----------------------------------------------------- bf16 body (tensor cores)
+
+using decode_tile::bf16;
+using decode_tile::kSlots;
+constexpr int kTcThreads = decode_tile::kThreads;  // 4 warps
+constexpr long long kUnmapped = -1;   // src_s: a position of no mapped block
+constexpr long long kFresh = -2;      // src_s: the fused token's position
+
+// DP: D rounded up to 32, 64, 128 or 256; the shared columns past D are
+// zero-filled by the copies.
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads)
+    paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const int* __restrict__ slot_pos,
+                    const int* __restrict__ pt,
+                    const int* __restrict__ pos_arr,
+                    const bf16* __restrict__ k_new,
+                    const bf16* __restrict__ v_new, float* __restrict__ po,
+                    float* __restrict__ pm, float* __restrict__ pl, int H,
+                    int Hkv, int NB1, int bt, int D, int MB, float scale,
+                    float cap, int window) {
+  using Tile = decode_tile::Tile<DP>;
+  constexpr int LD = Tile::LD, CH = Tile::CH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ long long src_s[kSlots];  // a position's K/V row (elements)
+  __shared__ unsigned char ok_s[kSlots];
+  const int G = H / Hkv, GP = (G + 15) / 16 * 16;
+  const Tile tl(smem_raw, GP);
+  const int hk = blockIdx.x % Hkv, b = blockIdx.x / Hkv, sp = blockIdx.y;
+  const int nsplit = gridDim.y;
+  const int tid = threadIdx.x;
+  const size_t row0 = static_cast<size_t>(b) * H + hk * G;  // (b, 1st head)
+  const int ring = MB * bt;
+  const int p = pos_arr[b];
+
+  // thread j < 64 owns logical position sp*64 + j: its page-table entry,
+  // then its slot_pos (loaded now, used after the K copies are issued)
+  bool mapped = false;
+  int spos = -1;
+  if (tid < kSlots) {
+    const int t = sp * kSlots + tid;
+    long long src = kUnmapped;
+    if (t < ring) {
+      const int lb = t / bt, off = t - lb * bt;
+      const int pb = pt[static_cast<size_t>(b) * MB + lb];
+      if (pb >= 0) {
+        mapped = true;
+        if (k_new != nullptr && t == p % ring) {
+          src = kFresh;
+          spos = p;
+        } else {
+          src = ((static_cast<long long>(hk) * NB1 + pb) * bt + off) * D;
+          spos = slot_pos[static_cast<size_t>(pb) * bt + off];
+        }
+      }
+    }
+    src_s[tid] = src;
+  }
+  if (!__syncthreads_or(mapped)) {
+    // no mapped position: the sentinel max and nothing else
+    decode_tile::write_empty(pm, pl, row0, G, nsplit, sp);
+    return;
+  }
+  // Q and the K rows of every mapped position, in flight while slot_pos
+  // lands; rows past G, unmapped positions and padding columns are
+  // zero-filled without a read
+  const int dch = D / 8;
+  const uint64_t pol = l2_evict_first();
+  const size_t nrow = (static_cast<size_t>(b) * Hkv + hk) * D;  // k_new row
+  for (int i = tid; i < GP * CH; i += kTcThreads) {
+    const int r = i / CH, c = i % CH;
+    const bool in = r < G && c < dch;
+    cp_async16(tl.qs + r * LD + c * 8, q + (in ? (row0 + r) * D + c * 8 : 0),
+               in);
+  }
+  for (int i = tid; i < kSlots * CH; i += kTcThreads) {
+    const int j = i / CH, c = i % CH;
+    const long long s = src_s[j];
+    const bool in = s != kUnmapped && c < dch;
+    const bf16* src = s == kFresh ? k_new + nrow : k + (s >= 0 ? s : 0);
+    cp_async16(tl.ks + j * LD + c * 8, src + (in ? c * 8 : 0), in, pol);
+  }
+  cp_async_commit();
+  bool ok = false;
+  if (tid < kSlots) {
+    ok = mapped && spos >= 0 && spos <= p &&
+         (window <= 0 || spos > p - window);
+    ok_s[tid] = ok;
+  }
+  if (!__syncthreads_or(ok)) {
+    cp_async_wait<0>();  // nothing valid: drain the K copies, then leave
+    decode_tile::write_empty(pm, pl, row0, G, nsplit, sp);
+    return;
+  }
+  // V rows of the valid positions only; the others zero-filled, unread
+  for (int i = tid; i < kSlots * CH; i += kTcThreads) {
+    const int j = i / CH, c = i % CH;
+    const long long s = src_s[j];
+    const bool in = ok_s[j] && c < dch;
+    const bf16* src = s == kFresh ? v_new + nrow : v + (s >= 0 ? s : 0);
+    cp_async16(tl.vs + j * LD + c * 8, src + (in ? c * 8 : 0), in, pol);
+  }
+  cp_async_commit();
+  decode_tile::attend<DP>(tl, ok_s, G, D, scale, cap, po, pm, pl, row0,
+                          nsplit, sp);
+}
+
+template <int DP>
+int launch_tc(const void* q, const void* k, const void* v,
+              const int* slot_pos, const int* pt, const int* pos,
+              const void* k_new, const void* v_new, float* po, float* pm,
+              float* pl, float* o, float* m, float* l, int B, int H, int Hkv,
+              int NB1, int bt, int D, int MB, int nsplit, float scale,
+              float cap, int window, cudaStream_t st) {
+  const int G = H / Hkv;
+  const size_t smem = decode_tile::smem_bytes((G + 15) / 16 * 16, DP);
+  const cudaError_t err = cudaFuncSetAttribute(
+      paged_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the chunk is the slowest grid dimension: the low chunks, busy in every
+  // row, are dispatched first and the empty ones after
+  const dim3 grid(B * Hkv, nsplit);
+  paged_tc_kernel<DP><<<grid, kTcThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), slot_pos, pt, pos,
+      static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new), po,
+      pm, pl, H, Hkv, NB1, bt, D, MB, scale, cap, window);
+  paged_combine_kernel<<<B * H, kCombineThreads, 0, st>>>(po, pm, pl, o, m,
+                                                          l, nsplit, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The chunks of a row, each a block of the first launch whose partials the
+// combine merges: f32, kChunk logical blocks; bf16, one tile of kSlots
+// logical positions.  0 when the dtype is not taken.
+extern "C" int paged_gqa_decode_splits(int dtype, int MB, int bt) {
+  if (dtype == DT_F32) return (MB + kChunk - 1) / kChunk;
+  if (dtype == DT_BF16) return (MB * bt + kSlots - 1) / kSlots;
+  return 0;
+}
 
 // q (B,H,D); k, v (Hkv, NB1, bt, D) of one dtype (one layer's arena,
 // NB1 = NB + 1 with the trash block last); slot_pos (NB1, bt), pt (B, MB)
 // and pos (B,) int32; k_new, v_new (B, Hkv, D) in the arena dtype or null
 // (unfused); po (B,H,nsplit,D), pm/pl (B,H,nsplit) f32 scratch with
-// nsplit = ceil(MB / chunk), chunk <= 64; o (B,H,D), m/l (B,H) f32
-// outputs.  G = H / Hkv in {1, 2, 4, 8}; vpl = D columns per lane in
-// {1, 2, 4} with D <= 32 * vpl and D % vpl == 0.  cap <= 0 disables the
-// softcap, window <= 0 the window.
+// nsplit = paged_gqa_decode_splits(dtype, MB, bt); o (B,H,D), m/l (B,H)
+// f32 outputs.  cap <= 0 disables the softcap, window <= 0 the window.
+// bf16: any G = H / Hkv, D a multiple of 8 up to 256, 16-byte aligned
+// rows.  f32: G in {1, 2, 4, 8}, vpl = D columns per lane in {1, 2, 4}
+// with D <= 32 * vpl and D % vpl == 0.
 extern "C" int paged_gqa_decode_launch(
     int dtype, const void* q, const void* k, const void* v,
     const void* slot_pos, const void* pt, const void* pos, const void* k_new,
     const void* v_new, float* po, float* pm, float* pl, float* o, float* m,
-    float* l, int B, int H, int Hkv, int NB1, int bt, int D, int MB,
-    int chunk, int vpl, float scale, float cap, int window, void* stream) {
-  if (chunk < 1 || chunk > kMaxChunk || H % Hkv)
+    float* l, int B, int H, int Hkv, int NB1, int bt, int D, int MB, int vpl,
+    float scale, float cap, int window, void* stream) {
+  const int nsplit = paged_gqa_decode_splits(dtype, MB, bt);
+  if (nsplit < 1 || Hkv < 1 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int G = H / Hkv;
   const auto* sp = static_cast<const int*>(slot_pos);
   const auto* ptp = static_cast<const int*>(pt);
   const auto* ps = static_cast<const int*>(pos);
   if (dtype == DT_F32)
-    return launch_g<float>(G, vpl, q, k, v, sp, ptp, ps, k_new, v_new, po,
-                           pm, pl, o, m, l, B, H, Hkv, NB1, bt, D, MB, chunk,
-                           scale, cap, window, st);
-  if (dtype == DT_BF16)
-    return launch_g<__nv_bfloat16>(G, vpl, q, k, v, sp, ptp, ps, k_new,
-                                   v_new, po, pm, pl, o, m, l, B, H, Hkv, NB1,
-                                   bt, D, MB, chunk, scale, cap, window, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_g<float>(H / Hkv, vpl, q, k, v, sp, ptp, ps, k_new, v_new,
+                           po, pm, pl, o, m, l, B, H, Hkv, NB1, bt, D, MB,
+                           kChunk, scale, cap, window, st);
+  if (D % 8 || D > 256 || nsplit > 65535)  // nsplit: the grid's y dimension
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_PAGED_TC(DP)                                                   \
+  launch_tc<DP>(q, k, v, sp, ptp, ps, k_new, v_new, po, pm, pl, o, m, l, B, \
+                H, Hkv, NB1, bt, D, MB, nsplit, scale, cap, window, st)
+  if (D <= 32) return REPRO_PAGED_TC(32);
+  if (D <= 64) return REPRO_PAGED_TC(64);
+  if (D <= 128) return REPRO_PAGED_TC(128);
+  return REPRO_PAGED_TC(256);
+#undef REPRO_PAGED_TC
 }

@@ -65,7 +65,7 @@
 // take turns.  A chunk with no valid position writes its sentinel (m, l)
 // and no o_unnorm; the others stage their f32 partials in shared memory
 // and write each head's row with 16-byte stores, and a second launch
-// merges them in chunk order (combine_partials_row).  What keeps it from
+// merges them in a fixed order (combine_partials_row).  What keeps it from
 // its byte bound: the partials' round trip (f32, 128 KB a busy chunk,
 // written and read back), a single block per SM (157 KB of shared memory,
 // 200 registers a thread), so that no other block hides a block's chain
@@ -774,7 +774,8 @@ int launch_tc(const void* q, const void* ckv, const void* kr,
       static_cast<const bf16*>(kr), slot_pos, pt, pos,
       static_cast<const bf16*>(ckv_new), static_cast<const bf16*>(kr_new), po,
       pm, pl, H, bt, L, R, MB, scale);
-  mla_combine_kernel<<<B * H, 128, 0, st>>>(po, pm, pl, o, m, l, nsplit, L);
+  mla_combine_kernel<<<B * H, kCombineThreads, 0, st>>>(po, pm, pl, o, m, l,
+                                                        nsplit, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -801,7 +802,8 @@ int launch(const void* q, const void* ckv, const void* kr,
       static_cast<const T*>(kr), slot_pos, pt, pos,
       static_cast<const T*>(ckv_new), static_cast<const T*>(kr_new), po, pm,
       pl, H, bt, L, R, MB, chunk, scale);
-  mla_combine_kernel<<<B * H, 128, 0, st>>>(po, pm, pl, o, m, l, nsplit, L);
+  mla_combine_kernel<<<B * H, kCombineThreads, 0, st>>>(po, pm, pl, o, m, l,
+                                                        nsplit, L);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,14 @@ arena: the wrapper of ``csrc/paged_decode.cu``.
 Replaces the Pallas TPU kernel
 ``repro/kernels/paged_decode.py::paged_gqa_decode``.  On the H100 it is
 bound by the K and V bytes of the mapped blocks; see the source for the
-design.  A CPU tensor takes the plain version (``ref.paged_gqa_decode_ref``);
-a CUDA tensor launches the kernel or raises.
+design.  bf16 takes the tensor-core body: any H/Hkv, D a multiple of 8 up
+to 256, any block size and page-table width, 16-byte aligned q, k, v (and
+k_new, v_new).  float32 takes the CUDA-core body: H/Hkv in {1, 2, 4, 8}
+and D <= 128.  The wrapper raises on others.  The source sizes the chunks
+of a row whose partials merge after (``paged_gqa_decode_splits``), so the
+launch depends on the shapes alone and reads nothing back from the device.
+A CPU tensor takes the plain version (``ref.paged_gqa_decode_ref``); a
+CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -15,11 +21,12 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-BLOCKS_PER_SPLIT = 8   # logical blocks per thread block; chunks merge after
-GROUPS = (1, 2, 4, 8)  # query heads per kv head the kernel is built for
-VPLS = (1, 2, 4)       # D columns per lane: D <= 128
+MAX_D = 256            # D the bf16 body takes, at most
+MAX_SPLITS = 65535     # chunks of a row, at most (a grid dimension)
+F32_GROUPS = (1, 2, 4, 8)  # H/Hkv the float32 body is built for
+F32_VPLS = (1, 2, 4)       # its D columns per lane: D <= 128
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
              + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -30,9 +37,9 @@ def paged_gqa_decode(q, k, v, slot_pos, page_table, pos, *, scale: float,
     (the last block is the trash block, never read); slot_pos: (NB+1, bt)
     int32; page_table: (B, MB) int32 (-1 = unmapped); pos: (B,) int32.
     The fused decode-write form passes the fresh token k_new/v_new
-    (B, Hkv, D) in the arena dtype; it is merged into its target block
-    in registers and the arena is not written.  Returns partials
-    (o_unnorm (B,H,D) f32, m (B,H) f32, l (B,H) f32)."""
+    (B, Hkv, D) in the arena dtype; it takes the place of its arena row
+    as the kernel stages its tile, and the arena is not written.
+    Returns partials (o_unnorm (B,H,D) f32, m (B,H) f32, l (B,H) f32)."""
     if k_scale is not None or v_scale is not None or k.dtype == torch.int8:
         raise NotImplementedError(
             "int8 KV is not ported to paged_gqa_decode yet")
@@ -59,11 +66,6 @@ def paged_gqa_decode(q, k, v, slot_pos, page_table, pos, *, scale: float,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"slot_pos {tuple(slot_pos.shape)}, page_table "
                          f"{tuple(page_table.shape)}, pos {tuple(pos.shape)}")
-    vpl = next((n for n in VPLS if 32 * n >= D), None)
-    if H // Hkv not in GROUPS or vpl is None or D % vpl:
-        raise ValueError(f"paged_gqa_decode kernel takes H/Hkv in {GROUPS} "
-                         f"and D <= 128 (a multiple of D/32 rounded up to "
-                         f"1, 2 or 4), got H {H}, Hkv {Hkv}, D {D}")
     dev = q.device
     kv = dict(q=q, k=k, v=v)
     if fused:
@@ -71,7 +73,19 @@ def paged_gqa_decode(q, k, v, slot_pos, page_table, pos, *, scale: float,
     build.require_operands("paged_gqa_decode", q.dtype, dev, **kv)
     build.require_operands("paged_gqa_decode", torch.int32, dev,
                            slot_pos=slot_pos, page_table=page_table, pos=pos)
-    align = vpl * q.element_size()
+    if q.dtype == torch.bfloat16:
+        vpl, align = 0, 16
+        if D % 8 or D > MAX_D:
+            raise ValueError(f"paged_gqa_decode bf16 kernel takes D a "
+                             f"multiple of 8 up to {MAX_D}, got D {D}")
+    else:
+        vpl = next((n for n in F32_VPLS if 32 * n >= D), None)
+        if H // Hkv not in F32_GROUPS or vpl is None or D % vpl:
+            raise ValueError(f"paged_gqa_decode float32 kernel takes H/Hkv "
+                             f"in {F32_GROUPS} and D <= 128 (a multiple of "
+                             f"D/32 rounded up to 1, 2 or 4), got H {H}, "
+                             f"Hkv {Hkv}, D {D}")
+        align = 4 * vpl
     if any(t.data_ptr() % align for t in kv.values()):
         raise ValueError(f"paged_gqa_decode: q, k, v (and k_new, v_new) "
                          f"must be aligned to {align} bytes")
@@ -80,20 +94,26 @@ def paged_gqa_decode(q, k, v, slot_pos, page_table, pos, *, scale: float,
     l = torch.empty((B, H), dtype=torch.float32, device=dev)
     if B * H == 0:
         return o, m, l
-    nsplit = -(-MB // BLOCKS_PER_SPLIT)
+    # the chunks of a row, as the source sizes them
+    dtype = build.DTYPE_CODES[q.dtype]
+    nsplit = build.function("paged_decode", "paged_gqa_decode_splits",
+                            [ctypes.c_int] * 3)(dtype, MB, bt)
+    if nsplit > MAX_SPLITS:
+        raise ValueError(f"paged_gqa_decode {q.dtype} kernel takes at most "
+                         f"{MAX_SPLITS} chunks a row, got {nsplit} for {MB} "
+                         f"blocks of {bt} positions")
     po = torch.empty((B, H, nsplit, D), dtype=torch.float32, device=dev)
     pm = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
     pl = torch.empty((B, H, nsplit), dtype=torch.float32, device=dev)
     fn = build.function("paged_decode", "paged_gqa_decode_launch", _ARGTYPES)
-    err = fn(build.DTYPE_CODES[q.dtype], build.ptr(q), build.ptr(k),
-             build.ptr(v), build.ptr(slot_pos), build.ptr(page_table),
-             build.ptr(pos),
+    err = fn(dtype, build.ptr(q), build.ptr(k), build.ptr(v),
+             build.ptr(slot_pos), build.ptr(page_table), build.ptr(pos),
              build.ptr(k_new) if fused else None,
              build.ptr(v_new) if fused else None,
              build.ptr(po), build.ptr(pm), build.ptr(pl), build.ptr(o),
-             build.ptr(m), build.ptr(l), B, H, Hkv, NB1, bt, D, MB,
-             BLOCKS_PER_SPLIT, vpl, float(scale), float(attn_softcap),
-             int(window), build.stream(dev))
+             build.ptr(m), build.ptr(l), B, H, Hkv, NB1, bt, D, MB, vpl,
+             float(scale), float(attn_softcap), int(window),
+             build.stream(dev))
     build.check("paged_decode", err)
     paged_gqa_decode.launches += 1
     return o, m, l

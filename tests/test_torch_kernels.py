@@ -253,7 +253,14 @@ PAGED_CASES = [
     (2, 4, 1, 16, 4, 9, 6, 30.0),      # MQA, small blocks, window, softcap
     (2, 8, 8, 64, 8, 5, 0, 0.0),       # MHA
     (1, 16, 2, 128, 32, 3, 0, 0.0),    # group of 8, D 128, large blocks
+    (2, 32, 2, 128, 16, 4, 0, 0.0),    # group of 16 (glm4's 32 / 2 heads)
+    (2, 4, 2, 256, 8, 5, 20, 50.0),    # D 256 (gemma2), window, softcap
+    (2, 8, 2, 32, 128, 2, 0, 0.0),     # blocks of 128 span two 64-tiles
+    (3, 8, 2, 32, 12, 7, 0, 0.0),      # blocks of 12 straddle tiles
+    (2, 48, 2, 64, 16, 3, 0, 0.0),     # group of 24: two head tiles
 ]
+# the cases the float32 kernel body takes (H/Hkv <= 8, D <= 128)
+F32_PAGED = [c for c in PAGED_CASES if c[1] // c[2] <= 8 and c[3] <= 128]
 
 
 def paged_inputs(case, seed, trash=0.0):
@@ -392,6 +399,15 @@ def test_gqa_decode_cuda_served_ring(cuda_fp32, case, dtype):
 
 
 @pytest.mark.cuda
+def test_gqa_decode_cuda_wide_rows(cuda_fp32):
+    """The merge of the decode kernels over rows wider than one pass of its
+    block (Dv 640 > 4 * 128 columns) and over more chunks than it weighs
+    at once (17000 / 64 > 256): float32, whose body takes any Dv."""
+    case = (2, 4, 2, 32, 640, 17000, 128, 0.0, True)
+    _gqa_card_check(cuda_fp32, case, "float32", _gqa_ring_inputs(case, 13))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_prefill_cuda_matches_plain(cuda_fp32, case, dtype):
@@ -411,27 +427,65 @@ def test_flash_prefill_cuda_matches_plain(cuda_fp32, case, dtype):
                                want.float().cpu()[rows], rtol=tol, atol=tol)
 
 
-def _paged_on(case, seed, device, dt, trash):
-    q, k, v, sp, pt, pos, kn, vn = paged_inputs(case, seed, trash)
+def unmap_fresh_block(inputs, row):
+    """Unmap the logical block that `row`'s fresh token falls in: the
+    scatter sends the token to the trash block, and attention masks it."""
+    q, k, v, sp, pt, pos, kn, vn = inputs
+    bt, MB = sp.shape[1], pt.shape[1]
+    pt = pt.copy()
+    pt[row, int(pos[row]) % (MB * bt) // bt] = -1
+    return q, k, v, sp, pt, pos, kn, vn
+
+
+def paged_served_inputs(full, seed, trash=0.0, B=4):
+    """mixtral's served decode widths over a paged arena (H 32 / Hkv 8,
+    D 128, blocks of 16, 64 a row), the physical blocks scattered.  Mid-
+    serve (`full` False): row 0 maps nothing, the others have written
+    128..703 positions and map the blocks covering them and the fresh
+    token's.  Full: every row maps all 64 blocks and the fresh token takes
+    the ring's last position.  Returns numpy arrays as ``paged_inputs``."""
+    H, Hkv, D, bt, MB = 32, 8, 128, 16, 64
+    rng = np.random.default_rng(seed)
+    NB = B * MB + 2
+    q = rng.normal(0, 1, (B, H, D)).astype(np.float32)
+    k = rng.normal(0, 1, (Hkv, NB + 1, bt, D)).astype(np.float32)
+    v = rng.normal(0, 1, (Hkv, NB + 1, bt, D)).astype(np.float32)
+    k[:, NB] = v[:, NB] = trash
+    slot_pos = np.full((NB + 1, bt), -1, np.int32)
+    pt = np.full((B, MB), -1, np.int32)
+    pos = np.zeros((B,), np.int32)
+    perm = rng.permutation(NB)
+    for b in range(B):
+        n = MB * bt - 1 if full else (0 if b == 0 else
+                                      int(rng.integers(128, 704)))
+        pos[b] = n
+        for lb in range(-(-(n + 1) // bt) if n else 0):
+            pt[b, lb] = perm[b * MB + lb]
+            p = lb * bt + np.arange(bt)
+            slot_pos[pt[b, lb]] = np.where(p < n, p, -1)
+    k_new = rng.normal(0, 1, (B, Hkv, D)).astype(np.float32)
+    v_new = rng.normal(0, 1, (B, Hkv, D)).astype(np.float32)
+    return q, k, v, slot_pos, pt, pos, k_new, v_new
+
+
+def _paged_on(inputs, device, dt):
+    q, k, v, sp, pt, pos, kn, vn = inputs
     q, k, v, kn, vn = (_t(a, device).to(dt) for a in (q, k, v, kn, vn))
     cache = {"k": k, "v": v, "slot_pos": _t(sp, device),
              "page_table": _t(pt, device)}
     return q, cache, _t(pos, device), {"k": kn[:, None], "v": vn[:, None]}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", PAGED_CASES)
-def test_paged_gqa_decode_cuda_matches_plain(cuda_fp32, case, dtype):
+def _paged_card_check(device, dtype, make, kw):
     """The kernel on an arena whose trash block is NaN against the plain
     version on the same arena with a zero trash block (the plain version
     reads the trash for unmapped blocks and masks it), unfused and fused;
     then fused against write-then-attend, both through the kernel, bit for
-    bit, and the kernel's arena scatter against the plain one's."""
+    bit, and the kernel's arena scatter against the plain one's.
+    make(trash) gives the numpy inputs.  Returns the fused partials."""
     dt = getattr(torch, dtype)
-    kw = dict(scale=case[3] ** -0.5, window=case[6], attn_softcap=case[7])
-    q, nan_c, pos, new = _paged_on(case, 6, cuda_fp32, dt, np.nan)
-    _, zero_c, _, _ = _paged_on(case, 6, cuda_fp32, dt, 0.0)
+    q, nan_c, pos, new = _paged_on(make(np.nan), device, dt)
+    _, zero_c, _, _ = _paged_on(make(0.0), device, dt)
     got = ops.paged_gqa_decode(q, nan_c, pos, **kw)
     want = ops.paged_gqa_decode(q, zero_c, pos, impl="ref", **kw)
     for g, w in zip(got, want):
@@ -449,6 +503,54 @@ def test_paged_gqa_decode_cuda_matches_plain(cuda_fp32, case, dtype):
         assert torch.equal(nan_c[name][:, :nb], zero_c[name][:, :nb])
     assert torch.equal(nan_c["slot_pos"][:nb], zero_c["slot_pos"][:nb])
     assert t_paged.paged_gqa_decode.launches >= 3
+    return fused
+
+
+def _paged_kw(case):
+    return dict(scale=case[3] ** -0.5, window=case[6], attn_softcap=case[7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_gqa_decode_cuda_matches_plain(cuda_fp32, case, dtype):
+    """The checks of ``_paged_card_check``; a shape the float32 body does
+    not take raises, naming its limits."""
+    if dtype == "float32" and case not in F32_PAGED:
+        q, cache, pos, _ = _paged_on(paged_inputs(case, 6), cuda_fp32,
+                                     torch.float32)
+        with pytest.raises(ValueError, match="float32 kernel takes"):
+            ops.paged_gqa_decode(q, cache, pos, **_paged_kw(case))
+        return
+    _paged_card_check(cuda_fp32, dtype,
+                      lambda trash: paged_inputs(case, 6, trash),
+                      _paged_kw(case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    (c, d) for c in PAGED_CASES[:1] + PAGED_CASES[5:]
+    for d in ("float32", "bfloat16") if d == "bfloat16" or c in F32_PAGED])
+def test_paged_gqa_decode_cuda_fresh_block_unmapped(cuda_fp32, case, dtype):
+    """Row 1's fresh token falls in an unmapped block: the kernel masks it
+    (its scatter goes to the trash block, which stays unread)."""
+    _paged_card_check(
+        cuda_fp32, dtype,
+        lambda trash: unmap_fresh_block(paged_inputs(case, 8, trash), 1),
+        _paged_kw(case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("full", [False, True], ids=["mid_serve", "full"])
+def test_paged_gqa_decode_cuda_served_shape(cuda_fp32, full, dtype):
+    """The checks of ``_paged_card_check`` at mixtral's served widths,
+    mid-serve (row 0 maps nothing: all-zero partials) and with all 64
+    blocks of every row mapped."""
+    fused = _paged_card_check(
+        cuda_fp32, dtype, lambda trash: paged_served_inputs(full, 12, trash),
+        dict(scale=128 ** -0.5))
+    assert full or not any(bool(t[0].any()) for t in fused)
 
 
 MLA_CASES = [

@@ -46,7 +46,8 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import ExecPolicy  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
 from repro_torch.serving.scheduler import SlotState  # noqa: E402
-from test_torch_kernels import PAGED_CASES, paged_inputs  # noqa: E402
+from test_torch_kernels import (PAGED_CASES, paged_inputs,  # noqa: E402
+                                unmap_fresh_block)
 
 TOL = 1e-5     # f32 partials: both sides sum in f32, in another order
 
@@ -87,10 +88,15 @@ def test_paged_arena_layout_matches_jax():
         np.testing.assert_array_equal(back.numpy(), x)
 
 
-def _caches(case, seed):
+def _caches(case, seed, fresh_unmapped=False):
     """The same paged layer cache for both packages, and the decode inputs
-    (trash block zero: the plain versions read it for unmapped blocks)."""
-    q, k, v, sp, pt, pos, kn, vn = paged_inputs(case, seed)
+    (trash block zero: the plain versions read it for unmapped blocks);
+    with `fresh_unmapped`, row 1's fresh token falls in an unmapped
+    block."""
+    inputs = paged_inputs(case, seed)
+    if fresh_unmapped:
+        inputs = unmap_fresh_block(inputs, 1)
+    q, k, v, sp, pt, pos, kn, vn = inputs
     jc = dict(k=jnp.asarray(k), v=jnp.asarray(v), slot_pos=jnp.asarray(sp),
               page_table=jnp.asarray(pt))
     tc = dict(k=_t(k), v=_t(v), slot_pos=_t(sp), page_table=_t(pt))
@@ -113,16 +119,29 @@ def test_paged_view_and_scatter_match_jax(case):
                                       np.asarray(want[name]))
 
 
-@pytest.mark.parametrize("case", PAGED_CASES[:2])
+# the first two cases, a group of 16 heads and blocks that straddle tiles
+@pytest.mark.parametrize("case", PAGED_CASES[:2] + [PAGED_CASES[4],
+                                                   PAGED_CASES[7]])
 def test_paged_gqa_decode_plain_matches_pallas(case):
     """Unfused and fused, against the Pallas kernel in interpret mode;
     the fused form's arena scatter equals the JAX one exactly."""
-    q, pos, kn, vn, jc, tc = _caches(case, 2)
+    _plain_matches_pallas(case, 2)
+
+
+@pytest.mark.parametrize("case", [PAGED_CASES[0], PAGED_CASES[7]])
+def test_paged_fresh_block_unmapped_matches_pallas(case):
+    """As above with row 1's fresh token in an unmapped block: attention
+    masks it and the scatter sends it to the trash block, in both."""
+    _plain_matches_pallas(case, 4, fresh_unmapped=True)
+
+
+def _plain_matches_pallas(case, seed, fresh_unmapped=False):
+    q, pos, kn, vn, jc, tc = _caches(case, seed, fresh_unmapped)
     kw = dict(scale=case[3] ** -0.5, window=case[6], attn_softcap=case[7])
     jq, jpos = jnp.asarray(q), jnp.asarray(pos)
     want = jax_ops.paged_gqa_decode(jq, jc, jpos, impl="interpret", **kw)
-    got = ops.paged_gqa_decode(_t(q), tc, _t(pos), **kw)
-    for g, w in zip(got, want):
+    unfused = ops.paged_gqa_decode(_t(q), tc, _t(pos), **kw)
+    for g, w in zip(unfused, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                    rtol=TOL, atol=TOL)
     new = {"k": kn[:, None], "v": vn[:, None]}
@@ -137,6 +156,9 @@ def test_paged_gqa_decode_plain_matches_pallas(case):
     for name in ("k", "v", "slot_pos"):
         np.testing.assert_array_equal(tc[name].numpy(),
                                       np.asarray(jcache[name]))
+    if fresh_unmapped:                  # the masked token changes nothing
+        for g, u in zip(got, unfused):
+            assert torch.equal(g[1], u[1])
 
 
 @pytest.mark.parametrize("case", PAGED_CASES)
