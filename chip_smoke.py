@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing JSON lines:
 
-  1. build       — compile the five CUDA kernels from ``src/repro_torch/
+  1. build       — compile the six CUDA kernels from ``src/repro_torch/
                    kernels/csrc`` (one nvcc per source, all at once), timed.
   2. kernels     — hold each kernel against its plain PyTorch version on the
                    card: in float32 at small shapes (TF32 off) and in bf16
@@ -21,13 +21,16 @@ Phases, each printing JSON lines:
                    PyTorch library call beside the least time the card
                    could take (``bound_ms``).  The paged decodes read an
                    arena whose trash block is NaN, and their fused forms
-                   must equal write-then-attend bit for bit.
+                   must equal write-then-attend bit for bit.  The expert
+                   gather (mixtral's 352 MB spans, resident and missing
+                   experts and a pad slot) must equal its plain version bit
+                   for bit; beside it the pinned host-to-device copy rate
+                   (``h2d_copy``) and the route through PyTorch calls.
   3. serve       — the port's Engine at the full width of mixtral-8x7b with
-                   the depth cut from 32 to 4 layers (all 32 layers of bf16
-                   weights, ~93 GB, exceed the card's 80 GB; the offloading
-                   path that serves them is a later slice), random weights
-                   from a seed, the dense KV ring: 24 requests of 32..384
-                   prompt tokens and 64 new tokens each.
+                   the depth cut from 32 to 4 layers and every weight on
+                   the card, random weights from a seed, the dense KV
+                   ring: 24 requests of 32..384 prompt tokens and 64 new
+                   tokens each.
   4. serve_paged — the same weights through the block-paged KV pool with a
                    pinned host tier, the arena sized at r_c 0.4 of the slot
                    pool: 24 requests of 128..640 prompt tokens, so that
@@ -43,12 +46,25 @@ Phases, each printing JSON lines:
                    dense ring and on a paged arena with a scattered page
                    table; how far their greedy transcripts agree; and the
                    greedy transcripts of the paged engine against the dense
-                   engine on the same prompts.
-  7. serve_mla   — the mixtral engines are released; deepseek-v3-671b at
-                   full width with the depth cut from 61 to 5 layers (its 3
-                   dense-FFN prologue layers and 2 MoE layers, 53.2 GB of
-                   bf16 weights; all 61 are 1.3 TB), random weights from a
-                   seed, over the block-paged latent arena at r_c 0.4 with
+                   engine on the same prompts.  ``check_expert``: the same
+                   weights packed into pinned host stores and served
+                   expert-paged (a pool of r_w 0.25 of the spans); its
+                   greedy transcripts must equal the dense engine's.
+  7. serve_expert — the mixtral engines are released; mixtral-8x7b at full
+                   width and all 32 layers (~93 GB of bf16 weights, more
+                   than the card holds), drawn on the card layer by layer
+                   from a seed into pinned host stores, served expert-paged
+                   with a device pool of r_w 0.5 of the (layer, expert)
+                   spans: 8 requests of 32..256 prompt tokens, 32 new
+                   tokens each.  The depth is cut (never below 8 layers)
+                   only where MemAvailable cannot hold the stores plus 20 %,
+                   and printed as layers / of_layers.  Then a trace window
+                   of it, and the stores are released.
+  8. serve_mla   — deepseek-v3-671b at full width with the depth cut from
+                   61 to 5 layers (its 3 dense-FFN prologue layers and 2
+                   MoE layers, 53.2 GB of bf16 weights, every weight on the
+                   card; all 61 are 1.3 TB), random weights from a seed,
+                   over the block-paged latent arena at r_c 0.4 with
                    the same engine settings and traffic as serve_paged; the
                    prologue's latent rings stay dense.  Then a trace window
                    of it, and ``check_mla``: its logits through the kernels
@@ -65,6 +81,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -90,6 +107,13 @@ SERVE_PAGED = dict(ubatch=8, num_ubs=2, max_seq=1024, decode_chunk=8,
                    kv_paged=True, block_tokens=16, kv_gpu_ratio=0.4,
                    kv_prefetch=True)
 PAGED_PROMPT_LENS = (128, 640)
+# Expert-granular paged weights: every layer's experts in pinned host
+# stores, a device pool of half the (layer, expert) spans.
+SERVE_EXPERT = dict(ubatch=8, num_ubs=2, max_seq=512, decode_chunk=8,
+                    expert_paged=True, w_gpu_ratio=0.5)
+EXPERT_REQUESTS, EXPERT_PROMPT_LENS, EXPERT_NEW_TOKENS = 8, (32, 256), 32
+MIN_EXPERT_LAYERS = 8         # the deepest cut serve_expert accepts
+HOST_MARGIN = 1.2             # MemAvailable must hold the stores + 20 %
 # bf16 tolerances.  A kernel and its plain version both compute in f32 from
 # the same bf16 inputs; an output rounded to bf16 may then differ by one
 # bf16 ulp (2^-8 relative) where the two f32 sums straddle a rounding edge.
@@ -340,7 +364,126 @@ def phase_kernels(torch, F):
     records.append(kernel_paged(torch, F, timer, rn))
     kernel_deepseek(torch, F, timer, rn, records)
     records.append(kernel_mla(torch, timer, rn))
+    records.append(kernel_expert_gather(torch, timer, rn))
     return records
+
+
+def kernel_expert_gather(torch, timer, rn):
+    """expert_gather at mixtral's span (2688 pages of 65536 bf16, 352 MB):
+    one layer's 8 experts in a pinned host store, 3 of them also in a pool
+    on the card; 7 activated (4 read over the link, 3 from the pool) and
+    one pad slot.  Held against its plain version bit for bit (a copy),
+    timed beside the pinned host-to-device copy rate (``h2d_copy``) and the
+    route through PyTorch calls (sel and the map read to the host, one
+    ``index_select`` of the pool, one ``copy_`` per missing span)."""
+    from repro_torch.core import offload, paging
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.expert_gather import expert_gather
+    from repro_torch.models.params import abstract_params, param_defs
+    cfg = dataclasses.replace(_mixtral(), num_layers=1)
+    page_elems = 1 << 16
+    blocks = abstract_params(cfg, param_defs(cfg)["blocks"])
+    pw = paging.PagedWeights.empty(blocks, page_elems, torch.device(DEVICE))
+    try:
+        key = "p0"
+        em = pw.expert_manifests[key]
+        store = pw.expert_pages[key]                  # (1, 8, 2688, 65536)
+        E, ppe = em.num_experts, em.pages_per_expert
+        for e in range(E):
+            store[0, e].copy_(rn(ppe, page_elems))
+        resident = (1, 3, 6)
+        pool = torch.empty((len(resident), ppe, page_elems),
+                           dtype=torch.bfloat16, device=DEVICE)
+        rmap = torch.full((1, E), -1, dtype=torch.int32, device=DEVICE)
+        for slot, e in enumerate(resident):
+            pool[slot].copy_(store[0, e])
+            rmap[0, e] = slot
+        active = [0, 1, 2, 3, 5, 6, 7]
+        sel = torch.tensor(active + [0], dtype=torch.int32, device=DEVICE)
+        n_act = torch.tensor(len(active), dtype=torch.int32, device=DEVICE)
+        A = sel.shape[0]
+        args = (store, pool, rmap, 0, sel, n_act, em)
+        got = expert_gather(*args)
+        want = ref.expert_gather_ref(*args)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(got[k], want[k]) for k in got)
+        pads_zero = not any(bool(t[len(active):].any())
+                            for t in got.values())
+        require(exact and pads_zero,
+                "expert_gather differs from its plain version")
+        err = max(max_err(got[k], want[k]) for k in got)
+        del want
+
+        span_bytes = em.span_bytes
+        used = sum(math.prod(e.shape) for e in em.leaves) * 2
+        dst = torch.empty((ppe, page_elems), dtype=torch.bfloat16,
+                          device=DEVICE)
+        h2d_ms = timer(lambda: dst.copy_(store[0, 0], non_blocking=True), 5,
+                       1)
+        h2d_rate = span_bytes / h2d_ms / 1e6                      # GB/s
+        emit({"phase": "h2d_copy", "bytes": span_bytes, "ms": h2d_ms,
+              "GBps": h2d_rate, "from": "pinned host (cudaHostRegister)",
+              "store_bytes": store.nbytes,
+              "pinned_bytes": offload.pinned_bytes()})
+        del dst
+        n_host = sum(e not in resident for e in active)
+        n_pool = len(active) - n_host
+        host_bytes, dev_bytes = n_host * used, n_pool * used
+        # the link's bytes at its measured rate, then the pool's spans read
+        # and written at the data sheet's HBM rate
+        bms = (host_bytes / (h2d_rate * 1e9)
+               + 2 * dev_bytes / HBM_BYTES_PER_S) * 1e3
+        out_spans = torch.empty((A, ppe, page_elems), dtype=torch.bfloat16,
+                                device=DEVICE)
+
+        def library():
+            """sel and the map to the host, then one index_select of the
+            pool and one copy_ per missing span; pads zeroed."""
+            s_h = sel.cpu().tolist()
+            m_h = rmap.cpu()[0].tolist()
+            n = int(n_act)
+            res = [a for a in range(n) if m_h[s_h[a]] >= 0]
+            idx = torch.tensor(res, device=DEVICE)
+            slots = torch.tensor([m_h[s_h[a]] for a in res], device=DEVICE)
+            out_spans.index_copy_(0, idx, pool.index_select(0, slots))
+            for a in range(n):
+                if m_h[s_h[a]] < 0:
+                    out_spans[a].copy_(store[0, s_h[a]], non_blocking=True)
+            out_spans[n:].zero_()
+            return out_spans
+        lib = paging.unflatten_expert_span(library(), em)
+        torch.cuda.synchronize()
+        require(all(torch.equal(lib[k], got[k]) for k in got),
+                "the library route differs from expert_gather")
+        ms = timer(lambda: expert_gather(*args), 5, 1)
+        rec = {"name": "expert_gather", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/expert_gather.cu",
+               "replaces": "src/repro/models/model.py:56",
+               "replaces_note": "the port's own kernel, with no Pallas "
+                                "counterpart: the XLA gather that "
+                                "_ExpertCtx.make_fetch lowers to",
+               "shape": {"A": A, "active": len(active), "from_host": n_host,
+                         "from_pool": n_pool, "ppe": ppe,
+                         "page_elems": page_elems, "span_bytes": span_bytes,
+                         "dtype": "bf16"},
+               "max_abs_err": err, "bit_exact": exact,
+               "ms": ms,
+               "plain_ms": timer(lambda: ref.expert_gather_ref(*args), 3, 1),
+               "bound_ms": bms, "bound_by": "bytes",
+               "bound_rates": {"h2d_GBps_measured": h2d_rate,
+                               "hbm_Bps": HBM_BYTES_PER_S},
+               "library_ms": timer(library, 5, 1),
+               "library_call": "sel and map to the host, index_select of "
+                               "the pool, copy_(non_blocking=True) per "
+                               "missing span",
+               "host_GBps": host_bytes / ms / 1e6,
+               "host_bytes": host_bytes, "pool_bytes": dev_bytes}
+        emit({"phase": "kernel_bf16", **rec})
+        return rec
+    finally:
+        pw.release()
+        del pw
+        torch.cuda.empty_cache()
 
 
 def paged_inputs(torch, rng, lens, H, Hkv, D, bt, MB, NB, holes, dtype, rn):
@@ -813,7 +956,8 @@ def _mixtral():
     return get_config("mixtral-8x7b")
 
 
-def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed):
+def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
+              new_tokens=NEW_TOKENS):
     """Submit `n_requests` seeded prompts and run the engine until idle,
     with every kernel's launch count set to 0 just before and read just
     after, and admission prefill timed apart (synchronized).  Checks that
@@ -833,7 +977,7 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed):
     rng = np.random.default_rng(seed)
     lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests)
     prompts = [rng.integers(2, eng.cfg.vocab_size, n) for n in lens]
-    rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    rids = [eng.submit(p, new_tokens) for p in prompts]
     torch.cuda.synchronize()
     tokens0, steps0 = eng.tokens_out, eng.steps
     ops.reset_launch_counts()
@@ -848,7 +992,7 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed):
             "not every request finished")
     for r in reqs:
         toks = out[r.rid]
-        require(len(toks) == NEW_TOKENS or (toks and toks[-1] == 1),
+        require(len(toks) == new_tokens or (toks and toks[-1] == 1),
                 f"request {r.rid}: {len(toks)} tokens")
         require(all(0 <= t < eng.cfg.vocab_size for t in toks),
                 f"request {r.rid}: token out of range")
@@ -856,7 +1000,7 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed):
     tokens = eng.tokens_out - tokens0
     return prompts, {
         "requests": n_requests, "prompt_tokens": int(lens.sum()),
-        "new_tokens_each": NEW_TOKENS, "decode_tokens": tokens,
+        "new_tokens_each": new_tokens, "decode_tokens": tokens,
         "engine_steps": eng.steps - steps0, "wall_s": wall,
         "prefill_s": prefill_s[0], "decode_s": decode_s,
         "decode_tok_per_s": tokens / decode_s,
@@ -941,7 +1085,8 @@ def phase_serve_paged(torch, np, ops, params):
     return eng, launches
 
 
-def phase_trace(torch, np, eng, label, prompt_lens, n_requests):
+def phase_trace(torch, np, eng, label, prompt_lens, n_requests,
+                new_tokens=NEW_TOKENS // 2):
     """A separate, profiled serving window on an engine: device time by
     kernel family (copies between the arena and the host tier included)
     and the device's busy share of the window's wall time, profiler on.
@@ -951,7 +1096,7 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests):
 
     rng = np.random.default_rng(SEED + 1)
     for n in rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests):
-        eng.submit(rng.integers(2, eng.cfg.vocab_size, n), NEW_TOKENS // 2)
+        eng.submit(rng.integers(2, eng.cfg.vocab_size, n), new_tokens)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -965,6 +1110,7 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests):
                                      "paged_combine"),
                 "gqa_decode": ("gqa_chunk", "gqa_tc", "gqa_combine"),
                 "flash_prefill": ("flash_prefill",),
+                "expert_gather": ("expert_gather_kernel",),
                 "matmul": ("gemm", "nvjet", "xmma", "cutlass", "splitk"),
                 "memcpy_htod": ("Memcpy HtoD",),
                 "memcpy_dtoh": ("Memcpy DtoH",)}
@@ -976,10 +1122,15 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests):
                     if any(k in ev.key for k in keys)), "other")
         ms[fam] += ev.self_device_time_total / 1e3
     device_ms = sum(ms.values())
+    # device time sums over streams: where copies on a side stream overlap
+    # kernels (the expert-paged path), it can exceed the wall time, so the
+    # kernels' share is given apart
+    kernel_ms = device_ms - ms["memcpy_htod"] - ms["memcpy_dtoh"]
     emit({"phase": "trace", "engine": label, "requests": n_requests,
-          "new_tokens_each": NEW_TOKENS // 2,
+          "new_tokens_each": new_tokens,
           "wall_ms": wall * 1e3, "device_ms": device_ms,
           "device_busy_share": device_ms / (wall * 1e3),
+          "kernel_busy_share": kernel_ms / (wall * 1e3),
           "device_ms_by_family": ms})
 
 
@@ -1085,6 +1236,149 @@ def phase_check(torch, np, cfg, params, prompts, eng, eng_paged):
               x == y for x, y in zip(*runs))})
     require(all(v <= LOGIT_TOL for v in worst.values()),
             f"kernel path logits differ from the plain path: {worst}")
+    return engine_prompts, runs[0]
+
+
+def phase_check_expert(torch, np, eng, engine_prompts, want):
+    """The expert-paged engine on the dense engine's weights (4 layers,
+    packed into pinned host stores; a pool of r_w 0.25 of the 32 spans),
+    grouped moe_ffn: its greedy transcripts on the check phase's prompts
+    must equal the dense engine's token for token."""
+    from repro_torch.core import offload
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    settings = {**SERVE, "expert_paged": True, "w_gpu_ratio": 0.25}
+    ecfg = EngineConfig(**settings)
+    t0 = time.perf_counter()
+    e = Engine(eng.cfg, eng.params, ecfg,
+               ExecPolicy(moe_impl="grouped", use_kernels=True),
+               device=DEVICE)
+    pack_s = time.perf_counter() - t0
+    try:
+        rids = [e.submit(p, NEW_TOKENS // 4) for p in engine_prompts]
+        out = e.run_until_idle()
+        got = [out[r] for r in rids]
+        agree = sum(a == b for x, y in zip(got, want) for a, b in zip(x, y))
+        traffic = e.weight_traffic()
+        emit({"phase": "check_expert", "layers": eng.cfg.num_layers,
+              "engine": settings,
+              "pool_spans": sum(r.capacity for r in e.residency.values()),
+              "pinned_bytes": offload.pinned_bytes(), "pack_s": pack_s,
+              "requests": len(rids),
+              "expert_vs_dense_engine_agree": agree,
+              "expert_vs_dense_engine_total": sum(len(x) for x in want),
+              "identical_requests": sum(x == y for x, y in zip(got, want)),
+              "weight_traffic": {k: traffic[k] for k in (
+                  "hits", "misses", "prefetches", "predicted_prefetches",
+                  "evictions", "h2d_bytes")}})
+        require(got == want, "expert-paged greedy transcripts differ from "
+                             "the dense engine's")
+    finally:
+        e.paged_blocks.release()
+
+
+def host_mem_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def phase_serve_expert(torch, np, ops):
+    """mixtral-8x7b at full width through the expert-granular paged
+    weights: every layer drawn on the card and written into pinned host
+    stores, one layer at a time (neither the card nor pageable host memory
+    ever holds the stack), served with a device pool of r_w 0.5 of the
+    (layer, expert) spans.  The depth is the deepest whose stores fit
+    MemAvailable with 20 % to spare, at most 32, never below 8."""
+    from repro_torch.core import offload, paging
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import (abstract_params, count_params,
+                                           init_params, param_defs)
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    full = _mixtral()
+    one = dataclasses.replace(full, num_layers=1)
+    page_elems = EngineConfig().page_elems
+    probe = paging.PagedWeights.empty(
+        abstract_params(one, param_defs(one)["blocks"]), page_elems,
+        torch.device("cpu"))
+    per_layer = sum(t.nbytes for t in (*probe.pages.values(),
+                                       *probe.expert_pages.values()))
+    del probe
+    avail = host_mem_available()
+    layers = min(full.num_layers, int(avail / HOST_MARGIN // per_layer))
+    require(layers >= MIN_EXPERT_LAYERS,
+            f"MemAvailable {avail} holds {layers} layers of {per_layer} "
+            f"bytes with 20 % to spare; serve_expert needs "
+            f"{MIN_EXPERT_LAYERS}")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    defs = param_defs(cfg)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_params(cfg, g, DEVICE,
+                         defs={k: v for k, v in defs.items()
+                               if k != "blocks"})
+    pw = paging.PagedWeights.empty(abstract_params(cfg, defs["blocks"]),
+                                   page_elems, torch.device(DEVICE))
+    pin_s = time.perf_counter() - t0
+    one_defs = param_defs(dataclasses.replace(cfg, num_layers=1))["blocks"]
+    for layer in range(layers):
+        drawn = init_params(cfg, g, DEVICE, defs=one_defs)
+        for key, tree in drawn.items():
+            pw.write_layer(key, layer, paging.layer_slice(tree, 0))
+        del drawn
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pinned = offload.pinned_bytes()
+    eng = Engine(cfg, params, EngineConfig(**SERVE_EXPERT),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE, paged_weights=pw)
+    # the spans the gather read over the link: counted on the card, per
+    # call, from the same map, sel and n_act the kernel reads
+    host_spans = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    inner = ops.expert_gather
+
+    def counted(store, pool, rmap, layer, sel, n_act, manifest, **kw):
+        out = inner(store, pool, rmap, layer, sel, n_act, manifest, **kw)
+        real = torch.arange(sel.shape[0], device=DEVICE) < n_act
+        host_spans.add_(((rmap[layer].index_select(0, sel.long()) < 0)
+                         & real).sum())
+        return out
+    ops.expert_gather = counted
+    try:
+        _, res = serve_run(torch, np, eng, ops, EXPERT_PROMPT_LENS,
+                           EXPERT_REQUESTS, SEED + 8, EXPERT_NEW_TOKENS)
+    finally:
+        ops.expert_gather = inner
+    traffic = eng.weight_traffic()
+    span = next(iter(pw.expert_manifests.values())).span_bytes
+    gather_host_bytes = int(host_spans) * span
+    engine_cfg = {**SERVE_EXPERT, "page_elems": page_elems}
+    emit({"phase": "serve_expert", "model": "mixtral-8x7b",
+          "layers": layers, "of_layers": full.num_layers,
+          "params": count_params(cfg), "store_bytes_per_layer": per_layer,
+          "mem_available": avail, "pinned_bytes": pinned,
+          "pin_s": pin_s, "build_s": build_s,
+          "pool_spans": sum(r.capacity for r in eng.residency.values()),
+          "pool_bytes": sum(p.nbytes for p in eng._expert_pool.values()),
+          "engine": engine_cfg, **res,
+          "gather_host_bytes": gather_host_bytes,
+          "weight_traffic": traffic})
+    require(traffic["hits"] > 0 and traffic["misses"] > 0
+            and traffic["prefetches"] > 0,
+            f"the residency pool was not exercised: {traffic}")
+    require(gather_host_bytes > 0, "the gather read nothing from the host")
+    launches = res["launches"]
+    require(all(launches[k] > 0 for k in
+                ("expert_gather", "moe_ffn", "gqa_decode", "flash_prefill")),
+            f"a kernel of the expert-paged path never launched: {launches}")
+    return eng, launches
 
 
 def phase_serve_mla(torch, np, ops):
@@ -1215,16 +1509,26 @@ def main() -> int:
     eng_paged, launches_paged = phase_serve_paged(torch, np, ops, eng.params)
     phase_trace(torch, np, eng, "dense", PROMPT_LENS, 8)
     phase_trace(torch, np, eng_paged, "paged", PAGED_PROMPT_LENS, 16)
-    phase_check(torch, np, eng.cfg, eng.params, prompts, eng, eng_paged)
-    # the DeepSeek phase needs the card's memory: mixtral goes first
+    engine_prompts, dense_runs = phase_check(torch, np, eng.cfg, eng.params,
+                                             prompts, eng, eng_paged)
+    phase_check_expert(torch, np, eng, engine_prompts, dense_runs)
+    # the last two models each need most of the card's memory: the 4-layer
+    # mixtral engines go first, then the 32-layer one with its host stores
     del eng, eng_paged
+    gc.collect()
+    eng_expert, launches_expert = phase_serve_expert(torch, np, ops)
+    phase_trace(torch, np, eng_expert, "expert", EXPERT_PROMPT_LENS, 4,
+                EXPERT_NEW_TOKENS // 2)
+    eng_expert.paged_blocks.release()
+    del eng_expert
     gc.collect()
     eng_mla, mla_prompts, launches_mla = phase_serve_mla(torch, np, ops)
     phase_trace(torch, np, eng_mla, "mla", PAGED_PROMPT_LENS, 16)
     phase_check_mla(torch, np, eng_mla.cfg, eng_mla.params, mla_prompts)
 
     by_path = {"paged_gqa_decode": launches_paged,
-               "paged_mla_decode": launches_mla}
+               "paged_mla_decode": launches_mla,
+               "expert_gather": launches_expert}
     for rec in records:
         rec["launches"] = by_path.get(rec["name"], launches)[rec["name"]]
         if "deepseek" in rec:

@@ -1,16 +1,35 @@
 """The pinned host tier (``repro/core/offload.py``'s placement of host-side
-stores, for the paged KV pool's spilled blocks).
+stores): the paged KV pool's spilled blocks, and the packed weight pages of
+the expert-granular path (``core.paging.PagedWeights``).
 
-On the card the store is page-locked host memory, so that spills and
-fetches are asynchronous DMA copies on the current stream.  A store that
-cannot be pinned raises: it never turns quietly into pageable memory,
-whose copies are synchronous and run at a fraction of the link's rate.
-Where the engine runs on the CPU (``device="cpu"``) the store is a plain
-CPU tensor.
+On the card a store is page-locked host memory, so that copies to and from
+it are asynchronous DMA on a stream, and the expert gather kernel reads it
+in place over the link.  A store that cannot be pinned raises: it never
+turns quietly into pageable memory, whose copies are synchronous and run at
+a fraction of the link's rate.  Where the engine runs on the CPU
+(``device="cpu"``) a store is a plain CPU tensor.
+
+Two ways to pin:
+
+  * ``host_store`` (the KV tier, a few hundred MB) takes PyTorch's pinned
+    allocator;
+  * ``weight_store`` (the weight pages, up to ~90 GB for mixtral-8x7b)
+    allocates pageable memory and page-locks exactly its bytes in place
+    with ``cudaHostRegister``: PyTorch's caching host allocator rounds each
+    allocation up to a power of two, so an 84 GiB store would ask for 128.
+    ``release`` unregisters it (and so does dropping the tensor).
 """
 from __future__ import annotations
 
+import weakref
+from typing import Dict
+
 import torch
+
+# cudaHostRegisterPortable | cudaHostRegisterMapped: visible to every
+# context, and mapped into the device's address space for the gather kernel
+_REGISTER_FLAGS = 1 | 2
+_registered: Dict[int, int] = {}          # data_ptr -> bytes page-locked
 
 
 def host_store(shape, dtype: torch.dtype, device: torch.device
@@ -27,3 +46,47 @@ def host_store(shape, dtype: torch.dtype, device: torch.device
         raise RuntimeError(f"host store of {tuple(shape)} {dtype} "
                            "was not pinned")
     return t.zero_()
+
+
+def _unregister(ptr: int) -> None:
+    if _registered.pop(ptr, None) is not None:
+        torch.cuda.cudart().cudaHostUnregister(ptr)
+
+
+def weight_store(shape, dtype: torch.dtype, device: torch.device
+                 ) -> torch.Tensor:
+    """An uninitialized host store of packed weight pages for an engine on
+    `device` (every byte is written by ``PagedWeights.write_layer``): page-
+    locked in place for a CUDA device, exactly its own bytes, raising if
+    ``cudaHostRegister`` refuses; a plain CPU tensor for the CPU."""
+    if device.type == "cpu":
+        return torch.empty(shape, dtype=dtype)
+    if device.type != "cuda":
+        raise ValueError(f"no host store for device {device}")
+    t = torch.empty(shape, dtype=dtype)
+    ptr, nbytes = t.data_ptr(), t.nbytes
+    err = torch.cuda.cudart().cudaHostRegister(ptr, nbytes, _REGISTER_FLAGS)
+    if int(err) != 0 or not t.is_pinned():
+        raise RuntimeError(f"cudaHostRegister refused {nbytes} bytes for a "
+                           f"weight store of {tuple(shape)} {dtype} "
+                           f"(error {int(err)})")
+    _registered[ptr] = nbytes
+    weakref.finalize(t, _unregister, ptr)
+    return t
+
+
+def release(t: torch.Tensor) -> None:
+    """Unregister a ``weight_store`` (no-op for any other tensor).  The
+    tensor must not be read through a device pointer after this."""
+    _unregister(t.data_ptr())
+
+
+def pinned_bytes() -> int:
+    """Bytes page-locked by live ``weight_store``s."""
+    return sum(_registered.values())
+
+
+def copy_stream(device: torch.device):
+    """A side stream for host-to-device weight copies on a CUDA device
+    (None on the CPU, where copies are synchronous)."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None

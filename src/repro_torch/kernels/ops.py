@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import expert_gather as _eg
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import gqa_decode as _gqa
 from repro_torch.kernels import moe_ffn as _moe
@@ -25,7 +26,8 @@ IMPLS = ("auto", "ref")
 KERNELS = {"moe_ffn": _moe.moe_ffn, "gqa_decode": _gqa.gqa_decode,
            "flash_prefill": _fp.flash_prefill,
            "paged_gqa_decode": _paged.paged_gqa_decode,
-           "paged_mla_decode": _mla.paged_mla_decode}
+           "paged_mla_decode": _mla.paged_mla_decode,
+           "expert_gather": _eg.expert_gather}
 
 
 def _check_impl(impl: str) -> None:
@@ -147,3 +149,16 @@ def flash_prefill(q, k, v, kv_len=None, *, causal: bool = True,
                                       attn_softcap=attn_softcap, scale=scale)
     return _fp.flash_prefill(q, k, v, kv_len, causal=causal, window=window,
                              attn_softcap=attn_softcap, scale=scale)
+
+
+def expert_gather(store, pool, resident_map, layer: int, sel, n_act,
+                  manifest, *, impl: str = "auto"):
+    """The activated experts' spans of one layer as contiguous (A, ...)
+    leaves: resident ones from the device pool, the rest from the pinned
+    host store, zeros for pad slots (``kernels/expert_gather.py``)."""
+    _check_impl(impl)
+    if impl == "ref":
+        return _ref.expert_gather_ref(store, pool, resident_map, layer, sel,
+                                      n_act, manifest)
+    return _eg.expert_gather(store, pool, resident_map, layer, sel, n_act,
+                             manifest)

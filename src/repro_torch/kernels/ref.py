@@ -105,3 +105,28 @@ def flash_prefill_ref(q, k, v, kv_len=None, *, causal: bool = True,
     return chunked_attention(q, k, v, causal=causal, window=window,
                              attn_softcap=attn_softcap, scale=scale,
                              kv_len=kv_len)
+
+
+def expert_gather_ref(store, pool, resident_map, layer: int, sel, n_act,
+                      manifest):
+    """The expert gather's plain version: for each compact slot a, the span
+    of expert sel[a] from the pool where the map holds a slot for it, else
+    from the host store; zeros for the pad slots (a >= n_act); the leaves
+    unflattened (``paging.unflatten_expert_span``) and made contiguous.
+    Runs on the device of `sel` (the host rows are copied over)."""
+    from repro_torch.core import paging
+    dev = sel.device
+    idx = sel.long()
+    span = store[layer].index_select(0, idx.to(store.device)).to(dev)
+    if pool is not None:
+        slot = resident_map[layer].to(dev).long()[idx]
+        span = torch.where((slot >= 0)[:, None, None],
+                           pool[torch.clamp(slot, min=0)], span)
+    real = torch.arange(sel.shape[0], device=dev) < n_act.to(dev)
+    span = torch.where(real[:, None, None], span, torch.zeros_like(span))
+    return _contiguous(paging.unflatten_expert_span(span, manifest))
+
+
+def _contiguous(tree):
+    return {k: (_contiguous(v) if isinstance(v, dict) else v.contiguous())
+            for k, v in tree.items()}

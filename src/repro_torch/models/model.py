@@ -7,20 +7,31 @@ JAX's ``lax.scan`` over the stacked layers becomes a Python loop over layer
 slices: each layer's parameters and cache are views into the stacked
 tensors, so the ring writes of a layer land in the stacked cache.
 
+With expert-granular paged weights (``paged_blocks``, a
+``core.paging.PagedWeights`` in host stores) the blocks' parameters are not
+on the device: each layer's shared span (attention, norms, router) streams
+through a two-slot device buffer, layer i+1's copy running on a copy stream
+while layer i computes (``_SpanStream``, the Appendix A.1 double buffer),
+and the MoE FFN fetches only the activated experts' spans per layer
+(``_ExpertCtx``).  The schedule is fixed by the layer index and ordered by
+CUDA events, so nothing is read back to the host.
+
 Execution strategy is injected through an `ExecPolicy`, as in the JAX
 package.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.core import offload, paging
+from repro_torch.kernels import ops
 from repro_torch.models.attention import attn_forward
 from repro_torch.models.common import act_fn, apply_norm, softcap
-from repro_torch.models.moe import gated_ffn, moe_apply
+from repro_torch.models.moe import gated_ffn, moe_apply, moe_apply_paged
 
 
 @dataclass
@@ -33,6 +44,85 @@ class ExecPolicy:
     # (the kernels' plain versions everywhere)
 
 
+@dataclass
+class _ExpertCtx:
+    """Per-forward state for one group's expert-granular paged weights: the
+    host page store, its manifest, and the device residency pool + (layer,
+    expert) -> slot map snapshot."""
+    pages: Any                            # (L, E, ppe, page_elems) host store
+    manifest: Any                         # paging.ExpertManifest
+    pool: Optional[Any] = None            # (slots, ppe, page_elems) device
+    resident_map: Optional[Any] = None    # (L, E) int32, -1 = host only
+    impl: str = "auto"
+
+    def make_fetch(self, layer: int):
+        """Bind the layer: fetch(sel (A,), n_act) gathers the activated
+        experts' spans — resident ones from the pool, misses straight from
+        the pinned host store — as the compacted (A, ...) expert params
+        (``kernels.ops.expert_gather``)."""
+
+        def fetch(sel, n_act):
+            rmap = self.resident_map
+            if rmap is None:
+                rmap = torch.full((self.manifest.num_layers,
+                                   self.manifest.num_experts), -1,
+                                  dtype=torch.int32, device=sel.device)
+            return ops.expert_gather(self.pages, self.pool, rmap, layer, sel,
+                                     n_act, self.manifest, impl=self.impl)
+
+        return fetch
+
+
+class _SpanStream:
+    """One group's shared spans through a two-slot device buffer (the
+    ``paging.DoubleBuffer`` of Appendix A.1): layer i+1's span is copied on
+    the copy stream while layer i computes out of the other slot.  Events
+    order it: a slot is refilled only after the layer that read it is done,
+    and a layer waits for its span.  On the CPU the copies are plain."""
+
+    def __init__(self, pages, manifest, device: torch.device):
+        self.pages, self.manifest = pages, manifest
+        self.db = paging.DoubleBuffer()
+        self.buf = torch.empty((2,) + tuple(pages.shape[1:]),
+                               dtype=pages.dtype, device=device)
+        self.stream = offload.copy_stream(device)
+        self.ready, self.done = {}, {}
+        if self.stream is not None:
+            # the buffer may be memory the current stream just freed
+            self.stream.wait_stream(torch.cuda.current_stream(device))
+        self._issue(0)
+
+    def _issue(self, layer: int) -> None:
+        if layer >= len(self.pages):
+            return
+        slot = self.db.load(layer)
+        if self.stream is None:
+            self.buf[slot].copy_(self.pages[layer])
+            return
+        with torch.cuda.stream(self.stream):
+            if layer - 2 in self.done:
+                self.stream.wait_event(self.done.pop(layer - 2))
+            self.buf[slot].copy_(self.pages[layer], non_blocking=True)
+            self.ready[layer] = torch.cuda.Event()
+            self.ready[layer].record(self.stream)
+
+    def params(self, layer: int) -> Dict:
+        """Layer `layer`'s params (views into its buffer slot), once its
+        span has landed; issues the next layer's copy."""
+        self._issue(layer + 1)
+        if self.stream is not None:
+            torch.cuda.current_stream().wait_event(self.ready.pop(layer))
+        return paging.unflatten_span(self.buf[self.db.slot_for(layer)],
+                                     self.manifest)
+
+    def release(self, layer: int) -> None:
+        """Layer `layer`'s compute is enqueued: its slot may be refilled
+        after it."""
+        if self.stream is not None:
+            self.done[layer] = torch.cuda.Event()
+            self.done[layer].record(torch.cuda.current_stream())
+
+
 def dense_ffn(cfg: ModelConfig, p: Dict, x):
     if cfg.ffn_act == "gelu_mlp":
         h = act_fn("gelu_mlp")(torch.matmul(x, p["wi"].to(x.dtype))
@@ -43,9 +133,12 @@ def dense_ffn(cfg: ModelConfig, p: Dict, x):
 
 def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
                 cache: Optional[Dict], mode: str, pos,
-                policy: Optional[ExecPolicy]):
-    """One layer.  Returns (x, aux_loss); a given cache is written in place."""
-    aux = 0.0
+                policy: Optional[ExecPolicy], expert_fetch=None):
+    """One layer.  Returns (x, aux_loss, expert_counts); a given cache is
+    written in place.  With ``expert_fetch`` (expert-granular paged
+    weights) the MoE FFN runs the two-phase step and expert_counts (E,)
+    reports the routing; otherwise it is None."""
+    aux, ecounts = 0.0, None
     h = apply_norm(cfg, p.get("attn_norm", {}), x)
     y, _ = attn_forward(cfg, spec, p["attn"], h, positions, cache=cache,
                         mode=mode, pos=pos,
@@ -55,20 +148,17 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
     x = x + y
     if spec.ffn:
         h = apply_norm(cfg, p.get("ffn_norm", {}), x)
-        if spec.moe:
+        if spec.moe and expert_fetch is not None:
+            y, aux, ecounts = moe_apply_paged(cfg, p["moe"], h, expert_fetch,
+                                              policy)
+        elif spec.moe:
             y, aux = moe_apply(cfg, p["moe"], h, policy)
         else:
             y = dense_ffn(cfg, p["ffn"], h)
         if cfg.post_block_norm:
             y = apply_norm(cfg, p["post_ffn_norm"], y)
         x = x + y
-    return x, aux
-
-
-def _layer(tree: Dict, i: int) -> Dict:
-    """The i-th layer's slice of a stacked tree (views, no copies)."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
+    return x, aux, ecounts
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
@@ -79,7 +169,8 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 
 
 def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
-            policy: Optional[ExecPolicy] = None):
+            policy: Optional[ExecPolicy] = None, paged_blocks=None,
+            expert_state=None):
     """tokens: (B,S) integer.  mode: train | prefill | decode.
     Returns dict(hidden, cache, aux_loss); call `unembed` for logits.
 
@@ -87,7 +178,16 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
     decode reads and writes it at each row's ``cache["pos"]``.  The cache
     is updated in place and returned (its "pos" advances by S, or 1).
     The prologue's layers (``params["prologue"]["p0"]``, with their dense
-    rings in ``cache["prologue"]``) run before the periodic stack."""
+    rings in ``cache["prologue"]``) run before the periodic stack.
+
+    paged_blocks: a ``core.paging.PagedWeights`` in host stores that
+    replaces ``params["blocks"]``: each layer's shared span streams through
+    a two-slot device buffer and the MoE experts are fetched router-gated
+    per layer.  ``expert_state`` then maps each MoE group key to (pool
+    (slots, ppe, page_elems), resident_map (L, E) int32) on the device:
+    spans whose map entry is >= 0 are read from the pool, the rest from
+    the host store.  The result gains "expert_counts" ({key: (L, E)}
+    tokens routed to each expert) for the host residency cache."""
     if cfg.encoder_layers or cfg.vision_tokens or cfg.pos == "learned":
         raise NotImplementedError(f"{cfg.name}: not ported yet")
     B, S = tokens.shape
@@ -104,23 +204,45 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
 
     x = embed_tokens(cfg, params, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    spans, ctx = {}, {}
+    if paged_blocks is not None:
+        impl = policy.impl if policy else "auto"
+        spans = {k: _SpanStream(t, paged_blocks.manifests[k], x.device)
+                 for k, t in paged_blocks.pages.items()}
+        ctx = {k: _ExpertCtx(paged_blocks.expert_pages[k], em,
+                             *(expert_state or {}).get(k, (None, None)),
+                             impl=impl)
+               for k, em in paged_blocks.expert_manifests.items()}
     # the prologue's layers share its first spec, as they share one stack
     stacks = [(cfg.prologue[0], params["prologue"]["p0"], "prologue", layer)
               for layer in range(len(cfg.prologue))]
-    stacks += [(spec, params["blocks"][f"p{i}"], f"p{i}", layer)
+    stacks += [(spec, None if spans else params["blocks"][f"p{i}"], f"p{i}",
+                layer)
                for layer in range(cfg.num_periods)
                for i, spec in enumerate(cfg.period)]
+    counts: Dict[str, list] = {k: [] for k in ctx}
     for spec, p, key, layer in stacks:
-        x, aux = block_apply(
-            cfg, spec, _layer(p, layer), x, positions=positions,
-            cache=_layer(cache[key], layer) if cache is not None else None,
-            mode=run_mode, pos=pos, policy=policy)
+        lp = (spans[key].params(layer) if p is None
+              else paging.layer_slice(p, layer))
+        x, aux, ec = block_apply(
+            cfg, spec, lp, x, positions=positions,
+            cache=(paging.layer_slice(cache[key], layer)
+                   if cache is not None else None),
+            mode=run_mode, pos=pos, policy=policy,
+            expert_fetch=ctx[key].make_fetch(layer) if key in ctx else None)
+        if p is None:
+            spans[key].release(layer)
+        if ec is not None:
+            counts[key].append(ec)
         aux_total = aux_total + aux
     if cache is not None:
         cache["pos"] = cache["pos"] + (1 if mode == "decode" else S)
 
     x = apply_norm(cfg, params.get("final_norm", {}), x)
-    return {"hidden": x, "cache": cache, "aux_loss": aux_total}
+    out = {"hidden": x, "cache": cache, "aux_loss": aux_total}
+    if ctx:
+        out["expert_counts"] = {k: torch.stack(v) for k, v in counts.items()}
+    return out
 
 
 def unembed(cfg: ModelConfig, params, hidden):

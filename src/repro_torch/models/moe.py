@@ -7,12 +7,17 @@ Execution paths (numerically equivalent up to capacity drops):
     (E, C, D) buckets, run the grouped expert FFN (the ``moe_ffn`` kernel
     with ``use_kernel``), gather back.
 
+  * ``moe_paged``   — the expert-granular paged path's two-phase step:
+    the router first, then only the activated experts' spans are fetched
+    (``fetch_experts``: resident ones from the device pool, misses from the
+    pinned host store) and computed on as a compacted subset.
+
 Gate/up projections are stored as (D, 2, F), as in the JAX package.
-Expert parallelism and the expert-paged path are later slices.
+Expert parallelism is a later slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -161,6 +166,124 @@ def moe_grouped(cfg: ModelConfig, p: Dict, x, *, capacity_factor=None,
     if cfg.num_shared_experts:
         out = out + gated_ffn(cfg, p["shared"]["wi"], p["shared"]["wo"], x)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Expert-granular paged path (two-phase layer step)
+# ---------------------------------------------------------------------------
+
+def activated_experts(idx, num_experts: int, max_active: int):
+    """Compact the routed expert set: idx (T, K) -> (sel, index_map, n_act).
+
+    sel (max_active,) int32: activated expert ids in ascending order,
+    padded with 0 beyond n_act.  index_map (E,) int32: expert id -> compact
+    slot, -1 if not activated.  n_act: () int32.  ``max_active`` must be
+    >= min(E, T*K).  Everything stays on the device: sel is a scatter of
+    the expert ids into their compact slots (the inactive ones into a
+    dropped slot max_active), not a ``nonzero``, which would wait for the
+    host."""
+    dev = idx.device
+    hit = torch.zeros((num_experts,), dtype=torch.bool, device=dev)
+    hit[idx.reshape(-1)] = True
+    index_map = torch.where(hit, torch.cumsum(hit, 0) - 1, -1).to(torch.int32)
+    dest = torch.where(hit, index_map, max_active).long()
+    sel = torch.zeros((max_active + 1,), dtype=torch.int32, device=dev)
+    sel.scatter_(0, dest, torch.arange(num_experts, dtype=torch.int32,
+                                       device=dev))
+    return sel[:max_active], index_map, hit.sum().to(torch.int32)
+
+
+def _dense_subset(cfg: ModelConfig, ep: Dict, x, w, idx, sel, n_act):
+    """Dense-oracle compute on a compacted expert subset, accumulated in
+    ascending activated-expert order (``moe_dense`` up to ±0: the experts
+    it skips contribute exactly zero there).  Pad slots are weighted by
+    exactly zero, so their weights must be finite (the gather zeros them)."""
+    A = ep["wi"].shape[0]
+    wi_all, wo_all = expert_weights(ep, x.dtype)
+    out = torch.zeros_like(x, dtype=torch.float32)
+    for a in range(A):
+        y = gated_ffn(cfg, wi_all[a], wo_all[a], x)
+        we = torch.where(idx == sel[a], w, 0.0).sum(-1)             # (T,)
+        we = torch.where(a < n_act, we, 0.0)    # mask pad slots (sel[a] == 0)
+        out = out + y.float() * we[:, None]
+    return out.to(x.dtype)
+
+
+def _grouped_subset(cfg: ModelConfig, ep: Dict, x, w, idx, index_map,
+                    capacity_factor=None, use_kernel: bool = False,
+                    impl: str = "auto"):
+    """Capacity-bucketed grouped compute on a compacted subset.  Capacity
+    and keep/drop decisions use the FULL expert count, so drops are those
+    of ``moe_grouped`` on the full set."""
+    T, D = x.shape
+    NE, K = cfg.num_experts, cfg.top_k
+    A = ep["wi"].shape[0]
+    cf = capacity_factor or cfg.capacity_factor
+    cap = max(1, int(T * K * cf / NE + 0.999))
+
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
+    flat_w = w.reshape(-1)
+    dest = index_map[flat_e].long()            # compact slot, always >= 0
+    slot, keep = stage_bucket(dest, A, cap)
+    e_safe = torch.where(keep, dest, 0)
+    s_safe = torch.where(keep, slot, cap - 1)
+
+    xbuf = torch.zeros((A, cap, D), dtype=x.dtype, device=x.device)
+    xbuf.index_put_((e_safe, s_safe),
+                    torch.where(keep[:, None], x[flat_t], 0).to(x.dtype),
+                    accumulate=True)
+    ybuf = grouped_ffn(cfg, ep["wi"], ep["wo"], xbuf, use_kernel,
+                       ep.get("wi_scale"), ep.get("wo_scale"), impl=impl)
+    y = ybuf[e_safe, s_safe]
+    y = torch.where(keep[:, None], y, 0) * flat_w[:, None].to(x.dtype)
+    return torch.zeros_like(x).index_add_(0, flat_t, y)
+
+
+def moe_paged(cfg: ModelConfig, p: Dict, x, *, fetch_experts, policy=None,
+              max_active: Optional[int] = None):
+    """Two-phase MoE step for expert-granular paged weights: run the router
+    FIRST, then fetch only the activated experts' spans
+    (``fetch_experts(sel (A,), n_act) -> {wi (A,...), wo (A,...)}``) and
+    compute on the compacted subset.
+
+    x: (T, D).  Returns (out, aux_loss, counts (E,) int32 — tokens routed
+    to each expert, the residency EWMA's observation).  Numerics match
+    moe_dense / moe_grouped on the full expert set, so greedy transcripts
+    equal the resident path's.  Nothing is read back to the host."""
+    T, D = x.shape
+    NE, K = cfg.num_experts, cfg.top_k
+    A = max_active if max_active is not None else min(NE, T * K)
+    w, idx, aux = route(cfg, p["router"], x)
+    flat_e = idx.reshape(-1)
+    counts = torch.zeros((NE,), dtype=torch.int32, device=x.device)
+    counts.index_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+    sel, index_map, n_act = activated_experts(idx, NE, A)
+    ep = fetch_experts(sel, n_act)
+    if "wi_scale" in p:
+        # int8 dequant scales live in the shared span: gather the activated
+        # experts' scales
+        ep = dict(ep, wi_scale=p["wi_scale"][sel.long()],
+                  wo_scale=p["wo_scale"][sel.long()])
+    if policy is not None and policy.moe_impl == "grouped":
+        out = _grouped_subset(cfg, ep, x, w, idx, index_map,
+                              use_kernel=policy.use_kernels,
+                              impl=policy.impl)
+    else:
+        out = _dense_subset(cfg, ep, x, w, idx, sel, n_act)
+    if cfg.num_shared_experts:
+        out = out + gated_ffn(cfg, p["shared"]["wi"], p["shared"]["wo"], x)
+    return out, aux, counts
+
+
+def moe_apply_paged(cfg: ModelConfig, p: Dict, x3, fetch_experts,
+                    policy=None):
+    """(B, S, D) wrapper around moe_paged (the expert-granular analogue of
+    moe_apply)."""
+    B, S, D = x3.shape
+    out, aux, counts = moe_paged(cfg, p, x3.reshape(B * S, D),
+                                 fetch_experts=fetch_experts, policy=policy)
+    return out.reshape(B, S, D), aux, counts
 
 
 def moe_apply(cfg: ModelConfig, p: Dict, x3, policy=None):

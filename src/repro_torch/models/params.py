@@ -188,18 +188,21 @@ def _leaves(defs, path=()):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: DeviceLike = None) -> Dict:
+                device: DeviceLike = None, defs: Optional[Dict] = None
+                ) -> Dict:
     """Random parameters with the JAX package's keys, shapes and stacking,
     drawn from ``generator`` (which must live on ``device``).  Normal
     leaves are drawn straight in their storage dtype, so a full-width
-    model needs no float32 staging copy."""
+    model needs no float32 staging copy.  ``defs``: a subtree of
+    ``param_defs(cfg)`` to draw instead of the whole model (a model too
+    large for the device is drawn a part at a time)."""
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"generator is on {generator.device}, "
                          f"parameters go to {device}")
     dtype = torch_dtype(cfg.dtype)
     out: Dict = {}
-    for path, d in _leaves(param_defs(cfg)):
+    for path, d in _leaves(param_defs(cfg) if defs is None else defs):
         ldt = torch_dtype(d.dtype) if d.dtype else dtype
         if d.init == "zeros":
             val = torch.zeros(d.shape, dtype=ldt, device=device)
@@ -221,6 +224,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = val
+    return out
+
+
+def abstract_params(cfg: ModelConfig, defs: Optional[Dict] = None) -> Dict:
+    """The parameters' shapes and dtypes as tensors on the ``meta`` device
+    (no storage), for ``defs`` or the whole model."""
+    dtype = torch_dtype(cfg.dtype)
+    out: Dict = {}
+    for path, d in _leaves(param_defs(cfg) if defs is None else defs):
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = torch.empty(
+            d.shape, dtype=torch_dtype(d.dtype) if d.dtype else dtype,
+            device="meta")
     return out
 
 

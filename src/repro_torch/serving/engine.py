@@ -30,13 +30,34 @@ group's spilled blocks back in ``paging.transfer_plan`` slices
 (``kv_prefetch``).  Spills and fetches are copies between arena blocks and
 the host tier on the current stream, in plan order.
 
-Greedy transcripts, slot histories and every ``kv_traffic()`` counter equal
-the JAX engine's on the same weights (the parity tests hold the two against
-each other).  Paged weights, overlapped admission, module batching, static
-mode, int8 KV and the fault plane are later slices, and so are sampling at a
-temperature, EOS-aware reservations and long-prompt truncation:
-``EngineConfig`` keeps the JAX package's names for the fields it has, and
-has no others.
+Expert-granular paged weights (``expert_paged=True``, the paper's weight
+offloading with the ratio r_w): the blocks' weights live in page-locked host
+stores (``core.paging.pack_block_groups_split``).  Each layer's shared span
+(attention, norms, router) streams through a two-slot device buffer in
+every forward pass; the MoE FFN gathers only the activated experts' spans
+per layer (``kernels.ops.expert_gather``), resident spans from a fixed
+device pool of ``w_gpu_ratio × L × E`` spans and misses straight from the
+host store.  The host-side ``core.residency.ExpertResidency`` decides which
+spans hold pool slots (popularity EWMA, demand admits, router-ahead and
+gate-predicted prefetch, replication) and counts hits, misses and bytes.
+Within a tick, in the reference's order: the map is snapshotted and the
+resident spans pinned; the chunk is dispatched with the map uploaded once;
+while it runs, the next group's router-ahead set and the gate predictor's
+spans are queued and this position's ``paging.transfer_plan`` slice of the
+queue is copied into free pool slots on a copy stream; the results are
+read; the spans are unpinned; the refused part of the slice is retried;
+the chunk's activation counts are booked (demand admits copy their spans
+in).  Every dispatch waits for the copy stream first.  The embedding, the
+final norm and ``lm_head`` stay resident.  ``expert_paged`` with
+``kv_paged`` raises until a parity test drives the pair.
+
+Greedy transcripts, slot histories and every ``kv_traffic()`` and
+``weight_traffic()`` counter equal the JAX engine's on the same weights
+(the parity tests hold the two against each other).  Whole-layer paged
+weights, overlapped admission, module batching, static mode, int8 KV and
+the fault plane are later slices, and so are sampling at a temperature,
+EOS-aware reservations and long-prompt truncation: ``EngineConfig`` keeps
+the JAX package's names for the fields it has, and has no others.
 """
 from __future__ import annotations
 
@@ -47,7 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import blockpool, offload, paging
+from repro_torch.core import blockpool, offload, paging, residency
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import kvcache
 from repro_torch.models.model import ExecPolicy
@@ -71,6 +92,30 @@ class EngineConfig:
     kv_prefetch: bool = True          # stream the next rotation group's
                                       # spilled blocks back in
                                       # paging.transfer_plan slices
+    # ------------------------------------ expert-granular paged weights
+    page_elems: int = 1 << 16
+    expert_paged: bool = False        # per-(layer, expert) spans + residency
+    w_gpu_ratio: float = 0.25         # r_w — sizes the resident expert pool
+    expert_slots: Optional[int] = None  # explicit pool size (spans) override
+    prefetch: bool = True             # router-ahead prefetch for group j+1
+    residency_alpha: float = 0.25     # expert-popularity EWMA step
+    residency_victim_quota: int = 1   # demand misses may evict this many
+                                      # victims per chunk (cold-start aid)
+    # intra-pass predictive prefetch: the cross-layer gate predictor
+    # (core.residency.GatePredictor) queues the spans the dispatching
+    # group's next chunk will activate at layers i+1..i+lookahead, beside
+    # the router-ahead entries (first come, deduped); under `prefetch`
+    predict: bool = True
+    predict_lookahead: int = 2        # layer shifts predicted per dispatch
+    predict_topk: Optional[int] = None  # experts kept per predicted layer
+    # book a chunk's passes against a resident mask that evolves across
+    # them (a demand-missed span streams once per chunk, in-flight
+    # admissions count from the second pass); False: the frozen snapshot
+    intra_pass: bool = True
+    # hot-expert replication: this fraction of the pool may be pinned to
+    # the popularity-EWMA top spans (exit at replica_exit × the enter bar)
+    replicate_frac: float = 0.0
+    replica_exit: float = 0.5
 
 
 class _SlotGroup:
@@ -82,6 +127,10 @@ class _SlotGroup:
     def __init__(self, cache, ubatch: int):
         self.cache = cache
         self.last_tok = np.zeros((ubatch,), np.int32)
+        # expert-paged: the expert set this group's router gated on the
+        # last step of its previous chunk ({key: (L, E) bool}) — the
+        # router-ahead prefetch prediction for its next chunk
+        self.pred: Dict[str, np.ndarray] = {}
 
 
 def _to_device(tree: Dict, device: torch.device) -> Dict:
@@ -98,18 +147,43 @@ def _nbytes(tree: Dict) -> int:
 class Engine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  policy: Optional[ExecPolicy] = None, *,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 paged_weights: Optional[paging.PagedWeights] = None):
+        """With ``expert_paged``, the blocks' weights come from
+        ``params["blocks"]`` (packed here into host stores) or, already
+        packed, from ``paged_weights``; ``params`` then needs no "blocks",
+        and its other leaves go to the device."""
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = _to_device(params, self.device)
         self.ecfg = ecfg
         self.policy = policy
+        resident = ({k: v for k, v in params.items() if k != "blocks"}
+                    if ecfg.expert_paged else params)
+        self.params = _to_device(resident, self.device)
         self.scheduler = Scheduler(
             ubatch=ecfg.ubatch, num_ubs=ecfg.num_ubs, max_seq=ecfg.max_seq,
             block_tokens=ecfg.block_tokens if ecfg.kv_paged else None)
-        self._prefill = serve_steps.make_prefill_fill_step(cfg, policy)
+        self.paged_blocks: Optional[paging.PagedWeights] = None
+        self.residency: Dict[str, residency.ExpertResidency] = {}
+        self._expert_pool: Dict[str, torch.Tensor] = {}
+        # prefetch queue entries are (key, layer, expert, cause, priority)
+        # with cause "router" or "predicted"; the dedupe set keys on (key,
+        # layer, expert), so a span queued by both paths is fetched once
+        self._pending: List[Tuple[str, int, int, str, Optional[float]]] = []
+        self._pending_set: set = set()
+        self._predictors: Dict[str, residency.GatePredictor] = {}
+        self._copy_stream = None
+        self._fwd_passes = 0          # forward passes dispatched (traffic)
+        if ecfg.expert_paged:
+            if ecfg.kv_paged:
+                raise NotImplementedError(
+                    "expert_paged with kv_paged is not ported yet")
+            self._init_expert_pool(params.get("blocks"), paged_weights)
+        self._prefill = serve_steps.make_prefill_fill_step(
+            cfg, policy, paged_blocks=self.paged_blocks)
         self._decode_chunk = serve_steps.make_decode_chunk(
-            cfg, policy, eos_id=ecfg.eos_id, chunk=ecfg.decode_chunk)
+            cfg, policy, paged_blocks=self.paged_blocks, eos_id=ecfg.eos_id,
+            chunk=ecfg.decode_chunk)
         self._kv: Optional[blockpool.BlockPool] = None
         self._kv_arena: Dict[str, Dict] = {}
         self._kv_keys: Tuple[str, ...] = ()
@@ -127,6 +201,36 @@ class Engine:
                                                    device=self.device)
         self.steps = 0
         self.tokens_out = 0
+
+    def _init_expert_pool(self, blocks, pw) -> None:
+        """The host stores of the packed weights, the device pool and the
+        residency control plane of every MoE group (``expert_paged``)."""
+        ecfg = self.ecfg
+        if pw is None:
+            pw = paging.pack_block_groups_split(blocks, ecfg.page_elems,
+                                                self.device)
+        if not pw.expert_manifests:
+            raise ValueError("expert_paged requires a MoE config "
+                             "(no routed-expert leaves found)")
+        self.paged_blocks = pw
+        for key, em in pw.expert_manifests.items():
+            slots = (ecfg.expert_slots if ecfg.expert_slots is not None
+                     else residency.slots_from_ratio(
+                         ecfg.w_gpu_ratio, em.num_layers, em.num_experts))
+            self.residency[key] = residency.ExpertResidency(
+                em.num_layers, em.num_experts, capacity=slots,
+                span_bytes=em.span_bytes, alpha=ecfg.residency_alpha,
+                victim_quota=ecfg.residency_victim_quota,
+                replicate_frac=ecfg.replicate_frac,
+                replica_exit=ecfg.replica_exit,
+                protect_ttl=max(2, ecfg.num_ubs))
+            if ecfg.predict and ecfg.prefetch:
+                self._predictors[key] = residency.GatePredictor(
+                    em.num_layers, em.num_experts)
+            self._expert_pool[key] = torch.zeros(
+                (max(1, slots), em.pages_per_expert, em.page_elems),
+                dtype=pw.expert_pages[key].dtype, device=self.device)
+        self._copy_stream = offload.copy_stream(self.device)
 
     def _init_kv_pool(self) -> None:
         """The block arena, its BlockPool, the pinned host tier and the
@@ -234,10 +338,10 @@ class Engine:
             toks = np.zeros((1, S), np.int32)
             toks[0, :len(eff)] = eff
             scratch = kvcache.reset_slot(self._prefill_scratch, 0)
-            logits, single = self._prefill(
-                self.params, torch.as_tensor(toks, device=self.device),
-                scratch, torch.tensor([len(eff)], dtype=torch.int32,
-                                      device=self.device))
+            logits, single = self._run_prefill(
+                torch.as_tensor(toks, device=self.device), scratch,
+                torch.tensor([len(eff)], dtype=torch.int32,
+                             device=self.device))
             first = int(sample(logits)[0])
             r.generated.append(first)
             group = self.groups[slot.gid]
@@ -259,6 +363,19 @@ class Engine:
                 self._retire_slot(slot)          # quota met at prefill
             else:
                 self.scheduler.start_decode(slot)
+
+    def _run_prefill(self, *args):
+        """Admission prefill, absorbing the expert-paged protocol: one
+        forward pass booked, the residency snapshot taken at dispatch, the
+        activation counts accounted.  Returns (logits, cache)."""
+        self._fwd_passes += 1
+        if not self.residency:
+            return self._prefill(self.params, *args)
+        snap = self._resident_snap()
+        logits, cache, counts = self._prefill(self.params, *args,
+                                              self._expert_state())
+        self._account_counts(counts, snap=snap)
+        return logits, cache
 
     def _retire_slot(self, slot) -> None:
         # no cache reset: the row stays masked while free, and the next
@@ -287,11 +404,16 @@ class Engine:
         if self._kv is not None:
             self._kv_note_gather(gid, self.ecfg.decode_chunk)
             cache = self._compose_kv(cache, gid)
-        cache, tok, act2, _, toks, emitted = self._decode_chunk(
-            self.params, cache,
-            torch.as_tensor(group.last_tok[:, None], device=dev),
-            torch.as_tensor(active, device=dev),
-            torch.as_tensor(rem, device=dev))
+        args = (self.params, cache,
+                torch.as_tensor(group.last_tok[:, None], device=dev),
+                torch.as_tensor(active, device=dev),
+                torch.as_tensor(rem, device=dev))
+        self._fwd_passes += self.ecfg.decode_chunk
+        if self.residency:
+            cache, tok, act2, toks, emitted = self._decode_expert(
+                args, group, gid)
+        else:
+            cache, tok, act2, _, toks, emitted = self._decode_chunk(*args)
         group.cache = cache
         group.last_tok = tok[:, 0].cpu().numpy()          # sync
         act2 = act2.cpu().numpy()
@@ -306,6 +428,273 @@ class Engine:
             # the next group's spilled blocks back in transfer_plan slices
             self._kv_enqueue_prefetch(gid)
             self._kv_drain_prefetch(gid)
+
+    # ---------------------------------- expert residency (data+control)
+    def _decode_expert(self, args, group, gid: int):
+        """One group's chunk on the expert-paged path.  Every resident span
+        is pinned for the dispatch (the chunk may read any of them from the
+        pool); while it runs, the router-ahead set of group gid+1 and the
+        gate predictor's spans for this group's next chunk are queued and
+        this position's slice drains into free slots on the copy stream;
+        once the results are back, the spans are unpinned, the refused
+        part of the slice retried and the counts booked."""
+        snap = self._resident_snap()
+        for r in self.residency.values():
+            r.pin_resident()
+        cache, tok, act2, _, toks, emitted, counts = self._decode_chunk(
+            *args, self._expert_state())
+        if self.ecfg.prefetch:
+            self._enqueue_prediction(gid)
+            if self._predictors:
+                self._enqueue_gate_predictions([group])
+            self._drain_prefetch(gid, retry_refused=True)
+        tok = tok.cpu()                                   # sync
+        # spans that became resident between dispatch and landing: their
+        # H2D stream overlapped this chunk, so a miss on them is hidden
+        hidden = {k: ((r.slot_of >= 0) & ~snap[k])
+                  for k, r in self.residency.items()}
+        for r in self.residency.values():
+            r.unpin_all()
+        if self.ecfg.prefetch:
+            # landed: retry the refused slice, evictions now allowed
+            self._drain_prefetch(gid, retry_refused=False)
+        self._account_counts(counts, holder=group, snap=snap, hidden=hidden)
+        return cache, tok, act2, toks, emitted
+
+    def _expert_state(self):
+        """The residency data plane for one dispatch: the device pool plus
+        a device copy of the (layer, expert) -> slot map, uploaded once
+        (a snapshot: control-plane changes after dispatch cannot reach the
+        chunk).  The dispatch waits for the pool copies queued before it."""
+        if self._copy_stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(
+                self._copy_stream)
+        out = {}
+        for k, r in self.residency.items():
+            m = torch.from_numpy(r.slot_of.copy())
+            if self.device.type == "cuda":
+                m = m.pin_memory()
+            out[k] = (self._expert_pool[k],
+                      m.to(self.device, non_blocking=True))
+        return out
+
+    def _copy_span(self, key: str, l: int, e: int, slot: int) -> None:
+        """Copy span (l, e) from the host store into pool slot `slot`, on
+        the copy stream (asynchronous DMA from pinned memory)."""
+        src = self.paged_blocks.expert_pages[key][l, e]
+        dst = self._expert_pool[key][slot]
+        if self._copy_stream is None:
+            dst.copy_(src)
+            return
+        with torch.cuda.stream(self._copy_stream):
+            dst.copy_(src, non_blocking=True)
+
+    def _resident_snap(self) -> Dict[str, np.ndarray]:
+        """Residency mask at dispatch time — what the dispatched map says
+        is resident; later admissions must not be booked as hits for this
+        call's steps."""
+        return {k: (r.slot_of >= 0).copy()
+                for k, r in self.residency.items()}
+
+    def _account_counts(self, counts, holder=None, snap=None,
+                        hidden=None) -> None:
+        """Book a call's expert activation counts ({key: (..., L, E)}): per
+        forward pass, hits/misses against the residency snapshot the pass
+        read, then demand-admit the missed spans — hottest first, so the
+        miss stream doubles as cache fill.  Updates `holder.pred` with the
+        last pass's gating (the router-ahead prediction for that group's
+        next chunk).
+
+        ``hidden`` ({key: (L, E) bool}) marks spans whose prefetch landed
+        while the call was in flight: a miss on one books as hidden.  Each
+        pass also takes one SGD step of the gate predictor, and with
+        replication on, the replica set is reconciled (promotions copy
+        their spans in).  With ``intra_pass`` the working resident mask
+        evolves across the chunk's passes: a demand-missed span streams
+        once and counts as staged for the rest of the chunk, and in-flight
+        admissions count resident from the second pass on.  This changes
+        only when bytes are booked, never what is computed."""
+        for key, arr in counts.items():
+            r = self.residency[key]
+            r.begin_chunk()          # refresh the demand-evict victim quota
+            a = arr.cpu().numpy()
+            mask = snap[key] if snap is not None else None
+            hid = hidden.get(key) if hidden is not None else None
+            gp = self._predictors.get(key)
+            intra = self.ecfg.intra_pass and mask is not None
+            cur = mask.copy() if intra else mask
+            want: Dict[Tuple[int, int], bool] = {}
+            steps = a.reshape(-1, *a.shape[-2:])          # (n_fwd, L, E)
+            for si, s in enumerate(steps):
+                if intra and si == 1 and hid is not None:
+                    cur = cur | hid   # in-flight admissions have landed
+                missed = r.observe(s > 0, token_counts=s, resident_mask=cur,
+                                   hidden_mask=hid)
+                for pair in missed:
+                    want[pair] = True
+                    if intra:
+                        cur[pair] = True   # streamed once, staged after
+                if gp is not None:
+                    gp.fit_step(s)
+            for l, e in want:
+                # misses fill free slots only; popularity-driven
+                # replacement is the router-ahead prefetch path's job
+                slot = r.admit(l, e, demand=True, allow_evict=False)
+                if slot is not None:
+                    self._copy_span(key, l, e, slot)
+            if r.replicate_frac > 0.0:
+                for l, e, slot in r.update_replicas():
+                    self._copy_span(key, l, e, slot)
+            if holder is not None:
+                holder.pred[key] = steps[-1] > 0
+
+    def _next_gids(self, gid: int) -> List[int]:
+        """The rotation group decoding next."""
+        return [(gid + 1) % self.ecfg.num_ubs]
+
+    def _enqueue_prediction(self, gid: int) -> None:
+        """Queue the expert set group gid+1's router gated on the last step
+        of its previous chunk (the request-level analogue of Algorithm 1's
+        j+2 weight lookahead), hottest first."""
+        for g in self._next_gids(gid):
+            for key, act in self.groups[g].pred.items():
+                r = self.residency[key]
+                pairs = [(int(l), int(e)) for l, e in zip(*np.nonzero(act))
+                         if not r.is_resident(l, e)]
+                pairs.sort(key=lambda p: -r.popularity[p])
+                for p in pairs:
+                    t = (key, *p)
+                    if t not in self._pending_set:
+                        self._pending.append((*t, "router", None))
+                        self._pending_set.add(t)
+
+    def _enqueue_gate_predictions(self, holders) -> None:
+        """From each dispatching holder's last gating, the gate predictor
+        scores the experts layers i+1..i+lookahead will activate in its
+        next chunk; the non-resident ones join the pending queue
+        earliest-deadline-first (``paging.predicted_drain_order``), after
+        the router-ahead entries and deduped against them.  Their priority
+        is the predicted probability times the predictor's accuracy."""
+        for h in holders:
+            for key, act in h.pred.items():
+                gp = self._predictors.get(key)
+                if gp is None:
+                    continue
+                r = self.residency[key]
+                preds = gp.predict(act,
+                                   lookahead=self.ecfg.predict_lookahead,
+                                   topk=self.ecfg.predict_topk)
+                pairs = [(l, e) for l, e, _ in preds]
+                scores = [s for _, _, s in preds]
+                for i in paging.predicted_drain_order(pairs, scores):
+                    l, e = pairs[i]
+                    if r.is_resident(l, e):
+                        continue
+                    t = (key, l, e)
+                    if t not in self._pending_set:
+                        self._pending.append(
+                            (*t, "predicted", scores[i] * gp.acc))
+                        self._pending_set.add(t)
+
+    def _plan_slice(self, pending: List, gid: int) -> Tuple[List, List]:
+        """This rotation position's ``paging.transfer_plan`` slice of a
+        pending transfer queue; returns (chosen, keep)."""
+        take = set(paging.window_plan(len(pending), self.ecfg.num_ubs,
+                                      [gid]))
+        chosen = [t for i, t in enumerate(pending) if i in take]
+        keep = [t for i, t in enumerate(pending) if i not in take]
+        return chosen, keep
+
+    def _drain_prefetch(self, gid: int, *, retry_refused: bool) -> None:
+        """Copy this rotation position's slice of the pending prefetch
+        queue into the pool.  While a chunk is in flight every resident
+        span is pinned, so only free slots fill; refused entries are
+        re-queued to retry after the chunk lands (``retry_refused``) or
+        dropped (the cache is hotter than the prediction)."""
+        if not self._pending:
+            return
+        chosen, keep = self._plan_slice(self._pending, gid)
+        requeued = []
+        for key, l, e, cause, pri in chosen:
+            r = self.residency[key]
+            if r.is_resident(l, e):
+                self._pending_set.discard((key, l, e))
+                continue
+            slot = r.admit(l, e, cause=cause, priority=pri)   # pays bytes
+            if slot is not None:
+                self._copy_span(key, l, e, slot)
+                self._pending_set.discard((key, l, e))
+            elif retry_refused:
+                requeued.append((key, l, e, cause, pri))
+            else:
+                self._pending_set.discard((key, l, e))
+        self._pending = keep + requeued
+
+    def weight_traffic(self) -> Dict[str, float]:
+        """H2D weight traffic, the JAX engine's dict.  The expert-granular
+        path moves every layer's shared span each forward pass (through
+        the two-slot buffer) plus the missed and prefetched expert spans
+        that core.residency booked.  The port runs no module batching, so
+        the window fields read as lockstep (one group a window)."""
+        out: Dict[str, float] = {"fwd_passes": self._fwd_passes,
+                                 "tokens_out": self.tokens_out,
+                                 "module_batch": False, "module_groups": 1}
+        if not self.residency:
+            out.update(mode="resident", h2d_bytes=0, attn_phase_bytes=0,
+                       expert_phase_bytes=0, module_groups_effective=1.0)
+            out["bytes_per_token_amortized"] = 0 / max(1, self.tokens_out)
+            return out
+        pw = self.paged_blocks
+        shared = sum(pw.shared_layer_bytes(k) * pw.manifests[k].num_layers
+                     for k in pw.manifests)
+        expert_full = sum(em.span_bytes * em.num_experts * em.num_layers
+                          for em in pw.expert_manifests.values())
+        c = [r.counters for r in self.residency.values()]
+        misses = sum(x.misses for x in c)
+        lockstep = sum(x.lockstep_misses for x in c)
+        pred_pf = sum(x.predicted_prefetches for x in c)
+        out.update(
+            mode="expert_paged",
+            shared_bytes=shared * self._fwd_passes,
+            expert_bytes=sum(x.h2d_bytes for x in c),
+            hits=sum(x.hits for x in c),
+            misses=misses,
+            prefetches=sum(x.prefetches for x in c),
+            evictions=sum(x.evictions for x in c),
+            hit_rate=(sum(x.hits for x in c)
+                      / max(1, sum(x.fetches for x in c))),
+            demand_hits=sum(x.demand_hits for x in c),
+            router_hits=sum(x.router_hits for x in c),
+            predicted_hits=sum(x.predicted_hits for x in c),
+            replicated_hits=sum(x.replicated_hits for x in c),
+            predicted_prefetches=pred_pf,
+            predicted_used=sum(x.predicted_used for x in c),
+            prefetch_accuracy=(sum(x.predicted_used for x in c)
+                               / max(1, pred_pf)),
+            predictor_accuracy=(
+                float(np.mean([gp.acc for gp in self._predictors.values()]))
+                if self._predictors else 0.0),
+            replications=sum(x.replications for x in c),
+            replica_spans=sum(len(r.replicas)
+                              for r in self.residency.values()),
+            hidden_misses=sum(x.hidden_misses for x in c),
+            stall_misses=sum(x.stall_misses for x in c),
+            miss_stall_bytes=int(sum(r.miss_stall_bytes.sum()
+                                     for r in self.residency.values())),
+            miss_stall_bytes_per_layer={
+                k: [int(b) for b in r.miss_stall_bytes]
+                for k, r in self.residency.items()},
+            # what whole-layer streaming would have moved for the same
+            # passes (shared + every expert span every layer)
+            whole_layer_bytes=(shared + expert_full) * self._fwd_passes,
+            module_groups_effective=(lockstep / misses if misses else 1.0),
+        )
+        out["h2d_bytes"] = out["shared_bytes"] + out["expert_bytes"]
+        out["attn_phase_bytes"] = out["shared_bytes"]
+        out["expert_phase_bytes"] = out["expert_bytes"]
+        out["bytes_per_token_amortized"] = (out["h2d_bytes"]
+                                            / max(1, self.tokens_out))
+        return out
 
     # ------------------------------ block-granular paged KV (data+control)
     def _slot_of(self, slot) -> int:

@@ -1,6 +1,14 @@
 """Serving step functions of the PyTorch port (``repro/serving/steps.py``):
 the batch-1 admission prefill and the masked multi-token ``decode_chunk``
-of the continuous-batching engine."""
+of the continuous-batching engine.
+
+Expert-granular paging (a ``core.paging.PagedWeights`` with expert
+manifests as ``paged_blocks``) changes the step signatures: each step takes
+a trailing ``expert_state`` ({key: (pool, resident_map)} — the device
+residency snapshot) and returns the per-layer expert activation counts, so
+that the engine's host-side residency cache can learn popularity and
+account traffic.  ``_expert_granular`` decides which shape a factory
+makes."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -8,32 +16,47 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import paging
 from repro_torch.models.model import ExecPolicy, forward, unembed
 from repro_torch.serving.sampling import sample
 
 
+def _expert_granular(paged_blocks) -> bool:
+    return (isinstance(paged_blocks, paging.PagedWeights)
+            and bool(paged_blocks.expert_manifests))
+
+
 def make_prefill_fill_step(cfg: ModelConfig,
-                           policy: Optional[ExecPolicy] = None) -> Callable:
+                           policy: Optional[ExecPolicy] = None, *,
+                           paged_blocks=None) -> Callable:
     """(params, tokens (B,S), cache, lens (B,)) -> (logits (B,V), cache).
     Writes the prompt's KV into `cache` (in place).  `lens` are the true
     prompt lengths: logits are taken at each row's own final position and
-    the cache's pos is set per row."""
+    the cache's pos is set per row.  Expert-granular: a trailing
+    ``expert_state`` argument, and the counts {key: (L, E)} as a third
+    output."""
 
-    def prefill_step(params, tokens, cache, lens):
+    expert = _expert_granular(paged_blocks)
+
+    def prefill_step(params, tokens, cache, lens, expert_state=None):
         out = forward(cfg, params, tokens, cache=cache, mode="prefill",
-                      policy=policy)
+                      policy=policy, paged_blocks=paged_blocks,
+                      expert_state=expert_state)
         cache = out["cache"]
         cache["pos"] = lens.to(torch.int32)
         idx = torch.clamp(lens - 1, min=0).long()
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         logits = unembed(cfg, params, out["hidden"][rows, idx])
+        if expert:
+            return logits, cache, out["expert_counts"]
         return logits, cache
 
     return prefill_step
 
 
 def make_decode_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
-                      *, eos_id: int = 1, chunk: int = 8) -> Callable:
+                      *, paged_blocks=None, eos_id: int = 1,
+                      chunk: int = 8) -> Callable:
     """Masked multi-token decode for the slot-pool engine: `chunk` decode
     steps with a per-row *active* mask, so drained / free slots are carried
     along at fixed shape without emitting tokens or advancing their cache
@@ -49,14 +72,22 @@ def make_decode_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
     at their frozen `pos % W` slot, so a drained row's cache is garbage
     until the next admission's `insert_slot` overwrites it.  Every shape is
     fixed and nothing is read back to the host inside the chunk, so a later
-    change can capture it as a CUDA graph."""
+    change can capture it as a CUDA graph.
 
-    def decode_chunk(params, cache, tok, active, rem):
-        toks, emits = [], []
+    Expert-granular paging adds a trailing ``expert_state`` argument (the
+    residency snapshot, constant across the chunk) and a trailing
+    ``counts`` output ({key: (chunk, L, E)}, per step, so the host books
+    each step's activations against the snapshot it read)."""
+
+    expert = _expert_granular(paged_blocks)
+
+    def decode_chunk(params, cache, tok, active, rem, expert_state=None):
+        toks, emits, counts = [], [], []
         for _ in range(chunk):
             pos0 = cache["pos"]
             out = forward(cfg, params, tok, cache=cache, mode="decode",
-                          policy=policy)
+                          policy=policy, paged_blocks=paged_blocks,
+                          expert_state=expert_state)
             logits = unembed(cfg, params, out["hidden"][:, -1])
             nxt = sample(logits)
             cache = out["cache"]
@@ -67,6 +98,12 @@ def make_decode_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
             tok = torch.where(emitted, nxt, tok[:, 0])[:, None]
             toks.append(nxt)
             emits.append(emitted)
-        return cache, tok, active, rem, torch.stack(toks), torch.stack(emits)
+            if expert:
+                counts.append(out["expert_counts"])
+        res = (cache, tok, active, rem, torch.stack(toks), torch.stack(emits))
+        if expert:
+            return res + ({k: torch.stack([c[k] for c in counts])
+                           for k in counts[0]},)
+        return res
 
     return decode_chunk
