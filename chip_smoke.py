@@ -22,8 +22,8 @@ Phases, each printing JSON lines:
                    could take (``bound_ms``).  The paged decodes read an
                    arena whose trash block is NaN, and their fused forms
                    must equal write-then-attend bit for bit.  The expert
-                   gather (mixtral's 352 MB spans, resident and missing
-                   experts and a pad slot) must equal its plain version bit
+                   gather (mixtral's 352 MB spans at 0, 4 and 8 misses,
+                   with a pad slot at 4) must equal its plain version bit
                    for bit; beside it the pinned host-to-device copy rate
                    (``h2d_copy``) and the route through PyTorch calls.
   3. serve       — the port's Engine at the full width of mixtral-8x7b with
@@ -57,9 +57,13 @@ Phases, each printing JSON lines:
                    with a device pool of r_w 0.5 of the (layer, expert)
                    spans: 8 requests of 32..256 prompt tokens, 32 new
                    tokens each.  The depth is cut (never below 8 layers)
-                   only where MemAvailable cannot hold the stores plus 20 %,
-                   and printed as layers / of_layers.  Then a trace window
-                   of it, and the stores are released.
+                   only where MemAvailable cannot hold the stores plus 20 %
+                   and 20 GiB, and printed as layers / of_layers.  Beside
+                   the serve numbers: the bytes the gather moved over the
+                   link, its seconds on the stream (CUDA events around
+                   each call), their rate and the process's peak resident
+                   host memory.  Then a trace window of it, and the stores are
+                   released.
   8. serve_mla   — deepseek-v3-671b at full width with the depth cut from
                    61 to 5 layers (its 3 dense-FFN prologue layers and 2
                    MoE layers, 53.2 GB of bf16 weights, every weight on the
@@ -83,6 +87,7 @@ import gc
 import json
 import math
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -114,6 +119,7 @@ SERVE_EXPERT = dict(ubatch=8, num_ubs=2, max_seq=512, decode_chunk=8,
 EXPERT_REQUESTS, EXPERT_PROMPT_LENS, EXPERT_NEW_TOKENS = 8, (32, 256), 32
 MIN_EXPERT_LAYERS = 8         # the deepest cut serve_expert accepts
 HOST_MARGIN = 1.2             # MemAvailable must hold the stores + 20 %
+HOST_RESERVE = 20 << 30       # ... and leave 20 GiB beside them
 # bf16 tolerances.  A kernel and its plain version both compute in f32 from
 # the same bf16 inputs; an output rounded to bf16 may then differ by one
 # bf16 ulp (2^-8 relative) where the two f32 sums straddle a rounding edge.
@@ -370,12 +376,16 @@ def phase_kernels(torch, F):
 
 def kernel_expert_gather(torch, timer, rn):
     """expert_gather at mixtral's span (2688 pages of 65536 bf16, 352 MB):
-    one layer's 8 experts in a pinned host store, 3 of them also in a pool
-    on the card; 7 activated (4 read over the link, 3 from the pool) and
-    one pad slot.  Held against its plain version bit for bit (a copy),
-    timed beside the pinned host-to-device copy rate (``h2d_copy``) and the
+    one layer's 8 experts in a pinned host store, all of them also in a
+    pool on the card, and three cases of 8 slots: no miss (8 activated,
+    all resident), 4 misses (7 activated: 4 over the link, 3 from the
+    pool, one pad slot; the shape of the first design's row) and 8 misses
+    (8 activated, none resident).  Each is held against its plain version
+    bit for bit (a copy) and timed beside the pinned host-to-device copy
+    rate (``h2d_copy``), the least time the link and HBM allow, and the
     route through PyTorch calls (sel and the map read to the host, one
-    ``index_select`` of the pool, one ``copy_`` per missing span)."""
+    ``index_select`` of the pool, one ``copy_`` per missing span).  The
+    4-miss case is the kernels line's record."""
     from repro_torch.core import offload, paging
     from repro_torch.kernels import ref
     from repro_torch.kernels.expert_gather import expert_gather
@@ -391,29 +401,9 @@ def kernel_expert_gather(torch, timer, rn):
         E, ppe = em.num_experts, em.pages_per_expert
         for e in range(E):
             store[0, e].copy_(rn(ppe, page_elems))
-        resident = (1, 3, 6)
-        pool = torch.empty((len(resident), ppe, page_elems),
-                           dtype=torch.bfloat16, device=DEVICE)
-        rmap = torch.full((1, E), -1, dtype=torch.int32, device=DEVICE)
-        for slot, e in enumerate(resident):
-            pool[slot].copy_(store[0, e])
-            rmap[0, e] = slot
-        active = [0, 1, 2, 3, 5, 6, 7]
-        sel = torch.tensor(active + [0], dtype=torch.int32, device=DEVICE)
-        n_act = torch.tensor(len(active), dtype=torch.int32, device=DEVICE)
-        A = sel.shape[0]
-        args = (store, pool, rmap, 0, sel, n_act, em)
-        got = expert_gather(*args)
-        want = ref.expert_gather_ref(*args)
-        torch.cuda.synchronize()
-        exact = all(torch.equal(got[k], want[k]) for k in got)
-        pads_zero = not any(bool(t[len(active):].any())
-                            for t in got.values())
-        require(exact and pads_zero,
-                "expert_gather differs from its plain version")
-        err = max(max_err(got[k], want[k]) for k in got)
-        del want
-
+        pool = torch.empty((E, ppe, page_elems), dtype=torch.bfloat16,
+                           device=DEVICE)
+        pool.copy_(store[0])
         span_bytes = em.span_bytes
         used = sum(math.prod(e.shape) for e in em.leaves) * 2
         dst = torch.empty((ppe, page_elems), dtype=torch.bfloat16,
@@ -426,58 +416,108 @@ def kernel_expert_gather(torch, timer, rn):
               "store_bytes": store.nbytes,
               "pinned_bytes": offload.pinned_bytes()})
         del dst
-        n_host = sum(e not in resident for e in active)
-        n_pool = len(active) - n_host
-        host_bytes, dev_bytes = n_host * used, n_pool * used
-        # the link's bytes at its measured rate, then the pool's spans read
-        # and written at the data sheet's HBM rate
-        bms = (host_bytes / (h2d_rate * 1e9)
-               + 2 * dev_bytes / HBM_BYTES_PER_S) * 1e3
-        out_spans = torch.empty((A, ppe, page_elems), dtype=torch.bfloat16,
+        out_spans = torch.empty((E, ppe, page_elems), dtype=torch.bfloat16,
                                 device=DEVICE)
+        cases = []
+        for misses, active, resident in (
+                (0, list(range(E)), list(range(E))),
+                (4, [0, 1, 2, 3, 5, 6, 7], [1, 3, 6]),
+                (8, list(range(E)), [])):
+            rmap = torch.full((1, E), -1, dtype=torch.int32, device=DEVICE)
+            for e in resident:
+                rmap[0, e] = e                       # pool slot e holds e
+            sel = torch.tensor(active + [0] * (E - len(active)),
+                               dtype=torch.int32, device=DEVICE)
+            n_act = torch.tensor(len(active), dtype=torch.int32,
+                                 device=DEVICE)
+            args = (store, pool if resident else None, rmap, 0, sel, n_act,
+                    em)
+            got = expert_gather(*args)
+            want = ref.expert_gather_ref(*args)
+            torch.cuda.synchronize()
+            exact = all(torch.equal(got[k], want[k]) for k in got)
+            pads_zero = not any(bool(t[len(active):].any())
+                                for t in got.values())
+            require(exact and pads_zero,
+                    f"expert_gather differs from its plain version at "
+                    f"{misses} misses")
+            err = max(max_err(got[k], want[k]) for k in got)
+            del want
+            n_host = sum(e not in resident for e in active)
+            n_pool = len(active) - n_host
+            host_bytes, dev_bytes = n_host * used, n_pool * used
+            # the least time: the misses' bytes over the link at the
+            # measured copy rate, or the pool's spans read plus every
+            # output written at the data sheet's HBM rate, whichever is
+            # longer (the two run side by side)
+            link_ms = host_bytes / (h2d_rate * 1e9) * 1e3
+            hbm_ms = (2 * dev_bytes + host_bytes) / HBM_BYTES_PER_S * 1e3
+            bms = max(link_ms, hbm_ms)
 
-        def library():
-            """sel and the map to the host, then one index_select of the
-            pool and one copy_ per missing span; pads zeroed."""
-            s_h = sel.cpu().tolist()
-            m_h = rmap.cpu()[0].tolist()
-            n = int(n_act)
-            res = [a for a in range(n) if m_h[s_h[a]] >= 0]
-            idx = torch.tensor(res, device=DEVICE)
-            slots = torch.tensor([m_h[s_h[a]] for a in res], device=DEVICE)
-            out_spans.index_copy_(0, idx, pool.index_select(0, slots))
-            for a in range(n):
-                if m_h[s_h[a]] < 0:
-                    out_spans[a].copy_(store[0, s_h[a]], non_blocking=True)
-            out_spans[n:].zero_()
-            return out_spans
-        lib = paging.unflatten_expert_span(library(), em)
-        torch.cuda.synchronize()
-        require(all(torch.equal(lib[k], got[k]) for k in got),
-                "the library route differs from expert_gather")
-        ms = timer(lambda: expert_gather(*args), 5, 1)
+            def library():
+                """sel and the map to the host, then one index_select of
+                the pool and one copy_ per missing span; pads zeroed."""
+                s_h = sel.cpu().tolist()
+                m_h = rmap.cpu()[0].tolist()
+                n = int(n_act)
+                res = [a for a in range(n) if m_h[s_h[a]] >= 0]
+                if res:
+                    idx = torch.tensor(res, device=DEVICE)
+                    slots = torch.tensor([m_h[s_h[a]] for a in res],
+                                         device=DEVICE)
+                    out_spans.index_copy_(0, idx, pool.index_select(0, slots))
+                for a in range(n):
+                    if m_h[s_h[a]] < 0:
+                        out_spans[a].copy_(store[0, s_h[a]],
+                                           non_blocking=True)
+                out_spans[n:].zero_()
+                return out_spans
+            lib = paging.unflatten_expert_span(library(), em)
+            torch.cuda.synchronize()
+            require(all(torch.equal(lib[k], got[k]) for k in got),
+                    "the library route differs from expert_gather")
+            ms = timer(lambda: expert_gather(*args), 5, 1)
+            library_ms = timer(library, 5, 1)
+            case = {"misses": misses, "active": len(active),
+                    "from_host": n_host, "from_pool": n_pool,
+                    "max_abs_err": err, "bit_exact": exact, "ms": ms,
+                    "bound_ms": bms,
+                    "bound_by": "bytes (link)" if link_ms >= hbm_ms
+                    else "bytes (HBM)",
+                    "bound_sum_ms": link_ms + 2 * dev_bytes
+                    / HBM_BYTES_PER_S * 1e3,
+                    "library_ms": library_ms,
+                    "host_GBps": host_bytes / ms / 1e6,
+                    "host_share_of_h2d": host_bytes / ms / 1e6 / h2d_rate,
+                    "host_bytes": host_bytes, "pool_bytes": dev_bytes}
+            emit({"phase": "expert_gather_case", **case})
+            cases.append((case, args))
+        case, args = cases[1]
         rec = {"name": "expert_gather", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/expert_gather.cu",
                "replaces": "src/repro/models/model.py:56",
                "replaces_note": "the port's own kernel, with no Pallas "
                                 "counterpart: the XLA gather that "
                                 "_ExpertCtx.make_fetch lowers to",
-               "shape": {"A": A, "active": len(active), "from_host": n_host,
-                         "from_pool": n_pool, "ppe": ppe,
+               "shape": {"A": E, "active": case["active"],
+                         "from_host": case["from_host"],
+                         "from_pool": case["from_pool"], "ppe": ppe,
                          "page_elems": page_elems, "span_bytes": span_bytes,
                          "dtype": "bf16"},
-               "max_abs_err": err, "bit_exact": exact,
-               "ms": ms,
+               "max_abs_err": case["max_abs_err"],
+               "bit_exact": case["bit_exact"], "ms": case["ms"],
                "plain_ms": timer(lambda: ref.expert_gather_ref(*args), 3, 1),
-               "bound_ms": bms, "bound_by": "bytes",
+               "bound_ms": case["bound_ms"], "bound_by": "bytes",
                "bound_rates": {"h2d_GBps_measured": h2d_rate,
                                "hbm_Bps": HBM_BYTES_PER_S},
-               "library_ms": timer(library, 5, 1),
+               "library_ms": case["library_ms"],
                "library_call": "sel and map to the host, index_select of "
                                "the pool, copy_(non_blocking=True) per "
                                "missing span",
-               "host_GBps": host_bytes / ms / 1e6,
-               "host_bytes": host_bytes, "pool_bytes": dev_bytes}
+               "host_GBps": case["host_GBps"],
+               "host_bytes": case["host_bytes"],
+               "pool_bytes": case["pool_bytes"],
+               "cases": [c for c, _ in cases]}
         emit({"phase": "kernel_bf16", **rec})
         return rec
     finally:
@@ -1110,7 +1150,8 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests,
                                      "paged_combine"),
                 "gqa_decode": ("gqa_chunk", "gqa_tc", "gqa_combine"),
                 "flash_prefill": ("flash_prefill",),
-                "expert_gather": ("expert_gather_kernel",),
+                "expert_gather": ("expert_gather_kernel",
+                                  "expert_plan_kernel"),
                 "matmul": ("gemm", "nvjet", "xmma", "cutlass", "splitk"),
                 "memcpy_htod": ("Memcpy HtoD",),
                 "memcpy_dtoh": ("Memcpy DtoH",)}
@@ -1131,7 +1172,7 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests,
           "wall_ms": wall * 1e3, "device_ms": device_ms,
           "device_busy_share": device_ms / (wall * 1e3),
           "kernel_busy_share": kernel_ms / (wall * 1e3),
-          "device_ms_by_family": ms})
+          "device_ms_by_family": ms, "host_peak_rss": host_peak_rss()})
 
 
 def paged_copy(torch, cfg, dense, rng):
@@ -1278,6 +1319,11 @@ def phase_check_expert(torch, np, eng, engine_prompts, want):
         e.paged_blocks.release()
 
 
+def host_peak_rss() -> int:
+    """The process's peak resident host memory so far, in bytes."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
 def host_mem_available() -> int:
     """MemAvailable of /proc/meminfo, in bytes."""
     with open("/proc/meminfo") as f:
@@ -1293,7 +1339,9 @@ def phase_serve_expert(torch, np, ops):
     stores, one layer at a time (neither the card nor pageable host memory
     ever holds the stack), served with a device pool of r_w 0.5 of the
     (layer, expert) spans.  The depth is the deepest whose stores fit
-    MemAvailable with 20 % to spare, at most 32, never below 8."""
+    MemAvailable with 20 % and at least 20 GiB to spare (the serve and
+    its profiled window run beside the stores), at most 32, never below
+    8."""
     from repro_torch.core import offload, paging
     from repro_torch.models.model import ExecPolicy
     from repro_torch.models.params import (abstract_params, count_params,
@@ -1310,10 +1358,11 @@ def phase_serve_expert(torch, np, ops):
                                        *probe.expert_pages.values()))
     del probe
     avail = host_mem_available()
-    layers = min(full.num_layers, int(avail / HOST_MARGIN // per_layer))
+    room = min(avail / HOST_MARGIN, avail - HOST_RESERVE)
+    layers = min(full.num_layers, int(room // per_layer))
     require(layers >= MIN_EXPERT_LAYERS,
             f"MemAvailable {avail} holds {layers} layers of {per_layer} "
-            f"bytes with 20 % to spare; serve_expert needs "
+            f"bytes with 20 % and 20 GiB to spare; serve_expert needs "
             f"{MIN_EXPERT_LAYERS}")
     cfg = dataclasses.replace(full, num_layers=layers)
     torch.cuda.empty_cache()
@@ -1340,12 +1389,20 @@ def phase_serve_expert(torch, np, ops):
                  ExecPolicy(moe_impl="grouped", use_kernels=True),
                  device=DEVICE, paged_weights=pw)
     # the spans the gather read over the link: counted on the card, per
-    # call, from the same map, sel and n_act the kernel reads
+    # call, from the same map, sel and n_act the kernel reads; and its time
+    # on the stream (its kernel to its last copy), by a pair of CUDA
+    # events around each call
     host_spans = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    spans_timed = []
     inner = ops.expert_gather
 
     def counted(store, pool, rmap, layer, sel, n_act, manifest, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
         out = inner(store, pool, rmap, layer, sel, n_act, manifest, **kw)
+        ev[1].record()
+        spans_timed.append(ev)
         real = torch.arange(sel.shape[0], device=DEVICE) < n_act
         host_spans.add_(((rmap[layer].index_select(0, sel.long()) < 0)
                          & real).sum())
@@ -1359,6 +1416,7 @@ def phase_serve_expert(torch, np, ops):
     traffic = eng.weight_traffic()
     span = next(iter(pw.expert_manifests.values())).span_bytes
     gather_host_bytes = int(host_spans) * span
+    gather_s = sum(a.elapsed_time(b) for a, b in spans_timed) / 1e3
     engine_cfg = {**SERVE_EXPERT, "page_elems": page_elems}
     emit({"phase": "serve_expert", "model": "mixtral-8x7b",
           "layers": layers, "of_layers": full.num_layers,
@@ -1369,6 +1427,9 @@ def phase_serve_expert(torch, np, ops):
           "pool_bytes": sum(p.nbytes for p in eng._expert_pool.values()),
           "engine": engine_cfg, **res,
           "gather_host_bytes": gather_host_bytes,
+          "gather_calls": len(spans_timed), "gather_s": gather_s,
+          "gather_host_GBps": gather_host_bytes / gather_s / 1e9,
+          "host_peak_rss": host_peak_rss(),
           "weight_traffic": traffic})
     require(traffic["hits"] > 0 and traffic["misses"] > 0
             and traffic["prefetches"] > 0,

@@ -27,7 +27,8 @@ from typing import Dict
 import torch
 
 # cudaHostRegisterPortable | cudaHostRegisterMapped: visible to every
-# context, and mapped into the device's address space for the gather kernel
+# context and in the device's address space; page-locked, so the gather's
+# copies of missed spans run on the copy engine
 _REGISTER_FLAGS = 1 | 2
 _registered: Dict[int, int] = {}          # data_ptr -> bytes page-locked
 

@@ -4,7 +4,8 @@
 // object with a plain C interface and loaded with ctypes
 // (repro_torch/kernels/build.py).  Launch functions take raw device
 // pointers and the caller's CUDA stream, allocate nothing, never
-// synchronise, and return cudaGetLastError() right after their launches.
+// synchronise, and return cudaGetLastError() right after their launches;
+// expert_gather alone keeps a page-locked plan and waits for it.
 #pragma once
 
 #include <cuda_bf16.h>

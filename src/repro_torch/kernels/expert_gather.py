@@ -4,12 +4,22 @@
 The port's own kernel, with no Pallas counterpart: it replaces the XLA
 gather that ``repro/models/model.py::_ExpertCtx.make_fetch`` lowers to.
 For one layer it fetches the activated experts' spans — resident ones from
-the device pool, misses straight from the pinned host store over the link —
-and writes each span leaf as a contiguous (A, ...) tensor (``moe_ffn``'s
-operands); pad slots (a >= n_act) are zero.  It reads ``sel``, ``n_act``
-and the resident map on the device, so nothing goes back to the host.  A
-CPU tensor takes the plain version (``ref.expert_gather_ref``); a CUDA
-tensor launches the kernel or raises.
+the device pool, misses from the pinned host store over the link — and
+writes each span leaf as a contiguous (A, ...) tensor (``moe_ffn``'s
+operands); pad slots (a >= n_act) are zero.  A CPU tensor takes the plain
+version (``ref.expert_gather_ref``); a CUDA tensor launches the kernel or
+raises.
+
+On the card the device decides which spans move and the copy engine moves
+them: a one-thread kernel reads ``sel``, ``n_act`` and the resident map and
+writes the misses into a plan in mapped host memory, and the gather kernel
+copies the resident slots and zero-fills the pads.  The launch waits for
+the stream to reach the plan (the GIL is released meanwhile), enqueues one
+``cudaMemcpyAsync`` per missed leaf on a copy stream of the library, beside
+the gather kernel, and makes the caller's stream wait for them; it returns
+without waiting for the copies.  So a call blocks the host until the
+device has run everything enqueued before it, once per layer
+(``csrc/expert_gather.cu``).
 """
 from __future__ import annotations
 
@@ -32,7 +42,8 @@ def expert_gather(store, pool, resident_map, layer: int, sel, n_act,
     resident_map: (L, E) int32, -1 = not resident; sel: (A,) int32 expert
     ids; n_act: () int32, the real slots.  Returns the manifest's leaves
     as contiguous (A, *leaf_shape) tensors, in a tree keyed like the
-    ``moe`` params."""
+    ``moe`` params; on the card the misses' copies may still be in flight
+    when it returns (the current stream waits for them)."""
     if sel.device.type == "cpu":
         return ref.expert_gather_ref(store, pool, resident_map, layer, sel,
                                      n_act, manifest)

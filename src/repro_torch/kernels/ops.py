@@ -162,3 +162,10 @@ def expert_gather(store, pool, resident_map, layer: int, sel, n_act,
                                       n_act, manifest)
     return _eg.expert_gather(store, pool, resident_map, layer, sel, n_act,
                              manifest)
+
+
+def expert_miss_plan(resident_map, layer: int, sel, n_act):
+    """The gather's misses, (a, sel[a]) pairs (M, 2) int32 in slot order:
+    the plain version of the plan the kernel writes on the device (it
+    reads the count back, so it is for checks, not the served path)."""
+    return _ref.expert_miss_plan_ref(resident_map, layer, sel, n_act)

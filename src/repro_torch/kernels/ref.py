@@ -127,6 +127,18 @@ def expert_gather_ref(store, pool, resident_map, layer: int, sel, n_act,
     return _contiguous(paging.unflatten_expert_span(span, manifest))
 
 
+def expert_miss_plan_ref(resident_map, layer: int, sel, n_act):
+    """The misses of one layer's expert gather, in slot order: (a, sel[a])
+    for every real slot a < n_act whose expert holds no pool slot
+    (``resident_map[layer, sel[a]] < 0``), as an (M, 2) int32 tensor —
+    what the gather's plan kernel writes for the copy engine."""
+    dev = sel.device
+    real = torch.arange(sel.shape[0], device=dev) < n_act.to(dev)
+    miss = real & (resident_map[layer].to(dev)[sel.long()] < 0)
+    a = torch.nonzero(miss).flatten()
+    return torch.stack([a, sel.long()[a]], 1).to(torch.int32)
+
+
 def _contiguous(tree):
     return {k: (_contiguous(v) if isinstance(v, dict) else v.contiguous())
             for k, v in tree.items()}

@@ -57,9 +57,10 @@ class _ExpertCtx:
 
     def make_fetch(self, layer: int):
         """Bind the layer: fetch(sel (A,), n_act) gathers the activated
-        experts' spans — resident ones from the pool, misses straight from
-        the pinned host store — as the compacted (A, ...) expert params
-        (``kernels.ops.expert_gather``)."""
+        experts' spans — resident ones from the pool, misses from the
+        pinned host store on the copy engine — as the compacted (A, ...)
+        expert params (``kernels.ops.expert_gather``; on the card it waits
+        for the device to reach the gather, once per call)."""
 
         def fetch(sel, n_act):
             rmap = self.resident_map

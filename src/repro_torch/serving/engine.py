@@ -36,13 +36,16 @@ stores (``core.paging.pack_block_groups_split``).  Each layer's shared span
 (attention, norms, router) streams through a two-slot device buffer in
 every forward pass; the MoE FFN gathers only the activated experts' spans
 per layer (``kernels.ops.expert_gather``), resident spans from a fixed
-device pool of ``w_gpu_ratio × L × E`` spans and misses straight from the
-host store.  The host-side ``core.residency.ExpertResidency`` decides which
-spans hold pool slots (popularity EWMA, demand admits, router-ahead and
-gate-predicted prefetch, replication) and counts hits, misses and bytes.
-Within a tick, in the reference's order: the map is snapshotted and the
-resident spans pinned; the chunk is dispatched with the map uploaded once;
-while it runs, the next group's router-ahead set and the gate predictor's
+device pool of ``w_gpu_ratio × L × E`` spans and misses from the host
+store on the copy engine.  On the card each gather waits for the device to
+reach it (its kernel writes which spans missed; ``kernels.expert_gather``),
+so a dispatch returns once the device has reached the chunk's last gather.
+The host-side ``core.residency.ExpertResidency`` decides which spans hold
+pool slots (popularity EWMA, demand admits, router-ahead and gate-predicted
+prefetch, replication) and counts hits, misses and bytes.  Within a tick,
+in the reference's order: the map is snapshotted and the resident spans pinned;
+the chunk is dispatched with the map uploaded once into a static device
+buffer; then the next group's router-ahead set and the gate predictor's
 spans are queued and this position's ``paging.transfer_plan`` slice of the
 queue is copied into free pool slots on a copy stream; the results are
 read; the spans are unpinned; the refused part of the slice is retried;
@@ -166,6 +169,7 @@ class Engine:
         self.paged_blocks: Optional[paging.PagedWeights] = None
         self.residency: Dict[str, residency.ExpertResidency] = {}
         self._expert_pool: Dict[str, torch.Tensor] = {}
+        self._expert_map: Dict[str, torch.Tensor] = {}
         # prefetch queue entries are (key, layer, expert, cause, priority)
         # with cause "router" or "predicted"; the dedupe set keys on (key,
         # layer, expert), so a span queued by both paths is fetched once
@@ -230,6 +234,9 @@ class Engine:
             self._expert_pool[key] = torch.zeros(
                 (max(1, slots), em.pages_per_expert, em.page_elems),
                 dtype=pw.expert_pages[key].dtype, device=self.device)
+            self._expert_map[key] = torch.full(
+                (em.num_layers, em.num_experts), -1, dtype=torch.int32,
+                device=self.device)
         self._copy_stream = offload.copy_stream(self.device)
 
     def _init_kv_pool(self) -> None:
@@ -433,11 +440,14 @@ class Engine:
     def _decode_expert(self, args, group, gid: int):
         """One group's chunk on the expert-paged path.  Every resident span
         is pinned for the dispatch (the chunk may read any of them from the
-        pool); while it runs, the router-ahead set of group gid+1 and the
-        gate predictor's spans for this group's next chunk are queued and
-        this position's slice drains into free slots on the copy stream;
-        once the results are back, the spans are unpinned, the refused
-        part of the slice retried and the counts booked."""
+        pool); after the dispatch, the router-ahead set of group gid+1 and
+        the gate predictor's spans for this group's next chunk are queued
+        and this position's slice drains into free slots on the copy
+        stream; once the results are back, the spans are unpinned, the
+        refused part of the slice retried and the counts booked.  On the
+        card the dispatch returns only once the device has reached the
+        chunk's last gather (each gather waits for its plan), so these
+        copies overlap the chunk's tail alone."""
         snap = self._resident_snap()
         for r in self.residency.values():
             r.pin_resident()
@@ -449,8 +459,9 @@ class Engine:
                 self._enqueue_gate_predictions([group])
             self._drain_prefetch(gid, retry_refused=True)
         tok = tok.cpu()                                   # sync
-        # spans that became resident between dispatch and landing: their
-        # H2D stream overlapped this chunk, so a miss on them is hidden
+        # spans that became resident between dispatch and landing: a miss
+        # on them books as hidden, as the reference books it (on the card
+        # their copies overlapped only the chunk's tail)
         hidden = {k: ((r.slot_of >= 0) & ~snap[k])
                   for k, r in self.residency.items()}
         for r in self.residency.values():
@@ -462,20 +473,24 @@ class Engine:
         return cache, tok, act2, toks, emitted
 
     def _expert_state(self):
-        """The residency data plane for one dispatch: the device pool plus
-        a device copy of the (layer, expert) -> slot map, uploaded once
-        (a snapshot: control-plane changes after dispatch cannot reach the
-        chunk).  The dispatch waits for the pool copies queued before it."""
+        """The residency data plane for one dispatch, per group: the device
+        pool, the (layer, expert) -> slot map written once into its static
+        device buffer on the current stream (a snapshot: control-plane
+        changes after dispatch cannot reach the chunk, and the chunk reads
+        one address however often it runs).  The dispatch waits for the
+        pool copies queued before it."""
         if self._copy_stream is not None:
             torch.cuda.current_stream(self.device).wait_stream(
                 self._copy_stream)
         out = {}
         for k, r in self.residency.items():
-            m = torch.from_numpy(r.slot_of.copy())
+            m = torch.from_numpy(r.slot_of)
             if self.device.type == "cuda":
+                # a fresh pinned block: the host allocator keeps it until
+                # the copy has run
                 m = m.pin_memory()
-            out[k] = (self._expert_pool[k],
-                      m.to(self.device, non_blocking=True))
+            self._expert_map[k].copy_(m, non_blocking=True)
+            out[k] = (self._expert_pool[k], self._expert_map[k])
         return out
 
     def _copy_span(self, key: str, l: int, e: int, slot: int) -> None:

@@ -16,13 +16,19 @@
     ``weight_traffic()`` dict equal the JAX engine's in every regime, and
     the expert-paged transcripts equal the port's resident engine's.
 
-On the card (marker ``cuda``, skipped elsewhere) the gather kernel equals
-its plain version bit for bit at mixtral's served span and at odd shapes.
+On the card (marker ``cuda``, skipped elsewhere) the gather equals its
+plain version bit for bit at mixtral's served span, at odd shapes and with
+no, every and some slots missed; 56 gathers back to back keep each layer's
+outputs; host calls that block inside CUDA right after a gather do not
+hang; and the expert-paged engine gives the resident engine's transcripts.
+The CPU cases hold the plain miss plan against ``make_fetch``'s
+host-or-pool choice.
 The JAX engines run with their watchdog and degradation ladder off and are
 built once per module, with ``offload.pinned_host_sharding`` patched to
 None from here (as in ``test_torch_paged.py``).
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -231,6 +237,81 @@ def test_expert_gather_plain_matches_make_fetch(T, K):
             host["wo"][:n].numpy(),
             store[layer, sel[:n].numpy()].reshape(n, -1)[:, em.leaves[1]
                                                          .offset:])
+
+
+PLAN_PATTERNS = ("none_resident", "all_resident", "mixed", "n_act_0",
+                 "pad_slots")
+
+
+def _plan_case(pattern, seed, L=3, E=8, ppe=2, pe=24):
+    """A seeded store, a pool whose spans differ from every store span, a
+    map for the pattern, and per layer a (sel, n_act): all E slots real,
+    or (pad_slots) the few a 2-token routing activates, or none."""
+    rng = np.random.default_rng(seed)
+    store = rng.normal(size=(L, E, ppe, pe)).astype(np.float32)
+    rmap = np.full((L, E), -1, np.int32)
+    if pattern == "all_resident":
+        rmap.reshape(-1)[:] = rng.permutation(L * E)
+    elif pattern != "none_resident":
+        k = L * E // 2
+        rmap.reshape(-1)[rng.choice(L * E, k, replace=False)] = \
+            rng.permutation(k)
+    slots = int(rmap.max()) + 1
+    pool = (rng.normal(size=(max(1, slots), ppe, pe)) + 100.0) \
+        .astype(np.float32) if slots else None
+    cases = []
+    for _ in range(L):
+        if pattern == "n_act_0":
+            sel, n_act = torch.zeros(E, dtype=torch.int32), torch.tensor(
+                0, dtype=torch.int32)
+        else:
+            T = 2 if pattern == "pad_slots" else 4 * E
+            idx = np.stack([rng.choice(E, 2, replace=False)
+                            for _ in range(T)])
+            sel, _, n_act = moe.activated_experts(torch.from_numpy(idx), E,
+                                                  E)
+        cases.append((sel, n_act))
+    n = ppe * pe
+    em = paging.ExpertManifest(pe, n, ppe, L, E, [
+        paging.LeafEntry(("w",), (n,), "float32", 0)], "float32")
+    return store, pool, rmap, em, cases
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("pattern", PLAN_PATTERNS)
+def test_expert_miss_plan_matches_make_fetch_choice(pattern, seed):
+    """The plain miss plan names exactly the real slots whose span the JAX
+    ``_ExpertCtx.make_fetch`` takes from the host store (told apart from
+    the pool's by value), in slot order, with their expert ids."""
+    store, pool, rmap, em, cases = _plan_case(pattern, seed)
+    jem = jax_paging.ExpertManifest(
+        em.page_elems, em.expert_elems, em.pages_per_expert, em.num_layers,
+        em.num_experts, [jax_paging.LeafEntry(e.path, e.shape, e.dtype,
+                                              e.offset) for e in em.leaves],
+        em.dtype)
+    jctx = jax_model._ExpertCtx(
+        jnp.asarray(store), jem,
+        None if pool is None else jnp.asarray(pool),
+        None if pool is None else jnp.asarray(rmap))
+    for layer, (sel, n_act) in enumerate(cases):
+        got = ops.expert_miss_plan(torch.from_numpy(rmap), layer, sel, n_act)
+        assert got.dtype == torch.int32 and got.shape[1:] == (2,)
+        spans = np.asarray(jctx.make_fetch(layer)(jnp.asarray(sel.numpy()))
+                           ["w"])
+        want = []
+        for a in range(int(n_act)):
+            e = int(sel[a])
+            host = np.array_equal(spans[a], store[layer, e].reshape(-1))
+            assert host != (pool is not None and rmap[layer, e] >= 0 and
+                            np.array_equal(spans[a],
+                                           pool[rmap[layer, e]].reshape(-1)))
+            if host:
+                want.append((a, e))
+        assert [tuple(r) for r in got.tolist()] == want
+        if pattern == "all_resident" or pattern == "n_act_0":
+            assert want == []
+        if pattern == "none_resident":
+            assert len(want) == int(n_act)
 
 
 # --------------------------------------------------------------- moe_paged
@@ -482,22 +563,29 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _card_store(dev, store_np, dtype):
+    store = offload.weight_store(store_np.shape, dtype, dev)
+    store.copy_(torch.from_numpy(store_np).to(dtype))
+    return store
+
+
+def _assert_gather(got, want, n):
+    for name in got:
+        assert got[name].is_contiguous()
+        assert torch.equal(got[name], want[name]), name
+    assert not any(bool(t[n:].any()) for t in got.values())
+
+
 def _card_gather(dev, store_np, pool_np, rmap, em, layer, sel, n_act,
                  dtype):
-    store = offload.weight_store(store_np.shape, dtype, dev)
+    store = _card_store(dev, store_np, dtype)
     try:
-        store.copy_(torch.from_numpy(store_np).to(dtype))
-        pool = torch.from_numpy(pool_np).to(dtype).to(dev)
+        pool = (None if pool_np is None
+                else torch.from_numpy(pool_np).to(dtype).to(dev))
         args = (store, pool, torch.from_numpy(rmap).to(dev), layer,
                 sel.to(dev), n_act.to(dev), em)
         got = ops.expert_gather(*args)
-        want = ref.expert_gather_ref(*args)
-        torch.cuda.synchronize()
-        for name in got:
-            assert got[name].is_contiguous()
-            assert torch.equal(got[name], want[name]), name
-        n = int(n_act)
-        assert not any(bool(t[n:].any()) for t in got.values())
+        _assert_gather(got, ref.expert_gather_ref(*args), int(n_act))
     finally:
         offload.release(store)
 
@@ -520,6 +608,123 @@ def test_expert_gather_cuda_matches_plain(cuda_device, dtype, pe, T):
                                               em.num_experts, A)
         _card_gather(cuda_device, store, pool, rmap, em, layer, sel, n_act,
                      dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["all_resident", "none_resident",
+                                     "mixed", "pad_slots", "n_act_0"])
+@pytest.mark.parametrize("pe", [24, 37, 50])
+def test_expert_gather_cuda_miss_patterns(cuda_device, pattern, pe):
+    """No miss (no copy), every slot a miss (no pool), a mix, pad slots and
+    no real slot, at page widths that take the 16-byte body (24 f32) and
+    the element-wide one (37, 50), over three layers."""
+    store, pool, rmap, em, cases = _plan_case(pattern, pe, pe=pe)
+    for layer, (sel, n_act) in enumerate(cases):
+        _card_gather(cuda_device, store, pool, rmap, em, layer, sel, n_act,
+                     torch.float32)
+
+
+@pytest.mark.cuda
+def test_expert_gather_cuda_back_to_back(cuda_device):
+    """28 layers back to back, twice, with a new sel each layer, enqueued
+    behind a held stream: each call's plan and copies belong to it alone,
+    so every layer's outputs equal its plain version."""
+    L, E, ppe, pe = 28, 8, 4, 4096
+    rng = np.random.default_rng(28)
+    store_np = rng.normal(size=(L, E, ppe, pe)).astype(np.float32)
+    rmap_np = np.full((L, E), -1, np.int32)
+    flat = rng.choice(L * E, 64, replace=False)
+    rmap_np.reshape(-1)[flat] = np.arange(64, dtype=np.int32)
+    n = ppe * pe
+    em = paging.ExpertManifest(pe, n, ppe, L, E, [
+        paging.LeafEntry(("wi",), (2, n // 4), "float32", 0),
+        paging.LeafEntry(("wo",), (n // 2,), "float32", n // 2)], "float32")
+    dev = cuda_device
+    store = _card_store(dev, store_np, torch.float32)
+    try:
+        pool = torch.from_numpy(rng.normal(size=(64, ppe, pe)).astype(
+            np.float32)).to(dev)
+        for l, e in zip(*np.nonzero(rmap_np >= 0)):
+            pool[rmap_np[l, e]].copy_(torch.from_numpy(store_np[l, e]))
+        rmap = torch.from_numpy(rmap_np).to(dev)
+        calls = []
+        for _ in range(2):
+            for layer in range(L):
+                T = int(rng.integers(1, 6))
+                idx = np.stack([rng.choice(E, 2, replace=False)
+                                for _ in range(T)])
+                sel, _, n_act = moe.activated_experts(
+                    torch.from_numpy(idx), E, min(E, 2 * T))
+                calls.append((layer, sel.to(dev), n_act.to(dev)))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        outs = [ops.expert_gather(store, pool, rmap, layer, sel, n_act, em)
+                for layer, sel, n_act in calls]
+        torch.cuda.synchronize()
+        for (layer, sel, n_act), got in zip(calls, outs):
+            want = ref.expert_gather_ref(store, pool, rmap, layer, sel,
+                                         n_act, em)
+            _assert_gather(got, want, int(n_act))
+    finally:
+        offload.release(store)
+
+
+@pytest.mark.cuda
+def test_expert_gather_cuda_blocking_calls_after_gather(cuda_device):
+    """The wrapper waits for the device to reach the gather (here behind
+    ``torch.cuda._sleep``), and host calls that block inside CUDA right
+    after it, while its copies may be in flight — a pageable read,
+    ``empty_cache``, a pageable upload — return: no thread of the kernel
+    library has to issue anything for them to finish."""
+    store_np, pool_np, rmap_np, em, cases = _plan_case("mixed", 7, pe=40)
+    dev = cuda_device
+    store = _card_store(dev, store_np, torch.float32)
+    try:
+        pool = torch.from_numpy(pool_np).to(dev)
+        rmap = torch.from_numpy(rmap_np).to(dev)
+        sel, n_act = cases[0][0].to(dev), cases[0][1].to(dev)
+        assert int(ops.expert_miss_plan(rmap, 0, sel, n_act).shape[0]) > 0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)              # ~1 s
+        t0 = time.perf_counter()
+        got = ops.expert_gather(store, pool, rmap, 0, sel, n_act, em)
+        returned = time.perf_counter() - t0
+        sel_host = sel.cpu()
+        torch.cuda.empty_cache()
+        up = torch.tensor(sel_host.tolist(), dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        assert returned > 0.1, returned
+        assert torch.equal(up, sel)
+        _assert_gather(got, ref.expert_gather_ref(
+            store, pool, rmap, 0, sel, n_act, em), int(n_act))
+    finally:
+        offload.release(store)
+
+
+@pytest.mark.cuda
+def test_expert_engine_cuda_matches_resident(cuda_device, smoke_params):
+    """The expert-paged engine on the card (the gather, the shared spans'
+    two-slot buffer, the static map) gives the resident engine's
+    transcripts."""
+    params = params_from_numpy(smoke_params, device=cuda_device)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, 256, n) for n in (5, 30, 17, 60, 9, 44)]
+    runs = []
+    for kw in ({}, dict(expert_paged=True, page_elems=4096,
+                        w_gpu_ratio=0.25)):
+        eng = Engine(_smoke(t_get_config), params,
+                     EngineConfig(ubatch=2, num_ubs=2, max_seq=128,
+                                  decode_chunk=4, **kw),
+                     ExecPolicy(moe_impl="grouped", use_kernels=True),
+                     device=cuda_device)
+        try:
+            rids = [eng.submit(p, 12) for p in prompts]
+            out = eng.run_until_idle()
+            runs.append([out[r] for r in rids])
+        finally:
+            if eng.paged_blocks is not None:
+                eng.paged_blocks.release()
+    assert runs[0] == runs[1]
 
 
 @pytest.mark.cuda
