@@ -37,6 +37,27 @@ Phases, each printing JSON lines:
                    blocks spill to the host tier, come back on demand and
                    are prefetched.  Each serve phase counts every kernel's
                    launches over its own run.
+     serve_module — ``serve`` with module-based batching: both rotation
+                   groups decode through one dispatch a window, the MoE
+                   layers staging both groups' routed tokens into one
+                   ``moe_ffn`` launch; its greedy transcripts must equal
+                   ``serve``'s.
+     serve_overlap — ``serve_paged`` with overlapped admission: prompts
+                   drain in chunks of 32 (one a tick, ahead of the decode
+                   chunks), each landing in the paged pool at once; prints
+                   the staged prefill seconds and the device ms of the
+                   chunk attention (plain PyTorch, f32), counts how many
+                   transcripts agree with ``serve_paged``'s, and holds the
+                   logits at the end of chunked admissions against
+                   monolithic prefill, both with a capacity no expert
+                   bucket can overflow: in float32 within ``F32_TOL``, in
+                   bf16 within ``LOGIT_TOL`` or, on a prompt whose top-2
+                   routing a rounding flips, twice the distance between
+                   the kernel and plain paths of its monolithic prefill.
+                   Admission at one chunk a tick keeps
+                   about two requests in the arena, so a second run (8
+                   requests, 128 new tokens, the arena at its floor of one
+                   slot) drives spills and fetches under staged admission.
   5. trace       — one more serving window of each engine under
                    torch.profiler: device time by kernel family (copies
                    between the arena and the host tier included) and the
@@ -51,19 +72,25 @@ Phases, each printing JSON lines:
                    expert-paged (a pool of r_w 0.25 of the spans); its
                    greedy transcripts must equal the dense engine's.
   7. serve_expert — the mixtral engines are released; mixtral-8x7b at full
-                   width and all 32 layers (~93 GB of bf16 weights, more
-                   than the card holds), drawn on the card layer by layer
-                   from a seed into pinned host stores, served expert-paged
-                   with a device pool of r_w 0.5 of the (layer, expert)
-                   spans: 8 requests of 32..256 prompt tokens, 32 new
-                   tokens each.  The depth is cut (never below 8 layers)
-                   only where MemAvailable cannot hold the stores plus 20 %
-                   and 20 GiB, and printed as layers / of_layers.  Beside
+                   width and the deepest cut of its 32 layers that the
+                   host holds (all 32 are ~93 GB of bf16 weights, more
+                   than the card holds): MemAvailable must hold the stores
+                   plus 20 % and 20 GiB (never below 8 layers; printed as
+                   layers / of_layers), drawn on the card layer by layer
+                   from a seed into pinned host stores, served
+                   expert-paged with a device pool of r_w 0.5 of the
+                   (layer, expert) spans: 8 requests of 32..256 prompt
+                   tokens, 32 new tokens each.  Beside
                    the serve numbers: the bytes the gather moved over the
                    link, its seconds on the stream (CUDA events around
                    each call), their rate and the process's peak resident
-                   host memory.  Then a trace window of it, and the stores are
-                   released.
+                   host memory.  Then a trace window of it.
+     serve_expert_module — that engine deleted, a module-batched one over
+                   the same stores, depth and pool ratio serves the same 8
+                   requests: its greedy transcripts must equal
+                   ``serve_expert``'s, with fewer bytes read over the link
+                   by the gather; then a trace window of it, and the stores
+                   are released.
   8. serve_mla   — deepseek-v3-671b at full width with the depth cut from
                    61 to 5 layers (its 3 dense-FFN prologue layers and 2
                    MoE layers, 53.2 GB of bf16 weights, every weight on the
@@ -112,6 +139,9 @@ SERVE_PAGED = dict(ubatch=8, num_ubs=2, max_seq=1024, decode_chunk=8,
                    kv_paged=True, block_tokens=16, kv_gpu_ratio=0.4,
                    kv_prefetch=True)
 PAGED_PROMPT_LENS = (128, 640)
+# Overlapped admission over the paged pool at its floor: 8 of the paged
+# requests, 128 new tokens each
+OVERLAP_SPILL_REQUESTS, OVERLAP_SPILL_NEW_TOKENS = 8, 128
 # Expert-granular paged weights: every layer's experts in pinned host
 # stores, a device pool of half the (layer, expert) spans.
 SERVE_EXPERT = dict(ubatch=8, num_ubs=2, max_seq=512, decode_chunk=8,
@@ -130,9 +160,20 @@ F32_TOL = 1e-4
 # bf16 at different points of 4 layers; one-ulp differences (~0.4 %) carried
 # through residual adds and norms stay within this on O(1) logits.
 LOGIT_TOL = 0.1
+# A prompt whose routing a bf16 rounding flips: its chunked admission may
+# move its logits this many times as far as the kernel and plain paths of
+# its monolithic prefill move them.
+FLIP_FACTOR = 2.0
+
+
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the start
+    (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1000,10 +1041,13 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
               new_tokens=NEW_TOKENS):
     """Submit `n_requests` seeded prompts and run the engine until idle,
     with every kernel's launch count set to 0 just before and read just
-    after, and admission prefill timed apart (synchronized).  Checks that
-    every request finished with in-range tokens."""
+    after, and admission prefill (monolithic, or the staged chunks of
+    overlapped admission) timed apart (synchronized).  Checks that every
+    request finished with in-range tokens.  Returns the prompts, the
+    numbers and the transcripts in submission order."""
     prefill_s = [0.0]
-    inner = eng._prefill
+    step_name = "_prefill_chunk" if eng.ecfg.overlap else "_prefill"
+    inner = getattr(eng, step_name)
 
     def timed_prefill(*args):
         torch.cuda.synchronize()
@@ -1012,7 +1056,7 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
         torch.cuda.synchronize()
         prefill_s[0] += time.perf_counter() - t
         return out
-    eng._prefill = timed_prefill
+    setattr(eng, step_name, timed_prefill)
 
     rng = np.random.default_rng(seed)
     lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests)
@@ -1026,7 +1070,7 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    eng._prefill = inner
+    setattr(eng, step_name, inner)
     reqs = [eng.scheduler.requests[r] for r in rids]
     require(all(r.done and not r.aborted for r in reqs),
             "not every request finished")
@@ -1045,7 +1089,7 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
         "prefill_s": prefill_s[0], "decode_s": decode_s,
         "decode_tok_per_s": tokens / decode_s,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": launches}
+        "launches": launches}, [out[r] for r in rids]
 
 
 def phase_serve(torch, np, ops):
@@ -1060,8 +1104,8 @@ def phase_serve(torch, np, ops):
     eng = Engine(cfg, params, EngineConfig(**SERVE),
                  ExecPolicy(moe_impl="grouped", use_kernels=True),
                  device=DEVICE)
-    prompts, res = serve_run(torch, np, eng, ops, PROMPT_LENS, N_REQUESTS,
-                             SEED)
+    prompts, res, outs = serve_run(torch, np, eng, ops, PROMPT_LENS,
+                                   N_REQUESTS, SEED)
     emit({"phase": "serve", "model": "mixtral-8x7b", "layers": LAYERS,
           "of_layers": _mixtral().num_layers, "params": count_params(cfg),
           "engine": SERVE, **res})
@@ -1069,7 +1113,42 @@ def phase_serve(torch, np, ops):
     require(all(launches[k] > 0 for k in
                 ("moe_ffn", "gqa_decode", "flash_prefill")),
             f"a kernel of the dense path never launched: {launches}")
-    return eng, prompts[:2], launches
+    return eng, prompts[:2], launches, outs
+
+
+def phase_serve_module(torch, np, ops, params, want, launches_serve):
+    """``serve``'s weights, settings and requests with module-based
+    batching (G = num_ubs = 2): one decode dispatch a window of both
+    groups.  Its greedy transcripts must equal ``serve``'s token for token
+    (every row computes as in its lockstep dispatch), with fewer
+    ``moe_ffn`` launches (one a layer a window, not one a group)."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(_mixtral(), num_layers=LAYERS)
+    settings = {**SERVE, "module_batch": True}
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, EngineConfig(**settings),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    _, res, outs = serve_run(torch, np, eng, ops, PROMPT_LENS, N_REQUESTS,
+                             SEED)
+    launches = res["launches"]
+    emit({"phase": "serve_module", "model": "mixtral-8x7b",
+          "layers": LAYERS, "engine": settings, **res,
+          "module_groups": eng.weight_traffic()["module_groups"],
+          "moe_ffn_launches_serve": launches_serve["moe_ffn"],
+          "identical_requests": sum(a == b for a, b in zip(outs, want)),
+          "requests_total": len(want)})
+    require(outs == want, "module-batched greedy transcripts differ from "
+                          "serve's")
+    require(all(launches[k] > 0 for k in
+                ("moe_ffn", "gqa_decode", "flash_prefill")),
+            f"a kernel of the module-batched path never launched: "
+            f"{launches}")
+    require(launches["moe_ffn"] < launches_serve["moe_ffn"],
+            f"windows launched moe_ffn no fewer times: {launches}")
+    return launches
 
 
 def phase_serve_paged(torch, np, ops, params):
@@ -1102,8 +1181,8 @@ def phase_serve_paged(torch, np, ops, params):
         host["page_table_uploads"] += 1
         return out
     eng._kv_exec, eng._compose_kv = timed_exec, timed_compose
-    prompts, res = serve_run(torch, np, eng, ops, PAGED_PROMPT_LENS,
-                             N_REQUESTS, SEED + 2)
+    prompts, res, outs = serve_run(torch, np, eng, ops, PAGED_PROMPT_LENS,
+                                   N_REQUESTS, SEED + 2)
     eng._kv_exec, eng._compose_kv = exec_, compose
     traffic = eng.kv_traffic()
     preempted = sum(r.preemptions for r in eng.scheduler.requests.values())
@@ -1122,7 +1201,169 @@ def phase_serve_paged(torch, np, ops, params):
             f"a kernel of the paged path never launched: {launches}")
     require(launches["gqa_decode"] == 0,
             f"the paged path ran the dense decode kernel: {launches}")
-    return eng, launches
+    return eng, launches, outs
+
+
+def phase_serve_overlap(torch, np, ops, params, want):
+    """``serve_paged``'s weights, settings and requests with overlapped
+    chunked-prefill admission (chunks of 32 tokens, one a tick ahead of
+    the decode chunks, each landing in the paged pool at once): the staged
+    prefill seconds, the device time of the chunk attention (plain
+    PyTorch in f32 over the whole 1024-slot ring, CUDA events around each
+    call), and how many transcripts agree with ``serve_paged``'s (not
+    required: the capacity-bucketed MoE drops other tokens in a 32-token
+    chunk than in a whole prompt, and ``flash_prefill`` rounds P to bf16
+    where the chunk attention does not).  Then the logits check below."""
+    from repro_torch.models import attention
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(_mixtral(), num_layers=LAYERS)
+    settings = {**SERVE_PAGED, "overlap": True, "prefill_chunk": 32}
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, EngineConfig(**settings),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    timed = []
+    inner = attention.chunk_attention_ring
+
+    def timed_attention(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = inner(*args, **kw)
+        ev[1].record()
+        timed.append(ev)
+        return out
+    attention.chunk_attention_ring = timed_attention
+    try:
+        prompts, res, outs = serve_run(torch, np, eng, ops,
+                                       PAGED_PROMPT_LENS, N_REQUESTS,
+                                       SEED + 2)
+    finally:
+        attention.chunk_attention_ring = inner
+    chunk_ms = sum(a.elapsed_time(b) for a, b in timed)
+    traffic = eng.kv_traffic()
+    emit({"phase": "serve_overlap", "model": "mixtral-8x7b",
+          "layers": LAYERS, "engine": settings, **res,
+          "staged_prefill_s": res["prefill_s"],
+          "chunk_attention_calls": len(timed),
+          "chunk_attention_device_ms": chunk_ms,
+          "preemptions": sum(r.preemptions
+                             for r in eng.scheduler.requests.values()),
+          "identical_requests_vs_serve_paged": sum(
+              a == b for a, b in zip(outs, want)),
+          "agree_tokens_vs_serve_paged": sum(
+              x == y for a, b in zip(outs, want) for x, y in zip(a, b)),
+          "requests_total": len(want), "kv_traffic": traffic})
+    launches = res["launches"]
+    require(all(launches[k] > 0 for k in ("moe_ffn", "paged_gqa_decode")),
+            f"a kernel of the overlap path never launched: {launches}")
+    phase_check_overlap(torch, cfg, params, prompts[:8], eng)
+    # one chunk a tick admits a request of ~384 prompt tokens in ~12
+    # ticks, while one decodes its 64 tokens in 8: about two requests hold
+    # blocks at a time, under 60 of the 410, so the run above never
+    # spills.  The host tier under staged admission is driven here: the
+    # arena at its floor (one slot's 64 blocks) and 128 new tokens, so
+    # that a decoding request and the staged one overflow it
+    spill = {**settings, "kv_gpu_ratio": 0.0}
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, EngineConfig(**spill),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    _, res, _ = serve_run(torch, np, eng, ops, PAGED_PROMPT_LENS,
+                          OVERLAP_SPILL_REQUESTS, SEED + 2,
+                          OVERLAP_SPILL_NEW_TOKENS)
+    traffic = eng.kv_traffic()
+    emit({"phase": "serve_overlap_spill", "model": "mixtral-8x7b",
+          "layers": LAYERS, "engine": spill, **res, "kv_traffic": traffic})
+    require(traffic["spills"] > 0 and traffic["misses"] > 0,
+            f"the host tier was not exercised under overlap: {traffic}")
+    return launches
+
+
+def phase_check_overlap(torch, cfg, params, prompts, eng):
+    """The logits at the end of chunked admissions (the engine's chunk
+    widths, on a batch-1 scratch) against monolithic prefill of the same
+    prompts.  Capacity-bucketed MoE drops tokens by how many share a
+    call, so both sides run with a capacity factor of E / top_k, at which
+    no expert bucket can overflow.  Held in float32 (the kernels' f32
+    bodies), where the two differ only in summation order, within
+    ``F32_TOL``.  In bf16, as served, the two round at other points
+    (``flash_prefill`` rounds P, chunk attention does not; a product's
+    bits change with its row count), and where a rounding flips a token's
+    top-2 experts the logits move by more than ``LOGIT_TOL``.  How far one
+    prompt's logits move under such a flip is measured by the kernel and
+    plain paths of its monolithic prefill (two other roundings of the same
+    prompt), so each prompt is held within ``max(LOGIT_TOL,
+    FLIP_FACTOR x`` that distance``)``: a prompt that no flip moves, at
+    ``LOGIT_TOL``."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving import steps
+
+    nd = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                             / cfg.top_k)
+    max_seq = SERVE_PAGED["max_seq"]
+
+    def prefill(c, p, pol, prompt, chunked):
+        cache = kvcache.init_cache(c, 1, max_seq, device=DEVICE)
+        if not chunked:
+            return steps.make_prefill_fill_step(c, pol)(
+                p, torch.as_tensor(prompt[None].astype("int32"),
+                                   device=DEVICE), cache,
+                torch.tensor([len(prompt)], dtype=torch.int32,
+                             device=DEVICE))[0]
+        step, t = steps.make_prefill_chunk(c, pol), 0
+        while t < len(prompt):
+            width = eng._chunk_bucket(len(prompt) - t)
+            n = min(width, len(prompt) - t)
+            toks = torch.zeros((1, width), dtype=torch.int32, device=DEVICE)
+            toks[0, :n] = torch.as_tensor(prompt[t:t + n].astype("int32"))
+            logits, cache = step(
+                p, toks, cache,
+                torch.tensor([n], dtype=torch.int32, device=DEVICE))
+            t += n
+        return logits
+
+    def to_f32(tree):
+        return {k: to_f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+
+    kern = ExecPolicy(moe_impl="grouped", use_kernels=True)
+    plain = ExecPolicy(moe_impl="grouped", use_kernels=False, impl="ref")
+    worst = {"float32": 0.0, "bfloat16": 0.0,
+             "bfloat16_kernel_vs_plain": 0.0}
+    per_prompt = []
+    nd32, p32 = dataclasses.replace(nd, dtype="float32"), to_f32(params)
+    for prompt in prompts:
+        row = {"prompt_tokens": len(prompt)}
+        for key, c, p in (("float32", nd32, p32), ("bfloat16", nd, params)):
+            got = prefill(c, p, kern, prompt, True)
+            want = prefill(c, p, kern, prompt, False)
+            require(bool(torch.isfinite(got).all())
+                    and got.shape == want.shape == (1, nd.vocab_size),
+                    f"bad chunked-admission logits ({key})")
+            row[key] = max_err(got, want)
+        row["bfloat16_kernel_vs_plain"] = max_err(
+            want, prefill(nd, params, plain, prompt, False))
+        row["bfloat16_tol"] = max(LOGIT_TOL, FLIP_FACTOR
+                                  * row["bfloat16_kernel_vs_plain"])
+        for key in worst:
+            worst[key] = max(worst[key], row[key])
+        per_prompt.append(row)
+    del p32
+    torch.cuda.empty_cache()
+    emit({"phase": "check_overlap", "prompts": len(prompts),
+          "max_abs_logit_diff": worst, "f32_tol": F32_TOL,
+          "logit_tol": LOGIT_TOL, "flip_factor": FLIP_FACTOR,
+          "per_prompt": per_prompt})
+    require(worst["float32"] <= F32_TOL,
+            f"chunked admission logits differ from monolithic prefill in "
+            f"float32: {worst}")
+    require(all(r["bfloat16"] <= r["bfloat16_tol"] for r in per_prompt),
+            f"chunked admission logits differ from monolithic prefill in "
+            f"bf16: {per_prompt}")
 
 
 def phase_trace(torch, np, eng, label, prompt_lens, n_requests,
@@ -1340,13 +1581,13 @@ def phase_serve_expert(torch, np, ops):
     ever holds the stack), served with a device pool of r_w 0.5 of the
     (layer, expert) spans.  The depth is the deepest whose stores fit
     MemAvailable with 20 % and at least 20 GiB to spare (the serve and
-    its profiled window run beside the stores), at most 32, never below
-    8."""
+    its profiled window run beside the stores), never below 8.
+    Returns the engine, its launches, the stores (kept for
+    ``phase_serve_expert_module``) and its numbers."""
     from repro_torch.core import offload, paging
-    from repro_torch.models.model import ExecPolicy
     from repro_torch.models.params import (abstract_params, count_params,
                                            init_params, param_defs)
-    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.engine import EngineConfig
 
     full = _mixtral()
     one = dataclasses.replace(full, num_layers=1)
@@ -1385,7 +1626,25 @@ def phase_serve_expert(torch, np, ops):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     pinned = offload.pinned_bytes()
-    eng = Engine(cfg, params, EngineConfig(**SERVE_EXPERT),
+    stores = {"cfg": cfg, "params": params, "pw": pw, "layers": layers,
+              "of_layers": full.num_layers, "params_count": count_params(cfg),
+              "store_bytes_per_layer": per_layer, "mem_available": avail,
+              "pinned_bytes": pinned, "pin_s": pin_s, "build_s": build_s}
+    eng, launches, res = serve_expert_engine(torch, np, ops, stores,
+                                             SERVE_EXPERT, "serve_expert")
+    return eng, launches, stores, res
+
+
+def serve_expert_engine(torch, np, ops, stores, settings, phase):
+    """An expert-paged engine over `stores` (``phase_serve_expert``'s host
+    stores and resident params) with the engine settings given, serving
+    ``EXPERT_REQUESTS`` seeded requests; emits the `phase` line with the
+    gather's link bytes, seconds and rate."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pw, page_elems = stores["pw"], EngineConfig().page_elems
+    eng = Engine(stores["cfg"], stores["params"], EngineConfig(**settings),
                  ExecPolicy(moe_impl="grouped", use_kernels=True),
                  device=DEVICE, paged_weights=pw)
     # the spans the gather read over the link: counted on the card, per
@@ -1409,26 +1668,29 @@ def phase_serve_expert(torch, np, ops):
         return out
     ops.expert_gather = counted
     try:
-        _, res = serve_run(torch, np, eng, ops, EXPERT_PROMPT_LENS,
-                           EXPERT_REQUESTS, SEED + 8, EXPERT_NEW_TOKENS)
+        _, res, outs = serve_run(torch, np, eng, ops, EXPERT_PROMPT_LENS,
+                                 EXPERT_REQUESTS, SEED + 8,
+                                 EXPERT_NEW_TOKENS)
     finally:
         ops.expert_gather = inner
     traffic = eng.weight_traffic()
     span = next(iter(pw.expert_manifests.values())).span_bytes
     gather_host_bytes = int(host_spans) * span
     gather_s = sum(a.elapsed_time(b) for a, b in spans_timed) / 1e3
-    engine_cfg = {**SERVE_EXPERT, "page_elems": page_elems}
-    emit({"phase": "serve_expert", "model": "mixtral-8x7b",
-          "layers": layers, "of_layers": full.num_layers,
-          "params": count_params(cfg), "store_bytes_per_layer": per_layer,
-          "mem_available": avail, "pinned_bytes": pinned,
-          "pin_s": pin_s, "build_s": build_s,
+    res.update(gather_host_bytes=gather_host_bytes,
+               gather_calls=len(spans_timed), gather_s=gather_s,
+               gather_host_GBps=gather_host_bytes / gather_s / 1e9,
+               transcripts=outs)
+    emit({"phase": phase, "model": "mixtral-8x7b",
+          "layers": stores["layers"],
+          "of_layers": stores["of_layers"],
+          "params": stores["params_count"],
+          **{k: stores[k] for k in ("store_bytes_per_layer", "mem_available",
+                                    "pinned_bytes", "pin_s", "build_s")},
           "pool_spans": sum(r.capacity for r in eng.residency.values()),
           "pool_bytes": sum(p.nbytes for p in eng._expert_pool.values()),
-          "engine": engine_cfg, **res,
-          "gather_host_bytes": gather_host_bytes,
-          "gather_calls": len(spans_timed), "gather_s": gather_s,
-          "gather_host_GBps": gather_host_bytes / gather_s / 1e9,
+          "engine": {**settings, "page_elems": page_elems},
+          **{k: v for k, v in res.items() if k != "transcripts"},
           "host_peak_rss": host_peak_rss(),
           "weight_traffic": traffic})
     require(traffic["hits"] > 0 and traffic["misses"] > 0
@@ -1439,6 +1701,41 @@ def phase_serve_expert(torch, np, ops):
     require(all(launches[k] > 0 for k in
                 ("expert_gather", "moe_ffn", "gqa_decode", "flash_prefill")),
             f"a kernel of the expert-paged path never launched: {launches}")
+    return eng, launches, res
+
+
+def phase_serve_expert_module(torch, np, ops, stores, base):
+    """``serve_expert``'s stores, depth, pool ratio and requests through a
+    module-batched engine (G = 2): one gather a layer a window reads each
+    activated span once for both groups.  Its greedy transcripts must
+    equal ``serve_expert``'s, the measured amortization
+    (``module_groups_effective``) must exceed 1, and the gather must read
+    fewer bytes over the link than ``serve_expert``'s."""
+    settings = {**SERVE_EXPERT, "module_batch": True}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng, launches, res = serve_expert_engine(torch, np, ops, stores,
+                                             settings, "serve_expert_module")
+    traffic = eng.weight_traffic()
+    emit({"phase": "serve_expert_module_vs_serve_expert",
+          "identical_requests": sum(
+              a == b for a, b in zip(res["transcripts"],
+                                     base["transcripts"])),
+          "requests_total": len(base["transcripts"]),
+          "gather_host_bytes": [base["gather_host_bytes"],
+                                res["gather_host_bytes"]],
+          "decode_tok_per_s": [base["decode_tok_per_s"],
+                               res["decode_tok_per_s"]],
+          "wall_s": [base["wall_s"], res["wall_s"]],
+          "module_groups_effective": traffic["module_groups_effective"]})
+    require(res["transcripts"] == base["transcripts"],
+            "module-batched expert-paged transcripts differ from "
+            "serve_expert's")
+    require(traffic["module_groups_effective"] > 1,
+            f"no amortization measured: {traffic}")
+    require(res["gather_host_bytes"] < base["gather_host_bytes"],
+            f"the windows read no fewer bytes over the link: "
+            f"{res['gather_host_bytes']} vs {base['gather_host_bytes']}")
     return eng, launches
 
 
@@ -1461,8 +1758,8 @@ def phase_serve_mla(torch, np, ops):
     eng = Engine(cfg, params, EngineConfig(**SERVE_PAGED),
                  ExecPolicy(moe_impl="grouped", use_kernels=True),
                  device=DEVICE)
-    prompts, res = serve_run(torch, np, eng, ops, PAGED_PROMPT_LENS,
-                             N_REQUESTS, SEED + 4)
+    prompts, res, _ = serve_run(torch, np, eng, ops, PAGED_PROMPT_LENS,
+                                N_REQUESTS, SEED + 4)
     traffic = eng.kv_traffic()
     preempted = sum(r.preemptions for r in eng.scheduler.requests.values())
     weight_bytes = sum(t.nbytes for t in _leaves(params))
@@ -1566,8 +1863,13 @@ def main() -> int:
 
     records = phase_kernels(torch, F)
     torch.cuda.empty_cache()
-    eng, prompts, launches = phase_serve(torch, np, ops)
-    eng_paged, launches_paged = phase_serve_paged(torch, np, ops, eng.params)
+    eng, prompts, launches, serve_outs = phase_serve(torch, np, ops)
+    launches_module = phase_serve_module(torch, np, ops, eng.params,
+                                         serve_outs, launches)
+    eng_paged, launches_paged, paged_outs = phase_serve_paged(
+        torch, np, ops, eng.params)
+    launches_overlap = phase_serve_overlap(torch, np, ops, eng.params,
+                                           paged_outs)
     phase_trace(torch, np, eng, "dense", PROMPT_LENS, 8)
     phase_trace(torch, np, eng_paged, "paged", PAGED_PROMPT_LENS, 16)
     engine_prompts, dense_runs = phase_check(torch, np, eng.cfg, eng.params,
@@ -1577,11 +1879,20 @@ def main() -> int:
     # mixtral engines go first, then the 32-layer one with its host stores
     del eng, eng_paged
     gc.collect()
-    eng_expert, launches_expert = phase_serve_expert(torch, np, ops)
+    eng_expert, launches_expert, stores, expert_res = phase_serve_expert(
+        torch, np, ops)
     phase_trace(torch, np, eng_expert, "expert", EXPERT_PROMPT_LENS, 4,
                 EXPERT_NEW_TOKENS // 2)
-    eng_expert.paged_blocks.release()
+    # the stores stay pinned for the module-batched engine; the first
+    # engine's device pool goes first
     del eng_expert
+    gc.collect()
+    eng_expert, launches_expert_module = phase_serve_expert_module(
+        torch, np, ops, stores, expert_res)
+    phase_trace(torch, np, eng_expert, "expert_module", EXPERT_PROMPT_LENS,
+                4, EXPERT_NEW_TOKENS // 2)
+    stores["pw"].release()
+    del eng_expert, stores
     gc.collect()
     eng_mla, mla_prompts, launches_mla = phase_serve_mla(torch, np, ops)
     phase_trace(torch, np, eng_mla, "mla", PAGED_PROMPT_LENS, 16)
@@ -1590,13 +1901,19 @@ def main() -> int:
     by_path = {"paged_gqa_decode": launches_paged,
                "paged_mla_decode": launches_mla,
                "expert_gather": launches_expert}
+    # the launches of this slice's paths, beside each kernel's main path
+    new_paths = {"serve_module": launches_module,
+                 "serve_overlap": launches_overlap,
+                 "serve_expert_module": launches_expert_module}
     for rec in records:
         rec["launches"] = by_path.get(rec["name"], launches)[rec["name"]]
+        rec["launches_by_path"] = {k: v[rec["name"]]
+                                   for k, v in new_paths.items()}
         if "deepseek" in rec:
             rec["deepseek"]["launches"] = launches_mla[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_call", "shape")
+            "library_call", "shape", "launches_by_path")
     emit({"kernels": [{**{k: r[k] for k in keys},
                        **{k: r[k] for k in ("served_occupancy", "deepseek",
                                             "full_ring")

@@ -1,6 +1,6 @@
 """Attention blocks of the PyTorch port (``repro/models/attention.py``): GQA
 and DeepSeek-style MLA, in the ``full`` (train / prefill with an optional
-ring write) and ``decode`` modes.
+ring write), ``decode`` and ``chunk`` (chunked-prefill admission) modes.
 
 Decode attention is expressed through partials (unnormalized output,
 running max, running denominator), the contract of the flash-decode kernels.
@@ -10,6 +10,8 @@ arena runs the paged flash-decode kernels (GQA and absorbed MLA) in their
 fused decode-write form, as the reference does; and full-mode prefill runs
 the flash-prefill kernel where the reference runs ``chunked_attention``;
 ``impl="ref"`` runs those plain versions instead (``kernels/ops.py``).
+Chunk mode attends a prompt chunk's queries against the whole ring in
+plain PyTorch and f32, as the reference computes it outside any kernel.
 """
 from __future__ import annotations
 
@@ -58,6 +60,40 @@ def decode_valid_mask(slot_pos, pos, window: int):
     return v
 
 
+def chunk_valid_mask(slot_pos, q_positions, window: int):
+    """Multi-query variant for chunked prefill: q_positions (B,S) absolute
+    query positions; returns (B,S,W).  The chunk's own KV is written into
+    the ring before attention, so intra-chunk causality falls out of the
+    same slot_pos <= q_pos test as the history's."""
+    sp = slot_pos[:, None, :]
+    v = (sp >= 0) & (sp <= q_positions[:, :, None])
+    if window:
+        v &= sp > (q_positions[:, :, None] - window)
+    return v
+
+
+def chunk_attention_ring(q, k, v, valid, *, scale: float,
+                         attn_softcap: float = 0.0):
+    """Chunked-prefill attention: S chunk queries against the full ring.
+    q: (B,S,H,D); k/v: (B,W,Hkv,Dv); valid: (B,S,W) bool.  Returns
+    (B,S,H,Dv) f32 — the multi-query form of attention_partials +
+    combine_partials."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    qf = (q.float() * scale).reshape(B, S, Hkv, g, D)
+    s = torch.einsum("bshgd,bwhd->bshgw", qf, k.float())
+    s = softcap(s, attn_softcap)
+    s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
+    m = s.amax(-1)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p = torch.exp(s - m_safe[..., None]) * (s > NEG_INF / 2)
+    l = p.sum(-1)
+    o = torch.einsum("bshgw,bwhd->bshgd", p, v.float())
+    o = o / torch.clamp(l[..., None], min=1e-30)
+    return o.reshape(B, S, H, v.shape[-1])
+
+
 def _proj(x, w, b=None):
     y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
@@ -69,8 +105,10 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
                 cache: Optional[Dict], mode: str, pos=None,
                 causal: bool = True, impl: str = "auto"):
     """x: (B,S,E).  mode: 'full' (train / prefill, writing the ring when a
-    cache is given) or 'decode' (S == 1: write the ring, then attend over
-    it).  Returns (out, layer_cache); the cache is updated in place."""
+    cache is given), 'decode' (S == 1: write the ring, then attend over
+    it) or 'chunk' (write a prompt chunk at its absolute positions, then
+    attend its queries over the whole ring).  Returns (out, layer_cache);
+    the cache is updated in place."""
     B, S, E = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = cfg.query_scale or Dh ** -0.5
@@ -109,6 +147,19 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
             seq_pos = (positions if positions.ndim == 1
                        else positions[0]).to(torch.int32)
             kvcache.write_prefill(cache, {"k": k, "v": v}, seq_pos)
+    elif mode == "chunk":
+        # chunked prefill at a row offset: write the chunk's KV into the
+        # ring at its absolute positions, then attend its queries over the
+        # whole ring.  Prefill runs on a dense batch-1 scratch; the paged
+        # pool is written by the slot inserts, never by prefill
+        if cache is None or kvcache.is_paged(cache):
+            raise ValueError("chunk mode runs on a dense ring")
+        kvcache.write_prefill(cache, {"k": k, "v": v},
+                              positions[0].to(torch.int32))
+        valid = chunk_valid_mask(cache["slot_pos"], positions, window)
+        o = chunk_attention_ring(q, cache["k"], cache["v"], valid,
+                                 scale=scale,
+                                 attn_softcap=cfg.attn_softcap).to(x.dtype)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported")
     out = _proj(o.reshape(B, S, H * Dh), p["wo"])
@@ -189,6 +240,23 @@ def mla_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
             seq_pos = (positions if positions.ndim == 1
                        else positions[0]).to(torch.int32)
             kvcache.write_prefill(cache, {"ckv": ckv, "kr": kr}, seq_pos)
+    elif mode == "chunk":
+        # chunked prefill: persist the chunk's latents at their absolute
+        # positions, then the naive (decompressed) form over the ring
+        if cache is None or kvcache.is_paged(cache):
+            raise ValueError("chunk mode runs on a dense ring")
+        kvcache.write_prefill(cache, {"ckv": ckv, "kr": kr},
+                              positions[0].to(torch.int32))
+        ckv_r = cache["ckv"].float()                            # (B,W,r)
+        k_nope_r = torch.einsum("bwr,rhd->bwhd", ckv_r, wuk.float())
+        v_r = torch.einsum("bwr,rhd->bwhd", ckv_r, wuv.float())
+        W = ckv_r.shape[1]
+        kr_r = cache["kr"][:, :, None, :].expand(B, W, H, dr).float()
+        k_r = torch.cat([k_nope_r, kr_r], -1)
+        qfull = torch.cat([q_nope, q_rope], -1)
+        valid = chunk_valid_mask(cache["slot_pos"], positions, 0)
+        o = chunk_attention_ring(qfull, k_r, v_r, valid,
+                                 scale=scale).to(x.dtype)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported")
     out = _proj(o.reshape(B, S, H * dv), p["wo"])

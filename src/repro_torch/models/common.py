@@ -26,6 +26,33 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def group_rows(a, g: int, groups: int):
+    """Rotation group g's rows of a module-batched window's `a` (its batch
+    is `groups` equal blocks, group-major): a tensor's block along axis 0,
+    a layer cache's rows (a paged one keeps its shared arena and slices
+    its page table), None as is."""
+    if a is None:
+        return None
+    if isinstance(a, dict):
+        if "page_table" in a:
+            return {**a, "page_table": a["page_table"].chunk(groups)[g]}
+        return {k: v.chunk(groups)[g] for k, v in a.items()}
+    return a.chunk(groups)[g]
+
+
+def by_group(fn, groups: Optional[int], *args):
+    """fn over each rotation group's rows of a window (``group_rows`` of
+    every argument), the outputs concatenated along axis 0; fn itself
+    without groups.  A cuBLAS product's reduction order, and so its bits,
+    can change with the number of rows it is given, so a window runs its
+    row-wise work group by group: every row then gets the bits its
+    lockstep dispatch gives it."""
+    if not groups or groups == 1:
+        return fn(*args)
+    return torch.cat([fn(*(group_rows(a, g, groups) for a in args))
+                      for g in range(groups)])
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

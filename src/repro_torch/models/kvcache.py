@@ -308,6 +308,86 @@ def insert_slot(cache: Dict, single: Dict, row: int, src: int = 0) -> Dict:
     return cache
 
 
+def insert_slot_span(cache: Dict, single: Dict, row: int, start: int, *,
+                     length: int) -> Dict:
+    """Partial slot insert at a row offset: copy only the ring slots holding
+    absolute positions [start, start + length) of batch row 0 of `single`
+    into batch row `row` of the pooled `cache` (plus `single`'s row-0 pos),
+    in place.  The chunked-prefill admission path: each staged chunk lands
+    in the pool as soon as it is computed.  Ring indices are taken modulo
+    each leaf's own ring width.  Unlike `insert_slot`, a span does not
+    clear the rest of the row: callers `reset_slot` the row once before a
+    new request's first span.  Paged groups copy the whole arena blocks
+    the span overlaps (the scratch ring holds the slot's entire prefix, so
+    re-copying a block's part before the span rewrites the same values);
+    the overlapped blocks must be mapped, else they land in the trash
+    block."""
+    for k, v in cache.items():
+        if k == "pos":
+            v[row] = single[k][0]
+        elif is_paged(v):
+            _insert_span_blocks(v, single[k], row, start, length)
+        else:
+            for name, a in v.items():
+                idx = (torch.arange(start, start + length, device=a.device)
+                       % a.shape[2])
+                a[:, row, idx] = single[k][name][:, 0, idx].to(a.dtype)
+    return cache
+
+
+def _insert_span_blocks(group: Dict, single_group: Dict, row: int,
+                        start: int, length: int) -> None:
+    """The paged branch of `insert_slot_span`: the logical blocks the span
+    [start, start + length) overlaps, in unwrapped coordinates taken modulo
+    the slot's MB blocks (the dense branch's ring wrap), each copied from
+    the scratch ring into the physical block the page table maps."""
+    pt = group["page_table"][0, row]                   # (MB,) layer-invariant
+    MB = pt.shape[0]
+    trash = group["slot_pos"].shape[1] - 1
+    bt = group["slot_pos"].shape[2]
+    first = start // bt
+    # the MB cap keeps the targets unique, as in the reference
+    lbs = [(first + j) % MB for j in range(min(length // bt + 2, MB))
+           if (first + j) * bt < start + length]
+    idx = torch.tensor(lbs, dtype=torch.long, device=pt.device)
+    pb = torch.where(pt[idx] >= 0, pt[idx], trash).long()
+    for name, a in group.items():
+        if name == "page_table":
+            continue
+        blk = single_group[name][:, 0]                 # (L, W[, Hkv, D])
+        blk = blk.reshape((blk.shape[0], MB, bt) + tuple(blk.shape[2:]))
+        tile = _to_arena_tile(name, blk[:, idx].to(a.dtype))
+        if name in _HEAD_MAJOR:
+            a[:, :, pb] = torch.movedim(tile, 1, 2)
+        else:
+            a[:, pb] = tile
+
+
+# ---------------------------------------------------------------------------
+# Window composition (module-based batching).  The engine allocates the
+# rotation groups' slot caches as one pool cache of num_ubs·ubatch rows,
+# group-major, and gives each group its rows as views: a window of
+# consecutive groups is then a view too, dispatched as one (G·B)-row decode
+# chunk that writes the groups' rows in place.  Batch is axis 0 for "pos"
+# and axis 1 for every other leaf.  Arena leaves have no batch axis and
+# never pass through these: the engine composes the arena with a
+# window-wide page table per dispatch.
+# ---------------------------------------------------------------------------
+
+def slot_rows(cache: Dict, start: int, n: int) -> Dict:
+    """Batch rows [start, start + n) of a slot cache, as views."""
+    return {k: (slot_rows(v, start, n) if isinstance(v, dict)
+                else v.narrow(0 if k == "pos" else 1, start, n))
+            for k, v in cache.items()}
+
+
+def split_slot_cache(cache: Dict, n: int):
+    """`n` equal per-group slot caches of a (group-major) window or pool
+    cache, views into it."""
+    b = cache["pos"].shape[0] // n
+    return [slot_rows(cache, i * b, b) for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Ring-buffer writes.  They operate on a single layer slice (no leading
 # stack dim), a view into the stacked cache, so the writes land in the pool.

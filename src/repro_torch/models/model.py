@@ -30,7 +30,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import offload, paging
 from repro_torch.kernels import ops
 from repro_torch.models.attention import attn_forward
-from repro_torch.models.common import act_fn, apply_norm, softcap
+from repro_torch.models.common import act_fn, apply_norm, by_group, softcap
 from repro_torch.models.moe import gated_ffn, moe_apply, moe_apply_paged
 
 
@@ -134,30 +134,48 @@ def dense_ffn(cfg: ModelConfig, p: Dict, x):
 
 def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
                 cache: Optional[Dict], mode: str, pos,
-                policy: Optional[ExecPolicy], expert_fetch=None):
+                policy: Optional[ExecPolicy], expert_fetch=None,
+                token_groups: Optional[int] = None):
     """One layer.  Returns (x, aux_loss, expert_counts); a given cache is
     written in place.  With ``expert_fetch`` (expert-granular paged
     weights) the MoE FFN runs the two-phase step and expert_counts (E,)
-    reports the routing; otherwise it is None."""
+    reports the routing; otherwise it is None.
+
+    token_groups=G (module-based batching): the batch concatenates G
+    rotation groups.  Attention, the norms and a dense FFN run group by
+    group (``common.by_group``), attention on each group's rows of the
+    cache, so every row computes as in its lockstep dispatch (on the card
+    an RMSNorm's row sums, too, change bits with the row count); the MoE
+    FFN stages the G groups' routed tokens into one buffer, and
+    expert_counts becomes (G, E)."""
     aux, ecounts = 0.0, None
-    h = apply_norm(cfg, p.get("attn_norm", {}), x)
-    y, _ = attn_forward(cfg, spec, p["attn"], h, positions, cache=cache,
-                        mode=mode, pos=pos,
-                        impl=policy.impl if policy else "auto")
-    if cfg.post_block_norm:
-        y = apply_norm(cfg, p["post_attn_norm"], y)
-    x = x + y
+
+    def attend(x, positions, cache, pos):
+        h = apply_norm(cfg, p.get("attn_norm", {}), x)
+        y, _ = attn_forward(cfg, spec, p["attn"], h, positions, cache=cache,
+                            mode=mode, pos=pos,
+                            impl=policy.impl if policy else "auto")
+        if cfg.post_block_norm:
+            y = apply_norm(cfg, p["post_attn_norm"], y)
+        return x + y
+
+    x = by_group(attend, token_groups, x, positions, cache, pos)
     if spec.ffn:
-        h = apply_norm(cfg, p.get("ffn_norm", {}), x)
+        h = by_group(lambda x: apply_norm(cfg, p.get("ffn_norm", {}), x),
+                     token_groups, x)
         if spec.moe and expert_fetch is not None:
             y, aux, ecounts = moe_apply_paged(cfg, p["moe"], h, expert_fetch,
-                                              policy)
+                                              policy,
+                                              token_groups=token_groups)
         elif spec.moe:
-            y, aux = moe_apply(cfg, p["moe"], h, policy)
+            y, aux = moe_apply(cfg, p["moe"], h, policy,
+                               token_groups=token_groups)
         else:
-            y = dense_ffn(cfg, p["ffn"], h)
+            y = by_group(lambda h: dense_ffn(cfg, p["ffn"], h),
+                         token_groups, h)
         if cfg.post_block_norm:
-            y = apply_norm(cfg, p["post_ffn_norm"], y)
+            y = by_group(lambda y: apply_norm(cfg, p["post_ffn_norm"], y),
+                         token_groups, y)
         x = x + y
     return x, aux, ecounts
 
@@ -171,9 +189,11 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 
 def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
             policy: Optional[ExecPolicy] = None, paged_blocks=None,
-            expert_state=None):
-    """tokens: (B,S) integer.  mode: train | prefill | decode.
-    Returns dict(hidden, cache, aux_loss); call `unembed` for logits.
+            expert_state=None, fill_len=None,
+            token_groups: Optional[int] = None):
+    """tokens: (B,S) integer.  mode: train | prefill | decode |
+    chunk_prefill.  Returns dict(hidden, cache, aux_loss); call `unembed`
+    for logits.
 
     prefill writes the prompt's KV into the cache ring at positions 0..S-1;
     decode reads and writes it at each row's ``cache["pos"]``.  The cache
@@ -181,14 +201,27 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
     The prologue's layers (``params["prologue"]["p0"]``, with their dense
     rings in ``cache["prologue"]``) run before the periodic stack.
 
+    chunk_prefill runs one fixed-width prompt chunk at the row offset in
+    ``cache["pos"]``: its KV is written at absolute positions pos..pos+S-1
+    and its queries attend to the whole ring (history and chunk) under the
+    slot_pos mask.  ``fill_len`` ((B,) int32) is the chunk's true token
+    count: padded tail positions are clamped to pos + fill_len, so they
+    collapse into one slot that stays causally masked, and "pos" advances
+    by fill_len.
+
+    token_groups=G (module-based batching, decode windows): B is G·ubatch,
+    group-major; the MoE layers stage the G groups' routed tokens against
+    one expert-span read each, and "expert_counts" gains a group axis.
+
     paged_blocks: a ``core.paging.PagedWeights`` in host stores that
     replaces ``params["blocks"]``: each layer's shared span streams through
     a two-slot device buffer and the MoE experts are fetched router-gated
     per layer.  ``expert_state`` then maps each MoE group key to (pool
     (slots, ppe, page_elems), resident_map (L, E) int32) on the device:
     spans whose map entry is >= 0 are read from the pool, the rest from
-    the host store.  The result gains "expert_counts" ({key: (L, E)}
-    tokens routed to each expert) for the host residency cache."""
+    the host store.  The result gains "expert_counts" ({key: (L, E)}, or
+    (L, G, E) with token_groups; tokens routed to each expert) for the
+    host residency cache."""
     if cfg.encoder_layers or cfg.vision_tokens or cfg.pos == "learned":
         raise NotImplementedError(f"{cfg.name}: not ported yet")
     B, S = tokens.shape
@@ -198,6 +231,15 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
         pos = cache["pos"]                           # (B,)
         positions = pos[:, None]
         run_mode = "decode"
+    elif mode == "chunk_prefill":
+        if cache is None:
+            raise ValueError("chunk_prefill needs a cache")
+        pos = None
+        off = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        if fill_len is not None:
+            off = torch.minimum(off, fill_len[:, None])
+        positions = cache["pos"][:, None] + off
+        run_mode = "chunk"
     else:
         pos = None
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -230,27 +272,34 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
             cache=(paging.layer_slice(cache[key], layer)
                    if cache is not None else None),
             mode=run_mode, pos=pos, policy=policy,
-            expert_fetch=ctx[key].make_fetch(layer) if key in ctx else None)
+            expert_fetch=ctx[key].make_fetch(layer) if key in ctx else None,
+            token_groups=token_groups)
         if p is None:
             spans[key].release(layer)
         if ec is not None:
             counts[key].append(ec)
         aux_total = aux_total + aux
     if cache is not None:
-        cache["pos"] = cache["pos"] + (1 if mode == "decode" else S)
+        if mode == "chunk_prefill" and fill_len is not None:
+            step = fill_len.to(torch.int32)          # per-row true fill
+        else:
+            step = 1 if mode == "decode" else S
+        cache["pos"] = cache["pos"] + step
 
-    x = apply_norm(cfg, params.get("final_norm", {}), x)
+    x = by_group(lambda x: apply_norm(cfg, params.get("final_norm", {}), x),
+                 token_groups, x)
     out = {"hidden": x, "cache": cache, "aux_loss": aux_total}
     if ctx:
         out["expert_counts"] = {k: torch.stack(v) for k, v in counts.items()}
     return out
 
 
-def unembed(cfg: ModelConfig, params, hidden):
-    """hidden: (..., E) -> logits (..., V) float32 (with gemma2 softcap)."""
-    if cfg.tie_embeddings:
-        logits = torch.matmul(hidden.float(),
-                              params["embed"]["tokens"].float().t())
-    else:
-        logits = torch.matmul(hidden.float(), params["lm_head"].float())
+def unembed(cfg: ModelConfig, params, hidden,
+            token_groups: Optional[int] = None):
+    """hidden: (..., E) -> logits (..., V) float32 (with gemma2 softcap).
+    token_groups: a window's rows, projected group by group."""
+    w = (params["embed"]["tokens"].t() if cfg.tie_embeddings
+         else params["lm_head"]).float()
+    logits = by_group(lambda h: torch.matmul(h.float(), w), token_groups,
+                      hidden)
     return softcap(logits, cfg.logit_softcap)

@@ -5,7 +5,9 @@ Execution paths (numerically equivalent up to capacity drops):
   * ``moe_dense``   — masked loop over experts; the oracle for tests.
   * ``moe_grouped`` — capacity-bucketed grouped FFN: scatter tokens to
     (E, C, D) buckets, run the grouped expert FFN (the ``moe_ffn`` kernel
-    with ``use_kernel``), gather back.
+    with ``use_kernel``), gather back.  With ``token_groups`` (module-based
+    batching) the buckets hold G rotation groups' tokens in disjoint
+    per-group spans, so C = G·cap and one launch serves the window.
 
   * ``moe_paged``   — the expert-granular paged path's two-phase step:
     the router first, then only the activated experts' spans are fetched
@@ -23,16 +25,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import act_fn
+from repro_torch.models.common import act_fn, by_group
 
 
 # ---------------------------------------------------------------------------
 # Router
 # ---------------------------------------------------------------------------
 
-def route(cfg: ModelConfig, router_w, x):
-    """x: (T, D) -> (weights (T,k) f32, idx (T,k) int64, aux_loss scalar)."""
-    scores = torch.matmul(x.float(), router_w.float())
+def route(cfg: ModelConfig, router_w, x, token_groups: Optional[int] = None):
+    """x: (T, D) -> (weights (T,k) f32, idx (T,k) int64, aux_loss scalar).
+    token_groups: a window's tokens, scored group by group."""
+    scores = by_group(lambda x: torch.matmul(x.float(), router_w.float()),
+                      token_groups, x)
     if cfg.router_scale:                       # deepseek: sigmoid + renorm
         probs = torch.sigmoid(scores)
         w, idx = torch.topk(probs, cfg.top_k, dim=-1)
@@ -67,6 +71,13 @@ def gated_ffn(cfg: ModelConfig, wi, wo, x):
     h = torch.einsum("...d,dgf->...gf", x, wi.to(x.dtype))
     y = act_fn(cfg.ffn_act)(h[..., 0, :]) * h[..., 1, :]
     return torch.einsum("...f,fd->...d", y, wo.to(x.dtype))
+
+
+def _shared(cfg: ModelConfig, p: Dict, x, token_groups=None):
+    """The shared experts' FFN (a window's tokens group by group)."""
+    return by_group(lambda x: gated_ffn(cfg, p["shared"]["wi"],
+                                        p["shared"]["wo"], x),
+                    token_groups, x)
 
 
 # ---------------------------------------------------------------------------
@@ -137,24 +148,32 @@ def moe_dense(cfg: ModelConfig, p: Dict, x) -> Tuple[torch.Tensor, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 def moe_grouped(cfg: ModelConfig, p: Dict, x, *, capacity_factor=None,
-                use_kernel: bool = False, impl: str = "auto"
+                use_kernel: bool = False, impl: str = "auto",
+                token_groups: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D).  Every shape depends on T alone (the capacity too), and
-    nothing is read back to the host, so a decode step keeps fixed shapes."""
+    nothing is read back to the host, so a decode step keeps fixed shapes.
+
+    token_groups: module-based batching — x concatenates that many
+    rotation groups' tokens (group-major).  Capacity and keep/drop are
+    then decided per group (``stage_bucket``), so every group's output
+    equals running it alone, while the expert FFN runs once over the
+    whole staged buffer."""
     T, D = x.shape
     NE, K = cfg.num_experts, cfg.top_k
+    G = token_groups or 1
     cf = capacity_factor or cfg.capacity_factor
-    cap = max(1, int(T * K * cf / NE + 0.999))
+    cap = max(1, int((T // G) * K * cf / NE + 0.999))
 
-    w, idx, aux = route(cfg, p["router"], x)
+    w, idx, aux = route(cfg, p["router"], x, token_groups)
     flat_e = idx.reshape(-1)                                     # (T*K,)
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     flat_w = w.reshape(-1)
-    slot, keep = stage_bucket(flat_e, NE, cap)
+    slot, keep = stage_bucket(flat_e, NE, cap, G)
     e_safe = torch.where(keep, flat_e, 0)
-    s_safe = torch.where(keep, slot, cap - 1)
+    s_safe = torch.where(keep, slot, G * cap - 1)
 
-    xbuf = torch.zeros((NE, cap, D), dtype=x.dtype, device=x.device)
+    xbuf = torch.zeros((NE, G * cap, D), dtype=x.dtype, device=x.device)
     xbuf.index_put_((e_safe, s_safe),
                     torch.where(keep[:, None], x[flat_t], 0).to(x.dtype),
                     accumulate=True)
@@ -164,7 +183,7 @@ def moe_grouped(cfg: ModelConfig, p: Dict, x, *, capacity_factor=None,
     y = torch.where(keep[:, None], y, 0) * flat_w[:, None].to(x.dtype)
     out = torch.zeros_like(x).index_add_(0, flat_t, y)
     if cfg.num_shared_experts:
-        out = out + gated_ffn(cfg, p["shared"]["wi"], p["shared"]["wo"], x)
+        out = out + _shared(cfg, p, x, token_groups)
     return out, aux
 
 
@@ -211,25 +230,28 @@ def _dense_subset(cfg: ModelConfig, ep: Dict, x, w, idx, sel, n_act):
 
 def _grouped_subset(cfg: ModelConfig, ep: Dict, x, w, idx, index_map,
                     capacity_factor=None, use_kernel: bool = False,
-                    impl: str = "auto"):
+                    impl: str = "auto", token_groups: Optional[int] = None):
     """Capacity-bucketed grouped compute on a compacted subset.  Capacity
     and keep/drop decisions use the FULL expert count, so drops are those
-    of ``moe_grouped`` on the full set."""
+    of ``moe_grouped`` on the full set.  token_groups: as in
+    ``moe_grouped`` — a disjoint ``cap``-wide span per (group, expert),
+    one grouped FFN per activated expert over the whole window."""
     T, D = x.shape
     NE, K = cfg.num_experts, cfg.top_k
     A = ep["wi"].shape[0]
+    G = token_groups or 1
     cf = capacity_factor or cfg.capacity_factor
-    cap = max(1, int(T * K * cf / NE + 0.999))
+    cap = max(1, int((T // G) * K * cf / NE + 0.999))
 
     flat_e = idx.reshape(-1)
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     flat_w = w.reshape(-1)
     dest = index_map[flat_e].long()            # compact slot, always >= 0
-    slot, keep = stage_bucket(dest, A, cap)
+    slot, keep = stage_bucket(dest, A, cap, G)
     e_safe = torch.where(keep, dest, 0)
-    s_safe = torch.where(keep, slot, cap - 1)
+    s_safe = torch.where(keep, slot, G * cap - 1)
 
-    xbuf = torch.zeros((A, cap, D), dtype=x.dtype, device=x.device)
+    xbuf = torch.zeros((A, G * cap, D), dtype=x.dtype, device=x.device)
     xbuf.index_put_((e_safe, s_safe),
                     torch.where(keep[:, None], x[flat_t], 0).to(x.dtype),
                     accumulate=True)
@@ -241,7 +263,8 @@ def _grouped_subset(cfg: ModelConfig, ep: Dict, x, w, idx, index_map,
 
 
 def moe_paged(cfg: ModelConfig, p: Dict, x, *, fetch_experts, policy=None,
-              max_active: Optional[int] = None):
+              max_active: Optional[int] = None,
+              token_groups: Optional[int] = None):
     """Two-phase MoE step for expert-granular paged weights: run the router
     FIRST, then fetch only the activated experts' spans
     (``fetch_experts(sel (A,), n_act) -> {wi (A,...), wo (A,...)}``) and
@@ -250,14 +273,28 @@ def moe_paged(cfg: ModelConfig, p: Dict, x, *, fetch_experts, policy=None,
     x: (T, D).  Returns (out, aux_loss, counts (E,) int32 — tokens routed
     to each expert, the residency EWMA's observation).  Numerics match
     moe_dense / moe_grouped on the full expert set, so greedy transcripts
-    equal the resident path's.  Nothing is read back to the host."""
+    equal the resident path's.  Nothing is read back to the host.
+
+    token_groups=G (module-based batching): x concatenates G rotation
+    groups' tokens group-major.  The activated set (and the span fetch)
+    covers the union of the groups' routed experts, so each fetched span
+    serves every group's staged tokens in one window, while each group's
+    numbers equal a call of its own; counts is then (G, E)."""
     T, D = x.shape
     NE, K = cfg.num_experts, cfg.top_k
     A = max_active if max_active is not None else min(NE, T * K)
-    w, idx, aux = route(cfg, p["router"], x)
+    w, idx, aux = route(cfg, p["router"], x, token_groups)
     flat_e = idx.reshape(-1)
-    counts = torch.zeros((NE,), dtype=torch.int32, device=x.device)
-    counts.index_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+    ones = torch.ones_like(flat_e, dtype=torch.int32)
+    if token_groups:
+        G = token_groups
+        g_flat = torch.arange(T * K, device=x.device) // (K * (T // G))
+        counts = torch.zeros((G * NE,), dtype=torch.int32, device=x.device)
+        counts.index_add_(0, g_flat * NE + flat_e, ones)
+        counts = counts.reshape(G, NE)
+    else:
+        counts = torch.zeros((NE,), dtype=torch.int32, device=x.device)
+        counts.index_add_(0, flat_e, ones)
     sel, index_map, n_act = activated_experts(idx, NE, A)
     ep = fetch_experts(sel, n_act)
     if "wi_scale" in p:
@@ -268,31 +305,34 @@ def moe_paged(cfg: ModelConfig, p: Dict, x, *, fetch_experts, policy=None,
     if policy is not None and policy.moe_impl == "grouped":
         out = _grouped_subset(cfg, ep, x, w, idx, index_map,
                               use_kernel=policy.use_kernels,
-                              impl=policy.impl)
+                              impl=policy.impl, token_groups=token_groups)
     else:
         out = _dense_subset(cfg, ep, x, w, idx, sel, n_act)
     if cfg.num_shared_experts:
-        out = out + gated_ffn(cfg, p["shared"]["wi"], p["shared"]["wo"], x)
+        out = out + _shared(cfg, p, x, token_groups)
     return out, aux, counts
 
 
 def moe_apply_paged(cfg: ModelConfig, p: Dict, x3, fetch_experts,
-                    policy=None):
+                    policy=None, token_groups: Optional[int] = None):
     """(B, S, D) wrapper around moe_paged (the expert-granular analogue of
-    moe_apply)."""
+    moe_apply).  With token_groups, B is G·ubatch (decode windows), so the
+    flat group-major layout holds."""
     B, S, D = x3.shape
     out, aux, counts = moe_paged(cfg, p, x3.reshape(B * S, D),
-                                 fetch_experts=fetch_experts, policy=policy)
+                                 fetch_experts=fetch_experts, policy=policy,
+                                 token_groups=token_groups)
     return out.reshape(B, S, D), aux, counts
 
 
-def moe_apply(cfg: ModelConfig, p: Dict, x3, policy=None):
+def moe_apply(cfg: ModelConfig, p: Dict, x3, policy=None,
+              token_groups: Optional[int] = None):
     """Dispatch on the execution policy. x3: (B, S, D)."""
     B, S, D = x3.shape
     x = x3.reshape(B * S, D)
     if policy is not None and policy.moe_impl == "grouped":
         out, aux = moe_grouped(cfg, p, x, use_kernel=policy.use_kernels,
-                               impl=policy.impl)
+                               impl=policy.impl, token_groups=token_groups)
     else:
         out, aux = moe_dense(cfg, p, x)
     return out.reshape(B, S, D), aux

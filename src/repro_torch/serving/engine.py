@@ -11,10 +11,31 @@ block-paged arena with a host tier (``kv_paged``).
     lifecycle (free → prefilling → decoding → free) and admits single
     requests into freed slots via Algorithm 2's balance criterion;
   * admission prefills a request at batch 1 and a bucketed prompt width,
-    then copies its KV row into the pool;
+    then copies its KV row into the pool — or, with ``overlap=True``,
+    stages it: the prompt drains through chunks of at most
+    ``prefill_chunk`` tokens on a double-buffered batch-1 scratch, one
+    chunk per tick ahead of the decode chunks, each landing in the pool row
+    at once (``kvcache.insert_slot_span``), so that a long admission does
+    not stall the decoding groups (Algorithm 1's CGOPipe at request level);
   * decode runs one fixed-shape masked chunk of ``decode_chunk`` tokens per
     rotation group (``steps.make_decode_chunk``): finished rows are masked,
     emit nothing and keep their cache position.
+
+Module-based batching (``module_batch=True``, the MoE-Gen direction):
+windows of ``module_groups`` rotation groups decode through one dispatch.
+The groups' slot caches are views of one pool cache, group-major, so a
+window's cache is a view of its groups' rows (``kvcache.slot_rows``),
+written in place; attention, the norms, the router's scores and
+``lm_head`` run group by group (every row computes as in its lockstep
+dispatch, bit for bit on the card too: a product's or a row sum's bits
+can change with the row count), while each MoE layer stages all the
+window's routed tokens into per-(group, expert) capacity spans of one
+buffer: one ``moe_ffn`` launch, and on the expert-paged path one gather
+that reads each activated span once for the whole window, booked per
+window (``ExpertResidency.observe_window``).  A remainder window
+(``num_ubs`` not a multiple of the width) runs lockstep;
+``module_stage_tokens`` narrows the window toward lockstep where the
+staging rows would exceed it.
 
 Block-paged KV (``kv_paged=True``, the paper's KV-offload ratio r_c): the
 full-attention layers' rings become one shared arena of
@@ -57,10 +78,11 @@ final norm and ``lm_head`` stay resident.  ``expert_paged`` with
 Greedy transcripts, slot histories and every ``kv_traffic()`` and
 ``weight_traffic()`` counter equal the JAX engine's on the same weights
 (the parity tests hold the two against each other).  Whole-layer paged
-weights, overlapped admission, module batching, static mode, int8 KV and
-the fault plane are later slices, and so are sampling at a temperature,
-EOS-aware reservations and long-prompt truncation: ``EngineConfig`` keeps
-the JAX package's names for the fields it has, and has no others.
+weights, static mode, int8 KV and the fault plane (with the degradation
+ladder's window rung) are later slices, and so are sampling at a
+temperature, EOS-aware reservations (with ``cache_tokens`` and the budget
+sweep) and long-prompt truncation: ``EngineConfig`` keeps the JAX
+package's names for the fields it has, and has no others.
 """
 from __future__ import annotations
 
@@ -72,6 +94,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import blockpool, offload, paging, residency
+from repro_torch.core.batching import blocks_for_tokens
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import kvcache
 from repro_torch.models.model import ExecPolicy
@@ -87,6 +110,8 @@ class EngineConfig:
     max_seq: int = 128                # ring width; longer requests abort
     eos_id: int = 1
     decode_chunk: int = 8             # tokens per masked decode chunk
+    overlap: bool = False             # staged chunked-prefill admission
+    prefill_chunk: int = 32           # chunk width for overlapped prefill
     # ---------------------------------------- block-granular paged KV (r_c)
     kv_paged: bool = False            # shared block arena + page tables
     block_tokens: int = 16            # ring positions per KV block
@@ -119,6 +144,16 @@ class EngineConfig:
     # the popularity-EWMA top spans (exit at replica_exit × the enter bar)
     replicate_frac: float = 0.0
     replica_exit: float = 0.5
+    # ------------------------------------ module-based batching (MoE-Gen)
+    # decode `module_groups` rotation groups through one dispatch per
+    # window: attention and router run per row as before, and the MoE
+    # layers stage every group's routed tokens against one expert-span
+    # read per layer step
+    module_batch: bool = False
+    module_groups: Optional[int] = None   # groups per window (default: all
+                                      # num_ubs; capped at num_ubs)
+    module_stage_tokens: Optional[int] = None  # staging-buffer row budget:
+    # when G·ubatch would exceed it the window shrinks toward lockstep
 
 
 class _SlotGroup:
@@ -188,21 +223,60 @@ class Engine:
         self._decode_chunk = serve_steps.make_decode_chunk(
             cfg, policy, paged_blocks=self.paged_blocks, eos_id=ecfg.eos_id,
             chunk=ecfg.decode_chunk)
+        # module-based batching: windows of _mg rotation groups decode
+        # through one dispatch; a remainder window runs lockstep
+        self._mg = 1
+        if ecfg.module_batch:
+            mg = max(1, min(ecfg.module_groups or ecfg.num_ubs,
+                            ecfg.num_ubs))
+            if ecfg.module_stage_tokens is not None:
+                # the staging buffer bounds how many groups' routed tokens
+                # accumulate per window; overflow shrinks the window
+                # toward lockstep instead of dropping tokens
+                mg = max(1, min(mg, ecfg.module_stage_tokens // ecfg.ubatch))
+            self._mg = mg
+        self._decode_window = (serve_steps.make_decode_chunk(
+            cfg, policy, paged_blocks=self.paged_blocks, eos_id=ecfg.eos_id,
+            chunk=ecfg.decode_chunk, token_groups=self._mg)
+            if self._mg > 1 else None)
+        self._windows = [list(range(i, min(i + self._mg, ecfg.num_ubs)))
+                         for i in range(0, ecfg.num_ubs, self._mg)]
+        # the dense-equivalent slot pool: the baseline every kv_traffic()
+        # report compares against
+        self._kv_dense_bytes = ecfg.num_ubs * _nbytes(kvcache.init_cache(
+            cfg, ecfg.ubatch, ecfg.max_seq, device="meta"))
         self._kv: Optional[blockpool.BlockPool] = None
         self._kv_arena: Dict[str, Dict] = {}
         self._kv_keys: Tuple[str, ...] = ()
         if ecfg.kv_paged:
             self._init_kv_pool()
         # the persistent slot pool: allocated once, recycled per slot; with
-        # kv_paged the paged period positions live in the shared arena
+        # kv_paged the paged period positions live in the shared arena.
+        # One cache of every group's rows, group-major: each group holds
+        # views of its rows, and a window of consecutive groups is a view
+        self._slot_pool = kvcache.init_cache(
+            cfg, ecfg.num_ubs * ecfg.ubatch, ecfg.max_seq,
+            skip_keys=self._kv_keys, device=self.device)
         self.groups: List[_SlotGroup] = [
-            _SlotGroup(kvcache.init_cache(cfg, ecfg.ubatch, ecfg.max_seq,
-                                          skip_keys=self._kv_keys,
-                                          device=self.device), ecfg.ubatch)
-            for _ in range(ecfg.num_ubs)]
-        # batch-1 admission-prefill cache, reset before every admission
-        self._prefill_scratch = kvcache.init_cache(cfg, 1, ecfg.max_seq,
-                                                   device=self.device)
+            _SlotGroup(c, ecfg.ubatch)
+            for c in kvcache.split_slot_cache(self._slot_pool, ecfg.num_ubs)]
+        # overlapped (staged) admission: PREFILL slots in FIFO order, the
+        # scratch of the one in flight, and two batch-1 scratches (the next
+        # admission's first chunk takes one while the other is reset)
+        self._staged: List = []
+        self._stage_scratch = None
+        self._free_scratches: List[Dict] = []
+        self._prefill_scratch = None
+        if ecfg.overlap:
+            self._prefill_chunk = serve_steps.make_prefill_chunk(
+                cfg, policy, paged_blocks=self.paged_blocks)
+            self._free_scratches = [
+                kvcache.init_cache(cfg, 1, ecfg.max_seq, device=self.device)
+                for _ in range(2)]
+        else:
+            # batch-1 admission-prefill cache, reset before every admission
+            self._prefill_scratch = kvcache.init_cache(
+                cfg, 1, ecfg.max_seq, device=self.device)
         self.steps = 0
         self.tokens_out = 0
 
@@ -281,12 +355,9 @@ class Engine:
         self._kv_gather_steps = 0
         self._kv_gathered_blocks = 0
         self._kv_view_blocks = 0
-        # constant byte terms for kv_traffic(): the dense-equivalent slot
-        # pool (the baseline every paged-KV report compares against), and
-        # what the paged pool holds on the device — the arena, the dense
-        # remainder of the groups and the page tables
-        self._kv_dense_bytes = ecfg.num_ubs * _nbytes(kvcache.init_cache(
-            cfg, ecfg.ubatch, ecfg.max_seq, device="meta"))
+        # constant byte term for kv_traffic(): what the paged pool holds
+        # on the device — the arena, the dense remainder of the groups and
+        # the page tables
         rem = kvcache.init_cache(cfg, ecfg.ubatch, ecfg.max_seq,
                                  skip_keys=self._kv_keys, device="meta")
         self._kv_device_bytes = (_nbytes(self._kv_arena)
@@ -301,13 +372,33 @@ class Engine:
     @torch.no_grad()
     def step(self) -> bool:
         """One engine tick: admit new work into free slots, then decode a
-        `decode_chunk`-token masked chunk per rotation group and recycle
-        the slots that drain.  Returns True if any work was done."""
-        self._admit_continuous()
-        if not self.scheduler.has_live_slots():
+        `decode_chunk`-token masked chunk per rotation group (or per
+        module-batched window of groups) and recycle the slots that drain.
+        With ``overlap`` admission is staged: one prompt chunk is
+        prefilled per tick, ahead of the decode chunks.  Returns True if
+        any work was done."""
+        if self.ecfg.overlap:
+            self._staged.extend(self.scheduler.admit_to_slots())
+            did = self._prefill_tick()
+            # cold pool: nothing decodes yet, so drain prefill chunks back
+            # to back instead of one per idle tick
+            while did and self._staged and not any(
+                    s.state == SlotState.DECODE
+                    for grp in self.scheduler.slots for s in grp):
+                did = self._prefill_tick()
+        else:
+            self._admit_continuous()
+            did = False
+        if not (did or self.scheduler.has_live_slots()):
             return False
-        for gid in range(self.ecfg.num_ubs):
-            self._tick_group(gid)
+        for w in self._windows:                   # CGOPipe rotation
+            if len(w) == self._mg:
+                self._tick_window(w)
+            else:
+                # the remainder groups of a rotation that does not divide
+                # into windows run lockstep, one dispatch each
+                for gid in w:
+                    self._tick_window([gid])
         self.steps += 1
         return True
 
@@ -320,6 +411,14 @@ class Engine:
     def _bucket(self, input_len: int) -> int:
         # bucket the padded prompt length: one prefill shape per bucket
         return min(-(-input_len // 16) * 16, self.ecfg.max_seq)
+
+    def _chunk_bucket(self, rem: int) -> int:
+        # next power of two capped at the full chunk width: mid-prompt
+        # chunks take the full width, the final partial chunk a smaller one
+        w = 1
+        while w < rem:
+            w <<= 1
+        return min(w, self.ecfg.prefill_chunk)
 
     @staticmethod
     def _emit(toks, emitted, row_req):
@@ -346,7 +445,8 @@ class Engine:
             toks[0, :len(eff)] = eff
             scratch = kvcache.reset_slot(self._prefill_scratch, 0)
             logits, single = self._run_prefill(
-                torch.as_tensor(toks, device=self.device), scratch,
+                self._prefill, torch.as_tensor(toks, device=self.device),
+                scratch,
                 torch.tensor([len(eff)], dtype=torch.int32,
                              device=self.device))
             first = int(sample(logits)[0])
@@ -361,8 +461,9 @@ class Engine:
                 self._kv_exec(ops)
                 if not ok:
                     raise RuntimeError("admission exceeds the KV arena floor")
-                kvcache.insert_slot(self._compose_kv(group.cache, slot.gid),
-                                    single, slot.row)
+                kvcache.insert_slot(
+                    self._compose_kv(group.cache, [slot.gid]), single,
+                    slot.row)
             else:
                 kvcache.insert_slot(group.cache, single, slot.row)
             group.last_tok[slot.row] = first
@@ -371,18 +472,79 @@ class Engine:
             else:
                 self.scheduler.start_decode(slot)
 
-    def _run_prefill(self, *args):
-        """Admission prefill, absorbing the expert-paged protocol: one
-        forward pass booked, the residency snapshot taken at dispatch, the
-        activation counts accounted.  Returns (logits, cache)."""
+    def _run_prefill(self, step_fn, *args):
+        """Admission prefill (monolithic or one staged chunk), absorbing
+        the expert-paged protocol: one forward pass booked, the residency
+        snapshot taken at dispatch, the activation counts accounted.
+        Returns (logits, cache)."""
         self._fwd_passes += 1
         if not self.residency:
-            return self._prefill(self.params, *args)
+            return step_fn(self.params, *args)
         snap = self._resident_snap()
-        logits, cache, counts = self._prefill(self.params, *args,
-                                              self._expert_state())
+        logits, cache, counts = step_fn(self.params, *args,
+                                        self._expert_state())
         self._account_counts(counts, snap=snap)
         return logits, cache
+
+    def _prefill_tick(self) -> bool:
+        """Run one chunk of the staged admission at the head of the
+        prefill queue (request-level CGOPipe: admission work interleaves
+        with the groups' decode chunks instead of stalling them).  The
+        chunk runs on a batch-1 scratch and lands in the pool row at once
+        (``kvcache.insert_slot_span``)."""
+        if not self._staged:
+            return False
+        slot = self._staged[0]
+        r = slot.req
+        group = self.groups[slot.gid]
+        if self._stage_scratch is None:          # the head starts fresh
+            self._stage_scratch = self._free_scratches.pop()
+            # clear the previous occupant's remnants once: span inserts
+            # overwrite only their own ring range
+            kvcache.reset_slot(group.cache, slot.row)
+        eff = r.effective_prompt
+        t = slot.prefill_pos
+        rem = len(eff) - t
+        width = self._chunk_bucket(rem)
+        n = min(rem, width)
+        toks = np.zeros((1, width), np.int32)
+        toks[0, :n] = eff[t:t + n]
+        logits, self._stage_scratch = self._run_prefill(
+            self._prefill_chunk, torch.as_tensor(toks, device=self.device),
+            self._stage_scratch,
+            torch.tensor([n], dtype=torch.int32, device=self.device))
+        if self._kv is not None:
+            # only the span's blocks need to be mapped and resident for
+            # the insert; earlier prompt blocks may stay spilled until the
+            # slot decodes (the chunk attends to the scratch, not the pool)
+            idx = self._slot_of(slot)
+            bt = self.ecfg.block_tokens
+            ops, ok, _ = self._kv.ensure_range(
+                idx, t // bt, blocks_for_tokens(t + width, bt), (idx,))
+            self._kv_exec(ops)
+            if not ok:
+                raise RuntimeError("a staged prefill chunk exceeds the KV "
+                                   "arena floor")
+            kvcache.insert_slot_span(
+                self._compose_kv(group.cache, [slot.gid]),
+                self._stage_scratch, slot.row, t, length=width)
+        else:
+            kvcache.insert_slot_span(group.cache, self._stage_scratch,
+                                     slot.row, t, length=width)
+        self.scheduler.prefill_progress(slot, n)
+        if slot.prefill_pos >= len(eff):         # final chunk: first token
+            first = int(sample(logits)[0])
+            r.generated.append(first)
+            group.last_tok[slot.row] = first
+            self._free_scratches.append(
+                kvcache.reset_slot(self._stage_scratch, 0))
+            self._stage_scratch = None
+            self._staged.pop(0)
+            if len(r.generated) >= r.max_new_tokens:
+                self._retire_slot(slot)
+            else:
+                self.scheduler.start_decode(slot)
+        return True
 
     def _retire_slot(self, slot) -> None:
         # no cache reset: the row stays masked while free, and the next
@@ -393,13 +555,24 @@ class Engine:
             self._kv.free_slot(self._slot_of(slot))
         self.scheduler.finish(slot)
 
-    def _tick_group(self, gid: int) -> None:
-        """One rotation group's masked decode chunk."""
-        group = self.groups[gid]
+    def _tick_window(self, gids: List[int]) -> None:
+        """One decode dispatch over the rotation groups `gids`: one group
+        alone (lockstep: attention and expert FFN at the same ubatch), or
+        a module-batched window, whose groups' rows of the slot pool are
+        one view (with one arena composition and a window-wide page
+        table), so that the expert phase inside streams each activated
+        span once for the whole window; the tokens are split back per
+        group.  Rows are independent through attention and the MoE
+        staging reproduces per-group bucketing, so each request's greedy
+        transcript equals the lockstep schedule's."""
+        b, chunk = self.ecfg.ubatch, self.ecfg.decode_chunk
+        window = len(gids) > 1
         if self._kv is not None:
-            # fetch/alloc this group's working set (may preempt)
-            self._kv_prepare_group(gid, self.ecfg.decode_chunk)
-        slots = self.scheduler.slots[gid]
+            # fetch/alloc the working set of every row the dispatch reads
+            # (one protect set for the window; may preempt)
+            self._kv_prepare_group(gids, chunk)
+        slot_rows = [self.scheduler.slots[g] for g in gids]
+        slots = [s for grp in slot_rows for s in grp]
         active = np.array([s.state == SlotState.DECODE for s in slots])
         if not active.any():
             return
@@ -407,57 +580,71 @@ class Engine:
             [s.req.remaining if s.state == SlotState.DECODE else 0
              for s in slots], np.int32)
         dev = self.device
-        cache = group.cache
+        holders = [self.groups[g] for g in gids]
+        # the window's rows of the pool (views): the chunk writes their
+        # rings in place and returns a new "pos", copied back below
+        cache = kvcache.slot_rows(self._slot_pool, gids[0] * b,
+                                  len(gids) * b)
+        pos = cache["pos"]
+        last = np.concatenate([h.last_tok for h in holders])
         if self._kv is not None:
-            self._kv_note_gather(gid, self.ecfg.decode_chunk)
-            cache = self._compose_kv(cache, gid)
+            self._kv_note_gather(gids, chunk)
+            cache = self._compose_kv(cache, gids)
         args = (self.params, cache,
-                torch.as_tensor(group.last_tok[:, None], device=dev),
+                torch.as_tensor(last[:, None], device=dev),
                 torch.as_tensor(active, device=dev),
                 torch.as_tensor(rem, device=dev))
-        self._fwd_passes += self.ecfg.decode_chunk
+        fn = self._decode_window if window else self._decode_chunk
+        self._fwd_passes += chunk
         if self.residency:
             cache, tok, act2, toks, emitted = self._decode_expert(
-                args, group, gid)
+                fn, args, holders, gids)
         else:
-            cache, tok, act2, _, toks, emitted = self._decode_chunk(*args)
-        group.cache = cache
-        group.last_tok = tok[:, 0].cpu().numpy()          # sync
-        act2 = act2.cpu().numpy()
-        self.tokens_out += self._emit(
-            toks.cpu().numpy(), emitted.cpu().numpy(),
-            [s.req if s.state == SlotState.DECODE else None for s in slots])
-        for i, s in enumerate(slots):
-            if s.state == SlotState.DECODE and not act2[i]:
-                self._retire_slot(s)
+            cache, tok, act2, _, toks, emitted = fn(*args)
+        pos.copy_(cache["pos"])
+        tok = tok[:, 0].cpu().numpy()                     # sync
+        act2, toks, emitted = (act2.cpu().numpy(), toks.cpu().numpy(),
+                               emitted.cpu().numpy())
+        for j, (h, grp) in enumerate(zip(holders, slot_rows)):
+            rows = slice(j * b, (j + 1) * b)
+            h.last_tok = tok[rows]
+            self.tokens_out += self._emit(
+                toks[:, rows], emitted[:, rows],
+                [s.req if s.state == SlotState.DECODE else None
+                 for s in grp])
+            for i, s in enumerate(grp):
+                if s.state == SlotState.DECODE and not act2[j * b + i]:
+                    self._retire_slot(s)
         if self._kv is not None and self.ecfg.kv_prefetch:
             # the KV analogue of the router-ahead weight prefetch: stream
-            # the next group's spilled blocks back in transfer_plan slices
-            self._kv_enqueue_prefetch(gid)
-            self._kv_drain_prefetch(gid)
+            # the next window's spilled blocks back in transfer_plan slices
+            self._kv_enqueue_prefetch(gids)
+            self._kv_drain_prefetch(gids)
 
     # ---------------------------------- expert residency (data+control)
-    def _decode_expert(self, args, group, gid: int):
-        """One group's chunk on the expert-paged path.  Every resident span
-        is pinned for the dispatch (the chunk may read any of them from the
-        pool); after the dispatch, the router-ahead set of group gid+1 and
-        the gate predictor's spans for this group's next chunk are queued
-        and this position's slice drains into free slots on the copy
-        stream; once the results are back, the spans are unpinned, the
-        refused part of the slice retried and the counts booked.  On the
-        card the dispatch returns only once the device has reached the
-        chunk's last gather (each gather waits for its plan), so these
-        copies overlap the chunk's tail alone."""
+    def _decode_expert(self, fn, args, holders, gids: List[int]):
+        """One dispatch (a group's chunk, or a window's) on the
+        expert-paged path.  Every resident span is pinned for the dispatch
+        (the chunk may read any of them from the pool); after the
+        dispatch, the router-ahead sets of the next window's groups and
+        the gate predictor's spans for these groups' next chunk are queued
+        and the union of these positions' slices drains into free slots on
+        the copy stream; once the results are back, the spans are
+        unpinned, the refused part of the slice retried and the counts
+        booked (per window: a span streams once however many groups
+        routed to it).  On the card the dispatch returns only once the
+        device has reached the chunk's last gather (each gather waits for
+        its plan), so these copies overlap the chunk's tail alone."""
         snap = self._resident_snap()
         for r in self.residency.values():
             r.pin_resident()
-        cache, tok, act2, _, toks, emitted, counts = self._decode_chunk(
+        cache, tok, act2, _, toks, emitted, counts = fn(
             *args, self._expert_state())
         if self.ecfg.prefetch:
-            self._enqueue_prediction(gid)
+            self._enqueue_prediction(gids)
             if self._predictors:
-                self._enqueue_gate_predictions([group])
-            self._drain_prefetch(gid, retry_refused=True)
+                self._enqueue_gate_predictions(holders)
+            self._drain_prefetch(gids, retry_refused=True)
         tok = tok.cpu()                                   # sync
         # spans that became resident between dispatch and landing: a miss
         # on them books as hidden, as the reference books it (on the card
@@ -468,8 +655,13 @@ class Engine:
             r.unpin_all()
         if self.ecfg.prefetch:
             # landed: retry the refused slice, evictions now allowed
-            self._drain_prefetch(gid, retry_refused=False)
-        self._account_counts(counts, holder=group, snap=snap, hidden=hidden)
+            self._drain_prefetch(gids, retry_refused=False)
+        if len(gids) > 1:
+            self._account_counts(counts, holders=holders, snap=snap,
+                                 hidden=hidden)
+        else:
+            self._account_counts(counts, holder=holders[0], snap=snap,
+                                 hidden=hidden)
         return cache, tok, act2, toks, emitted
 
     def _expert_state(self):
@@ -512,7 +704,7 @@ class Engine:
                 for k, r in self.residency.items()}
 
     def _account_counts(self, counts, holder=None, snap=None,
-                        hidden=None) -> None:
+                        holders=None, hidden=None) -> None:
         """Book a call's expert activation counts ({key: (..., L, E)}): per
         forward pass, hits/misses against the residency snapshot the pass
         read, then demand-admit the missed spans — hottest first, so the
@@ -528,7 +720,12 @@ class Engine:
         evolves across the chunk's passes: a demand-missed span streams
         once and counts as staged for the rest of the chunk, and in-flight
         admissions count resident from the second pass on.  This changes
-        only when bytes are booked, never what is computed."""
+        only when bytes are booked, never what is computed.
+
+        With ``holders`` (a module-batched window) the counts carry a group
+        axis ({key: (..., L, G, E)}): each pass books one union
+        observation per window (``observe_window``), and each group's
+        holder gets its own last-pass prediction."""
         for key, arr in counts.items():
             r = self.residency[key]
             r.begin_chunk()          # refresh the demand-evict victim quota
@@ -539,18 +736,25 @@ class Engine:
             intra = self.ecfg.intra_pass and mask is not None
             cur = mask.copy() if intra else mask
             want: Dict[Tuple[int, int], bool] = {}
-            steps = a.reshape(-1, *a.shape[-2:])          # (n_fwd, L, E)
-            for si, s in enumerate(steps):
+            if holders is not None:
+                steps = a.reshape(-1, *a.shape[-3:])      # (n_fwd, L, G, E)
+                passes = [np.moveaxis(s, 1, 0) for s in steps]  # (G, L, E)
+                observe = r.observe_window
+            else:
+                steps = a.reshape(-1, *a.shape[-2:])      # (n_fwd, L, E)
+                passes, observe = steps, r.observe
+            for si, s in enumerate(passes):
                 if intra and si == 1 and hid is not None:
                     cur = cur | hid   # in-flight admissions have landed
-                missed = r.observe(s > 0, token_counts=s, resident_mask=cur,
-                                   hidden_mask=hid)
+                missed = observe(s > 0, token_counts=s, resident_mask=cur,
+                                 hidden_mask=hid)
                 for pair in missed:
                     want[pair] = True
                     if intra:
                         cur[pair] = True   # streamed once, staged after
                 if gp is not None:
-                    gp.fit_step(s)
+                    for g_counts in (s if holders is not None else [s]):
+                        gp.fit_step(g_counts)
             for l, e in want:
                 # misses fill free slots only; popularity-driven
                 # replacement is the router-ahead prefetch path's job
@@ -562,16 +766,21 @@ class Engine:
                     self._copy_span(key, l, e, slot)
             if holder is not None:
                 holder.pred[key] = steps[-1] > 0
+            if holders is not None:
+                for g, h in enumerate(holders):
+                    h.pred[key] = steps[-1][:, g, :] > 0
 
-    def _next_gids(self, gid: int) -> List[int]:
-        """The rotation group decoding next."""
-        return [(gid + 1) % self.ecfg.num_ubs]
+    def _next_gids(self, gids: List[int]) -> List[int]:
+        """The rotation groups decoding next: those of the window after
+        `gids` (group gid+1 after a lockstep group)."""
+        g0 = (max(gids) + 1) % self.ecfg.num_ubs
+        return [(g0 + j) % self.ecfg.num_ubs for j in range(len(gids))]
 
-    def _enqueue_prediction(self, gid: int) -> None:
-        """Queue the expert set group gid+1's router gated on the last step
-        of its previous chunk (the request-level analogue of Algorithm 1's
-        j+2 weight lookahead), hottest first."""
-        for g in self._next_gids(gid):
+    def _enqueue_prediction(self, gids: List[int]) -> None:
+        """Queue the expert sets the next window's groups' routers gated on
+        the last step of their previous chunk (the request-level analogue
+        of Algorithm 1's j+2 weight lookahead), hottest first."""
+        for g in self._next_gids(gids):
             for key, act in self.groups[g].pred.items():
                 r = self.residency[key]
                 pairs = [(int(l), int(e)) for l, e in zip(*np.nonzero(act))
@@ -611,24 +820,27 @@ class Engine:
                             (*t, "predicted", scores[i] * gp.acc))
                         self._pending_set.add(t)
 
-    def _plan_slice(self, pending: List, gid: int) -> Tuple[List, List]:
-        """This rotation position's ``paging.transfer_plan`` slice of a
-        pending transfer queue; returns (chosen, keep)."""
+    def _plan_slice(self, pending: List, gids: List[int]
+                    ) -> Tuple[List, List]:
+        """The union of these rotation positions' ``paging.transfer_plan``
+        slices of a pending transfer queue (``paging.window_plan``; one
+        position for a lockstep group); returns (chosen, keep)."""
         take = set(paging.window_plan(len(pending), self.ecfg.num_ubs,
-                                      [gid]))
+                                      gids))
         chosen = [t for i, t in enumerate(pending) if i in take]
         keep = [t for i, t in enumerate(pending) if i not in take]
         return chosen, keep
 
-    def _drain_prefetch(self, gid: int, *, retry_refused: bool) -> None:
-        """Copy this rotation position's slice of the pending prefetch
+    def _drain_prefetch(self, gids: List[int], *,
+                        retry_refused: bool) -> None:
+        """Copy these rotation positions' slice of the pending prefetch
         queue into the pool.  While a chunk is in flight every resident
         span is pinned, so only free slots fill; refused entries are
         re-queued to retry after the chunk lands (``retry_refused``) or
         dropped (the cache is hotter than the prediction)."""
         if not self._pending:
             return
-        chosen, keep = self._plan_slice(self._pending, gid)
+        chosen, keep = self._plan_slice(self._pending, gids)
         requeued = []
         for key, l, e, cause, pri in chosen:
             r = self.residency[key]
@@ -649,14 +861,20 @@ class Engine:
         """H2D weight traffic, the JAX engine's dict.  The expert-granular
         path moves every layer's shared span each forward pass (through
         the two-slot buffer) plus the missed and prefetched expert spans
-        that core.residency booked.  The port runs no module batching, so
-        the window fields read as lockstep (one group a window)."""
+        that core.residency booked.  Per phase: ``attn_phase_bytes`` are the
+        shared spans, once per forward pass (a window's pass serves all its
+        groups), ``expert_phase_bytes`` the expert spans (misses and
+        prefetches); ``module_groups_effective`` is the measured
+        amortization, lockstep-equivalent misses over per-window union
+        misses."""
         out: Dict[str, float] = {"fwd_passes": self._fwd_passes,
                                  "tokens_out": self.tokens_out,
-                                 "module_batch": False, "module_groups": 1}
+                                 "module_batch": self._mg > 1,
+                                 "module_groups": self._mg}
         if not self.residency:
             out.update(mode="resident", h2d_bytes=0, attn_phase_bytes=0,
-                       expert_phase_bytes=0, module_groups_effective=1.0)
+                       expert_phase_bytes=0,
+                       module_groups_effective=float(self._mg))
             out["bytes_per_token_amortized"] = 0 / max(1, self.tokens_out)
             return out
         pw = self.paged_blocks
@@ -702,7 +920,8 @@ class Engine:
             # what whole-layer streaming would have moved for the same
             # passes (shared + every expert span every layer)
             whole_layer_bytes=(shared + expert_full) * self._fwd_passes,
-            module_groups_effective=(lockstep / misses if misses else 1.0),
+            module_groups_effective=(lockstep / misses if misses
+                                     else float(self._mg)),
         )
         out["h2d_bytes"] = out["shared_bytes"] + out["expert_bytes"]
         out["attn_phase_bytes"] = out["shared_bytes"]
@@ -715,14 +934,15 @@ class Engine:
     def _slot_of(self, slot) -> int:
         return slot.gid * self.ecfg.ubatch + slot.row
 
-    def _compose_kv(self, dense_cache: Dict, gid: int) -> Dict:
-        """The dispatch cache of slot group `gid`: its dense part plus the
-        shared arena and the group's page table, built on the host from
-        the BlockPool and copied to the device once, shared by every layer
-        (a broadcast view over the layer axis)."""
+    def _compose_kv(self, dense_cache: Dict, gids: List[int]) -> Dict:
+        """The dispatch cache of the slot groups `gids` (one, or a
+        window's, its page table covering every window row, group-major):
+        the dense part plus the shared arena and the page table, built on
+        the host from the BlockPool and copied to the device once, shared
+        by every layer (a broadcast view over the layer axis)."""
         b = self.ecfg.ubatch
         pt = torch.from_numpy(self._kv.device_table(
-            [gid * b + r for r in range(b)])).to(self.device)
+            [g * b + r for g in gids for r in range(b)])).to(self.device)
         ptl = pt.expand((self.cfg.num_periods,) + tuple(pt.shape))
         cache = dict(dense_cache)
         for key, g in self._kv_arena.items():
@@ -762,7 +982,7 @@ class Engine:
             for g in self._kv_arena.values():
                 g["slot_pos"][:, idx] = -1
 
-    def _kv_prepare_group(self, gid: int, chunk: int) -> None:
+    def _kv_prepare_group(self, gids: List[int], chunk: int) -> None:
         """Pre-dispatch guard for the paged pool: every decoding row's
         mapped blocks must be device-resident (attention reads its whole
         history) and the blocks its next `chunk` tokens will write must be
@@ -771,8 +991,10 @@ class Engine:
         group is preempted (recompute preemption — blocks freed, request
         re-queued with its transcript intact).  Retries resume each slot
         at its first unsatisfied block, so every needed block books exactly
-        one hit or miss per preparation."""
-        slots = self.scheduler.slots[gid]
+        one hit or miss per preparation.  A window's groups dispatch in one
+        call, so the protect set spans the whole window (preparing a later
+        group never spills an earlier one's just-prepared blocks)."""
+        slots = [s for g in gids for s in self.scheduler.slots[g]]
         booked: Dict[int, int] = {}          # slot idx -> blocks satisfied
         while True:
             decoding = [s for s in slots if s.state == SlotState.DECODE]
@@ -801,59 +1023,60 @@ class Engine:
             self._kv.free_slot(self._slot_of(victim))
             booked.pop(self._slot_of(victim), None)
 
-    def _kv_enqueue_prefetch(self, gid: int) -> None:
-        """Queue the next rotation group's spilled blocks (the KV analogue
-        of Algorithm 1's weight lookahead)."""
-        for s in self.scheduler.slots[(gid + 1) % self.ecfg.num_ubs]:
-            if s.state != SlotState.DECODE:
-                continue
-            idx = self._slot_of(s)
-            for lb in self._kv.host_resident_blocks(idx):
-                t = (idx, lb)
-                if t not in self._kv_pending_set:
-                    self._kv_pending.append(t)
-                    self._kv_pending_set.add(t)
+    def _kv_enqueue_prefetch(self, gids: List[int]) -> None:
+        """Queue the next window's spilled blocks (the KV analogue of
+        Algorithm 1's weight lookahead; group gid+1's after a lockstep
+        group)."""
+        for g in self._next_gids(gids):
+            for s in self.scheduler.slots[g]:
+                if s.state != SlotState.DECODE:
+                    continue
+                idx = self._slot_of(s)
+                for lb in self._kv.host_resident_blocks(idx):
+                    t = (idx, lb)
+                    if t not in self._kv_pending_set:
+                        self._kv_pending.append(t)
+                        self._kv_pending_set.add(t)
 
-    def _kv_drain_prefetch(self, gid: int) -> None:
-        """Promote this rotation position's ``paging.transfer_plan`` slice
-        of the pending block queue into free arena blocks (no demotions on
-        the prefetch path); entries that became stale or found no free
-        block fall back to the demand path."""
+    def _kv_drain_prefetch(self, gids: List[int]) -> None:
+        """Promote these rotation positions' ``paging.transfer_plan``
+        slices of the pending block queue into free arena blocks (no
+        demotions on the prefetch path); entries that became stale or
+        found no free block fall back to the demand path."""
         if not self._kv_pending:
             return
-        take = set(paging.transfer_plan(len(self._kv_pending),
-                                        self.ecfg.num_ubs)
-                   [gid % self.ecfg.num_ubs])
-        chosen = [t for i, t in enumerate(self._kv_pending) if i in take]
-        self._kv_pending = [t for i, t in enumerate(self._kv_pending)
-                            if i not in take]
+        chosen, self._kv_pending = self._plan_slice(self._kv_pending, gids)
         self._kv_pending_set.difference_update(chosen)
         for idx, lb in chosen:
             op = self._kv.prefetch(idx, lb)
             if op is not None:
                 self._kv_exec([op])
 
-    def _kv_note_gather(self, gid: int, steps: int) -> None:
-        """Book the decode-path KV gather of one dispatched chunk: the
-        paged kernel reads each row's mapped blocks once per decode step
-        (per layer), so gathered bytes scale with the page table's mapped
-        blocks, not with ``max_seq``."""
+    def _kv_note_gather(self, gids: List[int], steps: int) -> None:
+        """Book the decode-path KV gather of one dispatched chunk (of a
+        group or a window): the paged kernel reads each row's mapped
+        blocks once per decode step (per layer), so gathered bytes scale
+        with the page table's mapped blocks, not with ``max_seq``."""
         b = self.ecfg.ubatch
-        rows = [gid * b + r for r in range(b)]
+        rows = [g * b + r for g in gids for r in range(b)]
         mapped = sum(self._kv.n_mapped(r) for r in rows)
         self._kv_gather_steps += steps
         self._kv_gathered_blocks += mapped * steps
         self._kv_view_blocks += len(rows) * self._kv.blocks_per_slot * steps
 
     def kv_traffic(self) -> Dict[str, float]:
-        """Device-KV accounting of the paged pool (``kv_paged``): bytes it
-        occupies on the device against the dense max_seq-wide equivalent,
-        plus the host-tier stream counters (bytes the planned spills and
+        """Device-KV accounting: bytes the KV pool occupies on the device
+        against the dense max_seq-wide equivalent, plus, for the paged
+        pool, the host-tier stream counters (bytes the planned spills and
         fetches copied)."""
+        out: Dict[str, float] = dict(tokens_out=self.tokens_out,
+                                     dense_equiv_bytes=self._kv_dense_bytes)
+        if self._kv is None:
+            out.update(mode="kv_dense", device_kv_bytes=self._kv_dense_bytes,
+                       h2d_bytes=0, d2h_bytes=0)
+            return out
         c = self._kv.counters
-        out: Dict[str, float] = dict(
-            tokens_out=self.tokens_out,
-            dense_equiv_bytes=self._kv_dense_bytes,
+        out.update(
             mode="kv_paged",
             block_tokens=self.ecfg.block_tokens,
             device_blocks=self._kv.device_blocks,
@@ -865,8 +1088,7 @@ class Engine:
             hits=c.hits, misses=c.misses, prefetches=c.prefetches,
             spills=c.spills, allocs=c.allocs, frees=c.frees,
             h2d_bytes=c.h2d_bytes, d2h_bytes=c.d2h_bytes,
-            hit_rate=c.hit_rate,
-        )
+            hit_rate=c.hit_rate)
         bb = self._kv.block_bytes
         steps = max(1, self._kv_gather_steps)
         out.update(

@@ -15,7 +15,9 @@ EOS-aware reservations and degraded-mode shedding are later slices.
 
 Slot lifecycle: FREE → PREFILL → DECODE → FREE.  A slot is one batch row of
 one rotation group's pooled KV cache; `Slot.history` records every request
-id the slot has served (slot recycling is observable).
+id the slot has served (slot recycling is observable).  `Slot.prefill_pos`
+is the staged-admission sub-state: how many prompt tokens overlapped
+admission has chunk-prefilled so far.
 """
 from __future__ import annotations
 
@@ -78,6 +80,7 @@ class Slot:
     state: SlotState = SlotState.FREE
     req: Optional[ServeRequest] = None
     history: List[int] = field(default_factory=list)   # rids served
+    prefill_pos: int = 0              # prompt tokens chunk-prefilled so far
 
 
 class Scheduler:
@@ -158,6 +161,12 @@ class Scheduler:
         assert slot.state == SlotState.PREFILL
         slot.state = SlotState.DECODE
 
+    def prefill_progress(self, slot: Slot, n_tokens: int) -> None:
+        """Record that `n_tokens` more prompt tokens of the staged
+        admission have been chunk-prefilled into the slot's cache row."""
+        assert slot.state == SlotState.PREFILL
+        slot.prefill_pos += n_tokens
+
     def preempt(self, slot: Slot) -> None:
         """Evict a decoding request: free its slot and re-queue it at its
         FCFS position (every queued request was submitted later than any
@@ -176,6 +185,7 @@ class Scheduler:
         the next admission's slot-insert fully overwrites it."""
         slot.state = SlotState.FREE
         slot.req = None
+        slot.prefill_pos = 0
 
     def finish(self, slot: Slot) -> None:
         """Request completed (quota met or EOS): mark it done and return

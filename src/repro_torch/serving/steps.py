@@ -1,6 +1,8 @@
 """Serving step functions of the PyTorch port (``repro/serving/steps.py``):
-the batch-1 admission prefill and the masked multi-token ``decode_chunk``
-of the continuous-batching engine.
+the batch-1 admission prefill, its chunked form for overlapped admission
+(``prefill_chunk``) and the masked multi-token ``decode_chunk`` of the
+continuous-batching engine.  Prefill, monolithic or chunked, always runs
+on a dense batch-1 scratch; the paged pool is written by the slot inserts.
 
 Expert-granular paging (a ``core.paging.PagedWeights`` with expert
 manifests as ``paged_blocks``) changes the step signatures: each step takes
@@ -54,9 +56,40 @@ def make_prefill_fill_step(cfg: ModelConfig,
     return prefill_step
 
 
+def make_prefill_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
+                       *, paged_blocks=None) -> Callable:
+    """Chunked-prefill admission step (the overlap path): one fixed-width
+    chunk of a prompt at the offset in cache["pos"], its KV written into
+    the ring (in place), its logits taken at its last true position.
+
+    (params, tokens (B,C), cache, fill_len (B,) int32) -> (logits, cache)
+
+    `fill_len` is the chunk's true token count (< C only for the final
+    chunk), so the call covering the end of the prompt yields the logits
+    a monolithic prefill gives there.  The cache's pos advances by
+    fill_len.  Expert-granular: a trailing ``expert_state`` argument, and
+    the counts {key: (L, E)} as a third output."""
+
+    expert = _expert_granular(paged_blocks)
+
+    def prefill_chunk(params, tokens, cache, fill_len, expert_state=None):
+        out = forward(cfg, params, tokens, cache=cache, mode="chunk_prefill",
+                      policy=policy, paged_blocks=paged_blocks,
+                      fill_len=fill_len, expert_state=expert_state)
+        idx = torch.clamp(fill_len - 1, min=0).long()
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        logits = unembed(cfg, params, out["hidden"][rows, idx])
+        if expert:
+            return logits, out["cache"], out["expert_counts"]
+        return logits, out["cache"]
+
+    return prefill_chunk
+
+
 def make_decode_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
                       *, paged_blocks=None, eos_id: int = 1,
-                      chunk: int = 8) -> Callable:
+                      chunk: int = 8,
+                      token_groups: Optional[int] = None) -> Callable:
     """Masked multi-token decode for the slot-pool engine: `chunk` decode
     steps with a per-row *active* mask, so drained / free slots are carried
     along at fixed shape without emitting tokens or advancing their cache
@@ -77,7 +110,13 @@ def make_decode_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
     Expert-granular paging adds a trailing ``expert_state`` argument (the
     residency snapshot, constant across the chunk) and a trailing
     ``counts`` output ({key: (chunk, L, E)}, per step, so the host books
-    each step's activations against the snapshot it read)."""
+    each step's activations against the snapshot it read).
+
+    token_groups=G (module-based batching): B is G·ubatch, group-major —
+    the engine concatenates G rotation groups' slot caches, and the MoE
+    FFN stages all G groups' routed tokens against one expert-span read
+    per layer step; counts then gains a group axis ({key: (chunk, L, G,
+    E)})."""
 
     expert = _expert_granular(paged_blocks)
 
@@ -87,8 +126,10 @@ def make_decode_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
             pos0 = cache["pos"]
             out = forward(cfg, params, tok, cache=cache, mode="decode",
                           policy=policy, paged_blocks=paged_blocks,
-                          expert_state=expert_state)
-            logits = unembed(cfg, params, out["hidden"][:, -1])
+                          expert_state=expert_state,
+                          token_groups=token_groups)
+            logits = unembed(cfg, params, out["hidden"][:, -1],
+                             token_groups)
             nxt = sample(logits)
             cache = out["cache"]
             cache["pos"] = torch.where(active, cache["pos"], pos0)
