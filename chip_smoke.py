@@ -58,6 +58,11 @@ Phases, each printing JSON lines:
                    about two requests in the arena, so a second run (8
                    requests, 128 new tokens, the arena at its floor of one
                    slot) drives spills and fetches under staged admission.
+     serve_budget — ``serve_paged``'s settings and prompts under EOS-aware
+                   reservations (``reserve_mode="ewma"``) with a per-group
+                   budget of 2048 tokens, quotas of 8 and 128 in turn:
+                   ``enforce_budget`` must preempt, every request must
+                   complete; prints the blocks swept back to the arena.
   5. trace       — one more serving window of each engine under
                    torch.profiler: device time by kernel family (copies
                    between the arena and the host tier included) and the
@@ -71,6 +76,11 @@ Phases, each printing JSON lines:
                    weights packed into pinned host stores and served
                    expert-paged (a pool of r_w 0.25 of the spans); its
                    greedy transcripts must equal the dense engine's.
+                   ``check_expert_kv``: those stores over ``serve_paged``'s
+                   arena (r_c 0.4) in lockstep, on 16 prompts of 448..640
+                   tokens that overflow it, against a fresh KV-paged
+                   engine: transcripts and the whole ``kv_traffic()``
+                   equal, spills and expert misses required.
   7. serve_expert — the mixtral engines are released; mixtral-8x7b at full
                    width and the deepest cut of its 32 layers that the
                    host holds (all 32 are ~93 GB of bf16 weights, more
@@ -89,8 +99,24 @@ Phases, each printing JSON lines:
                    the same stores, depth and pool ratio serves the same 8
                    requests: its greedy transcripts must equal
                    ``serve_expert``'s, with fewer bytes read over the link
-                   by the gather; then a trace window of it, and the stores
-                   are released.
+                   by the gather; then a trace window of it.
+     serve_expert_kv — both offload ratios, the paper's setting: the same
+                   stores and requests through windows at r_w 0.5 over a
+                   block-paged KV arena of r_c 0.15 with its pinned host
+                   tier (reckoned into the MemAvailable rule): the arena
+                   must spill and fetch, every request complete; prints
+                   how many transcripts equal ``serve_expert_module``'s.
+                   Then the stores are released.
+     policy      — HRM's policy search for mixtral-8x7b at full depth on
+                   the ``h100`` preset, its link this run's ``h2d_copy``
+                   and its CPU capacity MemAvailable, over
+                   ``serve_expert``'s workload: the best policy, the best
+                   with attention on the card (required feasible) beside
+                   the hand-set r_w 0.5, HRM's modelled link bytes beside
+                   ``serve_expert``'s measured and booked ones, and a timed
+                   probe of the host's copy rate and f32 matmul rate.
+     launch      — the port's ``launch/serve.py --smoke --hw h100`` on the
+                   card: every request done.
   8. serve_mla   — deepseek-v3-671b at full width with the depth cut from
                    61 to 5 layers (its 3 dense-FFN prologue layers and 2
                    MoE layers, 53.2 GB of bf16 weights, every weight on the
@@ -148,6 +174,21 @@ SERVE_EXPERT = dict(ubatch=8, num_ubs=2, max_seq=512, decode_chunk=8,
                     expert_paged=True, w_gpu_ratio=0.5)
 EXPERT_REQUESTS, EXPERT_PROMPT_LENS, EXPERT_NEW_TOKENS = 8, (32, 256), 32
 MIN_EXPERT_LAYERS = 8         # the deepest cut serve_expert accepts
+# Both offload ratios at once (serve_expert_kv): windows, and an arena of
+# 0.15 of the 512 blocks (77), below the ~90 the 8 requests' rows need
+# together, so that it spills, fetches and preempts.
+SERVE_EXPERT_KV = {**SERVE_EXPERT, "module_batch": True, "kv_paged": True,
+                   "block_tokens": 16, "kv_gpu_ratio": 0.15}
+# check_expert_kv: 16 prompts of 448..640 tokens overflow serve_paged's
+# arena (at least 464 blocks of 410); the check phase's 8 prompts of
+# 128..448 tokens hold ~150 and never spill
+CHECK_KV_REQUESTS, CHECK_KV_PROMPT_LENS = 16, (448, 640)
+# EOS-aware reservations (serve_budget): serve_paged's settings and prompts
+# with a quarter of each group's 8192-token slice as its budget; quotas of
+# 8 and 128 in turn stand in for requests that stop early, so the EWMA
+# under-reserves the long ones and enforce_budget preempts them
+SERVE_BUDGET = {**SERVE_PAGED, "reserve_mode": "ewma", "cache_tokens": 2048}
+BUDGET_NEW_TOKENS = (NEW_TOKENS // 8, 2 * NEW_TOKENS)
 HOST_MARGIN = 1.2             # MemAvailable must hold the stores + 20 %
 HOST_RESERVE = 20 << 30       # ... and leave 20 GiB beside them
 # bf16 tolerances.  A kernel and its plain version both compute in f32 from
@@ -1042,9 +1083,11 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
     """Submit `n_requests` seeded prompts and run the engine until idle,
     with every kernel's launch count set to 0 just before and read just
     after, and admission prefill (monolithic, or the staged chunks of
-    overlapped admission) timed apart (synchronized).  Checks that every
-    request finished with in-range tokens.  Returns the prompts, the
-    numbers and the transcripts in submission order."""
+    overlapped admission) timed apart (synchronized).  `new_tokens` is
+    every request's quota, or a tuple of quotas the requests take in
+    turn.  Checks that every request finished with in-range tokens.
+    Returns the prompts, the numbers and the transcripts in submission
+    order."""
     prefill_s = [0.0]
     step_name = "_prefill_chunk" if eng.ecfg.overlap else "_prefill"
     inner = getattr(eng, step_name)
@@ -1061,7 +1104,10 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
     rng = np.random.default_rng(seed)
     lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests)
     prompts = [rng.integers(2, eng.cfg.vocab_size, n) for n in lens]
-    rids = [eng.submit(p, new_tokens) for p in prompts]
+    quotas = (new_tokens if isinstance(new_tokens, tuple)
+              else (new_tokens,))
+    quota = [quotas[i % len(quotas)] for i in range(n_requests)]
+    rids = [eng.submit(p, q) for p, q in zip(prompts, quota)]
     torch.cuda.synchronize()
     tokens0, steps0 = eng.tokens_out, eng.steps
     ops.reset_launch_counts()
@@ -1074,9 +1120,9 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
     reqs = [eng.scheduler.requests[r] for r in rids]
     require(all(r.done and not r.aborted for r in reqs),
             "not every request finished")
-    for r in reqs:
+    for r, q in zip(reqs, quota):
         toks = out[r.rid]
-        require(len(toks) == new_tokens or (toks and toks[-1] == 1),
+        require(len(toks) == q or (toks and toks[-1] == 1),
                 f"request {r.rid}: {len(toks)} tokens")
         require(all(0 <= t < eng.cfg.vocab_size for t in toks),
                 f"request {r.rid}: token out of range")
@@ -1201,7 +1247,7 @@ def phase_serve_paged(torch, np, ops, params):
             f"a kernel of the paged path never launched: {launches}")
     require(launches["gqa_decode"] == 0,
             f"the paged path ran the dense decode kernel: {launches}")
-    return eng, launches, outs
+    return eng, launches, outs, res
 
 
 def phase_serve_overlap(torch, np, ops, params, want):
@@ -1279,6 +1325,54 @@ def phase_serve_overlap(torch, np, ops, params, want):
           "layers": LAYERS, "engine": spill, **res, "kv_traffic": traffic})
     require(traffic["spills"] > 0 and traffic["misses"] > 0,
             f"the host tier was not exercised under overlap: {traffic}")
+    return launches
+
+
+def phase_serve_budget(torch, np, ops, params, paged_res):
+    """``serve_paged``'s weights, settings and prompts under EOS-aware
+    reservations (``reserve_mode="ewma"``) with a tight per-group budget
+    (``SERVE_BUDGET``): the EWMA of finished lengths under-reserves the
+    long requests, so ``enforce_budget`` must preempt (recompute
+    preemption) and the engine sweeps the preempted slots' blocks back to
+    the arena; every request must still complete its quota."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.scheduler import SlotState
+
+    cfg = dataclasses.replace(_mixtral(), num_layers=LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, EngineConfig(**SERVE_BUDGET),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    swept = {"blocks": 0, "slots": 0}
+    sweep = eng._kv_sweep
+
+    def counted_sweep():
+        for grp in eng.scheduler.slots:
+            for s in grp:
+                n = eng._kv.n_mapped(eng._slot_of(s))
+                if s.state is SlotState.FREE and n:
+                    swept["blocks"] += n
+                    swept["slots"] += 1
+        sweep()
+    eng._kv_sweep = counted_sweep
+    try:
+        _, res, _ = serve_run(torch, np, eng, ops, PAGED_PROMPT_LENS,
+                              N_REQUESTS, SEED + 2, BUDGET_NEW_TOKENS)
+    finally:
+        eng._kv_sweep = sweep
+    preempted = sum(r.preemptions for r in eng.scheduler.requests.values())
+    emit({"phase": "serve_budget", "model": "mixtral-8x7b",
+          "layers": LAYERS, "engine": SERVE_BUDGET, **res,
+          "decode_tok_per_s_serve_paged": paged_res["decode_tok_per_s"],
+          "preemptions": preempted, "swept": swept,
+          "gen_len_ewma": eng.scheduler.gen_ewma.value,
+          "kv_traffic": eng.kv_traffic()})
+    launches = res["launches"]
+    require(preempted > 0, "the tight budget never preempted")
+    require(all(launches[k] > 0 for k in
+                ("moe_ffn", "paged_gqa_decode", "flash_prefill")),
+            f"a kernel of the budget path never launched: {launches}")
     return launches
 
 
@@ -1367,11 +1461,13 @@ def phase_check_overlap(torch, cfg, params, prompts, eng):
 
 
 def phase_trace(torch, np, eng, label, prompt_lens, n_requests,
-                new_tokens=NEW_TOKENS // 2):
+                new_tokens=NEW_TOKENS // 4):
     """A separate, profiled serving window on an engine: device time by
     kernel family (copies between the arena and the host tier included)
     and the device's busy share of the window's wall time, profiler on.
-    The serve phases' numbers are taken with the profiler off."""
+    The serve phases' numbers are taken with the profiler off.  The
+    windows are short (two decode chunks a group; one on the expert-paged
+    paths): the profiler's processing takes several times the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1560,6 +1656,83 @@ def phase_check_expert(torch, np, eng, engine_prompts, want):
         e.paged_blocks.release()
 
 
+def phase_check_expert_kv(torch, np, ops, eng):
+    """Both offload paths at once on the 4-layer ``serve`` weights: packed
+    into pinned host stores and served expert-paged (a pool of r_w 0.25)
+    over ``serve_paged``'s block-paged arena (r_c 0.4), in lockstep, on
+    ``CHECK_KV_REQUESTS`` prompts that overflow the arena.  A fresh engine
+    with ``serve_paged``'s settings serves the same prompts first.  The
+    greedy transcripts must be equal token for token, and so must the
+    whole ``kv_traffic()`` (expert paging does not touch the KV plan);
+    the arena must spill, the pool must miss, and the run must launch
+    ``moe_ffn``, ``paged_gqa_decode``, ``expert_gather`` and
+    ``flash_prefill``."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    rng = np.random.default_rng(SEED + 9)
+    lens = rng.integers(CHECK_KV_PROMPT_LENS[0], CHECK_KV_PROMPT_LENS[1] + 1,
+                        CHECK_KV_REQUESTS)
+    prompts = [rng.integers(2, eng.cfg.vocab_size, n) for n in lens]
+    settings = {**SERVE_PAGED, "expert_paged": True, "w_gpu_ratio": 0.25}
+    runs = {}
+    for name, st in (("kv", SERVE_PAGED), ("expert_kv", settings)):
+        e = Engine(eng.cfg, eng.params, EngineConfig(**st),
+                   ExecPolicy(moe_impl="grouped", use_kernels=True),
+                   device=DEVICE)
+        try:
+            rids = [e.submit(p, NEW_TOKENS // 4) for p in prompts]
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = e.run_until_idle()
+            torch.cuda.synchronize()
+            runs[name] = {
+                "out": [out[r] for r in rids],
+                "wall_s": time.perf_counter() - t0,
+                "launches": ops.launch_counts(),
+                "done": all(e.scheduler.requests[r].done for r in rids),
+                "preemptions": sum(e.scheduler.requests[r].preemptions
+                                   for r in rids),
+                "kv_traffic": e.kv_traffic(),
+                "weight_traffic": e.weight_traffic()}
+        finally:
+            if e.paged_blocks is not None:
+                e.paged_blocks.release()
+            del e
+    kv, pair = runs["kv"], runs["expert_kv"]
+    w = pair["weight_traffic"]
+    emit({"phase": "check_expert_kv", "layers": eng.cfg.num_layers,
+          "engine": settings, "requests": len(prompts),
+          "prompt_tokens": int(lens.sum()),
+          "new_tokens_each": NEW_TOKENS // 4,
+          "identical_requests": sum(a == b for a, b in
+                                    zip(pair["out"], kv["out"])),
+          "agree_tokens": sum(x == y for a, b in zip(pair["out"], kv["out"])
+                              for x, y in zip(a, b)),
+          "total_tokens": sum(len(a) for a in kv["out"]),
+          "kv_traffic_equal": pair["kv_traffic"] == kv["kv_traffic"],
+          "wall_s": [kv["wall_s"], pair["wall_s"]],
+          "preemptions": [kv["preemptions"], pair["preemptions"]],
+          "launches": pair["launches"],
+          "kv_traffic": pair["kv_traffic"],
+          "weight_traffic": {k: w[k] for k in (
+              "hits", "misses", "prefetches", "evictions", "h2d_bytes")}})
+    require(kv["done"] and pair["done"], "not every request finished")
+    require(pair["out"] == kv["out"], "expert-paged + KV-paged greedy "
+                                      "transcripts differ from the "
+                                      "KV-paged engine's")
+    require(pair["kv_traffic"] == kv["kv_traffic"],
+            "expert paging changed the KV plan")
+    require(pair["kv_traffic"]["spills"] > 0 and w["misses"] > 0,
+            f"an offload tier was not exercised: {pair['kv_traffic']}")
+    launches = pair["launches"]
+    require(all(launches[k] > 0 for k in ("moe_ffn", "paged_gqa_decode",
+                                          "expert_gather", "flash_prefill")),
+            f"a kernel of the two-tier path never launched: {launches}")
+    return launches
+
+
 def host_peak_rss() -> int:
     """The process's peak resident host memory so far, in bytes."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
@@ -1585,6 +1758,7 @@ def phase_serve_expert(torch, np, ops):
     Returns the engine, its launches, the stores (kept for
     ``phase_serve_expert_module``) and its numbers."""
     from repro_torch.core import offload, paging
+    from repro_torch.models import kvcache
     from repro_torch.models.params import (abstract_params, count_params,
                                            init_params, param_defs)
     from repro_torch.serving.engine import EngineConfig
@@ -1598,13 +1772,21 @@ def phase_serve_expert(torch, np, ops):
     per_layer = sum(t.nbytes for t in (*probe.pages.values(),
                                        *probe.expert_pages.values()))
     del probe
+    # serve_expert_kv's host tier holds every KV block of every layer; the
+    # pinned allocator may round each store up to twice its bytes
+    kv = SERVE_EXPERT_KV
+    kv_blocks = (kv["num_ubs"] * kv["ubatch"] * kv["max_seq"]
+                 // kv["block_tokens"])
+    kv_host = 2 * sum(a.nbytes for g in kvcache.init_paged_arena(
+        one, kv_blocks, kv["block_tokens"], device="meta").values()
+        for a in g.values())
     avail = host_mem_available()
     room = min(avail / HOST_MARGIN, avail - HOST_RESERVE)
-    layers = min(full.num_layers, int(room // per_layer))
+    layers = min(full.num_layers, int(room // (per_layer + kv_host)))
     require(layers >= MIN_EXPERT_LAYERS,
             f"MemAvailable {avail} holds {layers} layers of {per_layer} "
-            f"bytes with 20 % and 20 GiB to spare; serve_expert needs "
-            f"{MIN_EXPERT_LAYERS}")
+            f"+ {kv_host} bytes with 20 % and 20 GiB to spare; "
+            f"serve_expert needs {MIN_EXPERT_LAYERS}")
     cfg = dataclasses.replace(full, num_layers=layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1628,7 +1810,8 @@ def phase_serve_expert(torch, np, ops):
     pinned = offload.pinned_bytes()
     stores = {"cfg": cfg, "params": params, "pw": pw, "layers": layers,
               "of_layers": full.num_layers, "params_count": count_params(cfg),
-              "store_bytes_per_layer": per_layer, "mem_available": avail,
+              "store_bytes_per_layer": per_layer,
+              "kv_host_bytes_per_layer": kv_host, "mem_available": avail,
               "pinned_bytes": pinned, "pin_s": pin_s, "build_s": build_s}
     eng, launches, res = serve_expert_engine(torch, np, ops, stores,
                                              SERVE_EXPERT, "serve_expert")
@@ -1685,22 +1868,28 @@ def serve_expert_engine(torch, np, ops, stores, settings, phase):
           "layers": stores["layers"],
           "of_layers": stores["of_layers"],
           "params": stores["params_count"],
-          **{k: stores[k] for k in ("store_bytes_per_layer", "mem_available",
-                                    "pinned_bytes", "pin_s", "build_s")},
+          **{k: stores[k] for k in ("store_bytes_per_layer",
+                                    "kv_host_bytes_per_layer",
+                                    "mem_available", "pinned_bytes", "pin_s",
+                                    "build_s")},
           "pool_spans": sum(r.capacity for r in eng.residency.values()),
           "pool_bytes": sum(p.nbytes for p in eng._expert_pool.values()),
           "engine": {**settings, "page_elems": page_elems},
           **{k: v for k, v in res.items() if k != "transcripts"},
           "host_peak_rss": host_peak_rss(),
-          "weight_traffic": traffic})
+          "preemptions": sum(r.preemptions
+                             for r in eng.scheduler.requests.values()),
+          "weight_traffic": traffic, "kv_traffic": eng.kv_traffic()})
     require(traffic["hits"] > 0 and traffic["misses"] > 0
             and traffic["prefetches"] > 0,
             f"the residency pool was not exercised: {traffic}")
     require(gather_host_bytes > 0, "the gather read nothing from the host")
     launches = res["launches"]
+    decode = "paged_gqa_decode" if settings.get("kv_paged") else "gqa_decode"
     require(all(launches[k] > 0 for k in
-                ("expert_gather", "moe_ffn", "gqa_decode", "flash_prefill")),
+                ("expert_gather", "moe_ffn", decode, "flash_prefill")),
             f"a kernel of the expert-paged path never launched: {launches}")
+    res["weight_traffic"] = traffic
     return eng, launches, res
 
 
@@ -1736,7 +1925,151 @@ def phase_serve_expert_module(torch, np, ops, stores, base):
     require(res["gather_host_bytes"] < base["gather_host_bytes"],
             f"the windows read no fewer bytes over the link: "
             f"{res['gather_host_bytes']} vs {base['gather_host_bytes']}")
+    return eng, launches, res
+
+
+def phase_serve_expert_kv(torch, np, ops, stores, module_res):
+    """The paper's setting with both offload ratios: ``serve_expert``'s
+    stores, depth and requests through windows at r_w 0.5 over a
+    block-paged KV arena too small for the requests' rows
+    (``SERVE_EXPERT_KV``), with its pinned host tier.  The arena must
+    spill and fetch, the gather must read from the host, and every
+    request must complete.  How many transcripts equal
+    ``serve_expert_module``'s is printed, not required: a window under KV
+    preemption re-admits requests, and a preemption changes who shares a
+    capacity bucket."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng, launches, res = serve_expert_engine(torch, np, ops, stores,
+                                             SERVE_EXPERT_KV,
+                                             "serve_expert_kv")
+    kv = eng.kv_traffic()
+    emit({"phase": "serve_expert_kv_vs_serve_expert_module",
+          "identical_requests": sum(
+              a == b for a, b in zip(res["transcripts"],
+                                     module_res["transcripts"])),
+          "requests_total": len(module_res["transcripts"]),
+          "decode_tok_per_s": [module_res["decode_tok_per_s"],
+                               res["decode_tok_per_s"]],
+          "prefill_s": [module_res["prefill_s"], res["prefill_s"]],
+          "gather_host_bytes": [module_res["gather_host_bytes"],
+                                res["gather_host_bytes"]],
+          "kv_spills": kv["spills"], "kv_misses": kv["misses"],
+          "preemptions": sum(r.preemptions
+                             for r in eng.scheduler.requests.values())})
+    require(kv["spills"] > 0 and kv["misses"] > 0,
+            f"the KV host tier was not exercised: {kv}")
     return eng, launches
+
+
+def host_probe(torch) -> dict:
+    """Timed rates of this machine's host, for HRM's CPU level: a 1 GiB
+    float32 tensor copy (bytes read + written per second) and a 4096^3
+    float32 matmul (FLOP/s), each the best of 3 after a warm-up, on the
+    threads PyTorch uses by default."""
+    x = torch.ones(1 << 28, dtype=torch.float32)
+    y = torch.empty_like(x)
+    a = torch.randn(4096, 4096)
+    copy_s, mm_s = [], []
+    for _ in range(4):
+        t = time.perf_counter()
+        y.copy_(x)
+        copy_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        torch.mm(a, a)
+        mm_s.append(time.perf_counter() - t)
+    return {"threads": torch.get_num_threads(),
+            "copy_Bps": 2 * x.nbytes / min(copy_s[1:]),
+            "f32_matmul_flops": 2 * 4096 ** 3 / min(mm_s[1:])}
+
+
+def phase_policy(torch, records, stores, expert_res):
+    """HRM's policy search for the card: the ``h100`` preset with this
+    run's pinned host-to-device rate (``h2d_copy``) as its link, read
+    through ``hrm.with_measured_links``, and MemAvailable (read before
+    ``serve_expert`` pinned its stores) as its CPU capacity; mixtral-8x7b
+    at its full 32 layers, ``kv_paged``, module groups 1 and 2, and
+    ``serve_expert``'s workload (its mean prompt length, 32 new tokens).  Prints the best policy and the best with
+    attention on the card (the engine runs attention there only) beside
+    the r_w 0.5 set here by hand, and HRM's modelled link bytes for
+    ``serve_expert``'s own settings beside what its gather moved and what
+    ``weight_traffic()`` booked.  A feasible GPU-attention policy is
+    required; nothing is claimed from it."""
+    from repro_torch.core import hrm
+    from repro_torch.core import policy as pol
+
+    h2d = next(r for r in records if r["name"] == "expert_gather")[
+        "bound_rates"]["h2d_GBps_measured"] * 1e9
+    path = os.path.join(ROOT, "build", "h2d_transfer.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"h2d_pinned_bytes_per_s": h2d}, f)
+    hw = hrm.with_measured_links(hrm.preset("h100"), path)
+    # the host's memory before serve_expert pinned its stores
+    avail = stores["mem_available"]
+    hw = hrm.Hardware(tuple(dataclasses.replace(lv, capacity=float(avail))
+                            if lv.name == "cpu" else lv for lv in hw.levels),
+                      hw.links, name=hw.name)
+    probe = host_probe(torch)
+    cfg = _mixtral()
+    wl = pol.Workload(round(expert_res["prompt_tokens"]
+                            / expert_res["requests"]), EXPERT_NEW_TOKENS)
+    t0 = time.perf_counter()
+    res = pol.search(cfg, hw, wl, kv_paged=True, module_groups_grid=(1, 2))
+    search_s = time.perf_counter() - t0
+
+    def show(r):
+        return None if r is None else {
+            "policy": dataclasses.asdict(r["policy"]),
+            **{k: r[k] for k in ("throughput", "t_layer", "t_prefill",
+                                 "t_io", "t_gpu", "t_cpu", "comm_bytes",
+                                 "mem_gpu", "mem_cpu")}}
+    # HRM's link bytes for what serve_expert ran: one lockstep group of
+    # `ubatch` rows a pass, r_w 0.5, every KV block on the card
+    served = dataclasses.replace(cfg, num_layers=stores["layers"])
+    ub = SERVE_EXPERT["ubatch"]
+    mine = pol.Policy(ub, ub, True, True, SERVE_EXPERT["w_gpu_ratio"], 1.0)
+    lat = hrm.layer_latency(hw, hrm.LayerWorkload.decode(
+        served, ub, wl.avg_ctx), mine)
+    traffic = expert_res["weight_traffic"]
+    passes = traffic["fwd_passes"]
+    gpu_attn = res["best_gpu_attn"]
+    emit({"phase": "policy", "hardware": {
+              "name": hw.name, "link_cpu_gpu_Bps": hw.link_bw("cpu", "gpu"),
+              "levels": [dataclasses.asdict(lv) for lv in hw.levels]},
+          "host_probe": probe, "workload": dataclasses.asdict(wl),
+          "search_s": search_s, "best": show(res["best"]),
+          "best_gpu_attn": show(gpu_attn),
+          "w_gpu_ratio": {"best_gpu_attn": gpu_attn["policy"].w_gpu_ratio,
+                          "set_by_hand": SERVE_EXPERT["w_gpu_ratio"]},
+          "kv_gpu_ratio_best_gpu_attn": gpu_attn["policy"].kv_gpu_ratio,
+          "link_bytes": {
+              "modelled_per_layer_pass": lat["comm_bytes"],
+              "layers": stores["layers"], "passes": passes,
+              "modelled": lat["comm_bytes"] * stores["layers"] * passes,
+              "gather_measured": expert_res["gather_host_bytes"],
+              "booked": traffic["h2d_bytes"]}})
+    require(gpu_attn is not None and gpu_attn["policy"].attn_on_gpu,
+            "no feasible policy with attention on the card")
+
+
+def phase_launch(torch, ops):
+    """The port's serve launcher, as a user runs it, on the card:
+    ``repro_torch.launch.serve --smoke --hw h100`` (HRM advice for the full
+    model on the H100 preset, then synthetic requests through the engine
+    on the smoke config); its JSON line must report every request done."""
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = serve.main(["--smoke", "--hw", "h100"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    emit({"phase": "launch", **res, "launches": launches})
+    require(res["requests"] > 0 and res["done"] == res["requests"],
+            f"the launcher left requests undone: {res}")
+    require(res["device"].startswith("cuda"), "the launcher ran off the card")
+    return launches
 
 
 def phase_serve_mla(torch, np, ops):
@@ -1866,15 +2199,18 @@ def main() -> int:
     eng, prompts, launches, serve_outs = phase_serve(torch, np, ops)
     launches_module = phase_serve_module(torch, np, ops, eng.params,
                                          serve_outs, launches)
-    eng_paged, launches_paged, paged_outs = phase_serve_paged(
+    eng_paged, launches_paged, paged_outs, paged_res = phase_serve_paged(
         torch, np, ops, eng.params)
     launches_overlap = phase_serve_overlap(torch, np, ops, eng.params,
                                            paged_outs)
+    launches_budget = phase_serve_budget(torch, np, ops, eng.params,
+                                         paged_res)
     phase_trace(torch, np, eng, "dense", PROMPT_LENS, 8)
     phase_trace(torch, np, eng_paged, "paged", PAGED_PROMPT_LENS, 16)
     engine_prompts, dense_runs = phase_check(torch, np, eng.cfg, eng.params,
                                              prompts, eng, eng_paged)
     phase_check_expert(torch, np, eng, engine_prompts, dense_runs)
+    launches_check_kv = phase_check_expert_kv(torch, np, ops, eng)
     # the last two models each need most of the card's memory: the 4-layer
     # mixtral engines go first, then the 32-layer one with its host stores
     del eng, eng_paged
@@ -1882,18 +2218,26 @@ def main() -> int:
     eng_expert, launches_expert, stores, expert_res = phase_serve_expert(
         torch, np, ops)
     phase_trace(torch, np, eng_expert, "expert", EXPERT_PROMPT_LENS, 4,
-                EXPERT_NEW_TOKENS // 2)
+                EXPERT_NEW_TOKENS // 4)
     # the stores stay pinned for the module-batched engine; the first
     # engine's device pool goes first
     del eng_expert
     gc.collect()
-    eng_expert, launches_expert_module = phase_serve_expert_module(
-        torch, np, ops, stores, expert_res)
+    eng_expert, launches_expert_module, module_res = \
+        phase_serve_expert_module(torch, np, ops, stores, expert_res)
     phase_trace(torch, np, eng_expert, "expert_module", EXPERT_PROMPT_LENS,
-                4, EXPERT_NEW_TOKENS // 2)
-    stores["pw"].release()
-    del eng_expert, stores
+                4, EXPERT_NEW_TOKENS // 4)
+    del eng_expert
     gc.collect()
+    # both offload ratios at once, over the same stores
+    eng_expert, launches_expert_kv = phase_serve_expert_kv(
+        torch, np, ops, stores, module_res)
+    stores["pw"].release()
+    del eng_expert
+    gc.collect()
+    phase_policy(torch, records, stores, expert_res)
+    del stores
+    launches_launch = phase_launch(torch, ops)
     eng_mla, mla_prompts, launches_mla = phase_serve_mla(torch, np, ops)
     phase_trace(torch, np, eng_mla, "mla", PAGED_PROMPT_LENS, 16)
     phase_check_mla(torch, np, eng_mla.cfg, eng_mla.params, mla_prompts)
@@ -1904,7 +2248,11 @@ def main() -> int:
     # the launches of this slice's paths, beside each kernel's main path
     new_paths = {"serve_module": launches_module,
                  "serve_overlap": launches_overlap,
-                 "serve_expert_module": launches_expert_module}
+                 "serve_expert_module": launches_expert_module,
+                 "serve_budget": launches_budget,
+                 "check_expert_kv": launches_check_kv,
+                 "serve_expert_kv": launches_expert_kv,
+                 "launch": launches_launch}
     for rec in records:
         rec["launches"] = by_path.get(rec["name"], launches)[rec["name"]]
         rec["launches_by_path"] = {k: v[rec["name"]]

@@ -1,10 +1,42 @@
 """Request batching (paper Algorithm 2, Appendix A.2): the balance
 criterion applied to one request at a time, as the continuous-batching
-scheduler admits it, and the block-granular charge of the paged KV pool.
+scheduler admits it, the block-granular charge of the paged KV pool, and
+the running estimate of generation lengths behind EOS-aware reservations.
 The whole-queue pass of static mode is a later slice."""
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
+
+
+class GenLenEWMA:
+    """Running EWMA of observed generation lengths.
+
+    Feeds the scheduler's EOS-aware reservations: instead of reserving
+    each live request's worst-case remaining quota, reserve the *expected*
+    remaining length — requests that hit EOS early stop inflating the
+    KV budget for everyone behind them.  Until the first observation the
+    estimate is None and callers must fall back to the worst case."""
+
+    def __init__(self, alpha: float = 0.25):
+        assert 0.0 < alpha <= 1.0
+        self.alpha = alpha
+        self.value: Optional[float] = None
+        self.count = 0
+
+    def observe(self, gen_len: int) -> None:
+        self.count += 1
+        if self.value is None:
+            self.value = float(gen_len)
+        else:
+            self.value += self.alpha * (gen_len - self.value)
+
+    def expected(self, max_new_tokens: int) -> int:
+        """Expected total generation length for a request with the given
+        quota (never optimistic below 1, never beyond the quota)."""
+        if self.value is None:
+            return max_new_tokens
+        return max(1, min(max_new_tokens, math.ceil(self.value)))
 
 
 def place_request(input_len: int, partition_sums: Sequence[int],

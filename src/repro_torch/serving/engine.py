@@ -19,7 +19,14 @@ block-paged arena with a host tier (``kv_paged``).
     not stall the decoding groups (Algorithm 1's CGOPipe at request level);
   * decode runs one fixed-shape masked chunk of ``decode_chunk`` tokens per
     rotation group (``steps.make_decode_chunk``): finished rows are masked,
-    emit nothing and keep their cache position.
+    emit nothing and keep their cache position;
+  * reservations are worst-case remaining quota by default, or EOS-aware
+    (``reserve_mode="ewma"``): expected generation lengths from a running
+    EWMA, charged against a per-group budget ``cache_tokens`` (by default
+    the group's slice of the pool), with recompute preemption when the
+    optimism was wrong (the scheduler's ``enforce_budget`` runs before
+    every dispatch, and with the paged pool the preempted slots' blocks
+    are swept back to the free lists).
 
 Module-based batching (``module_batch=True``, the MoE-Gen direction):
 windows of ``module_groups`` rotation groups decode through one dispatch.
@@ -72,16 +79,18 @@ queue is copied into free pool slots on a copy stream; the results are
 read; the spans are unpinned; the refused part of the slice is retried;
 the chunk's activation counts are booked (demand admits copy their spans
 in).  Every dispatch waits for the copy stream first.  The embedding, the
-final norm and ``lm_head`` stay resident.  ``expert_paged`` with
-``kv_paged`` raises until a parity test drives the pair.
+final norm and ``lm_head`` stay resident.  ``expert_paged`` composes with
+``kv_paged`` (the paper's setting with both offload ratios): a dispatch
+prepares the KV working set first, reads the arena through its page table
+and the experts through the residency map, and the KV prefetch drains
+after the expert one, in the reference's order.
 
 Greedy transcripts, slot histories and every ``kv_traffic()`` and
 ``weight_traffic()`` counter equal the JAX engine's on the same weights
 (the parity tests hold the two against each other).  Whole-layer paged
 weights, static mode, int8 KV and the fault plane (with the degradation
 ladder's window rung) are later slices, and so are sampling at a
-temperature, EOS-aware reservations (with ``cache_tokens`` and the budget
-sweep) and long-prompt truncation: ``EngineConfig`` keeps the JAX
+temperature and long-prompt truncation: ``EngineConfig`` keeps the JAX
 package's names for the fields it has, and has no others.
 """
 from __future__ import annotations
@@ -112,6 +121,11 @@ class EngineConfig:
     decode_chunk: int = 8             # tokens per masked decode chunk
     overlap: bool = False             # staged chunked-prefill admission
     prefill_chunk: int = 32           # chunk width for overlapped prefill
+    reserve_mode: str = "worst"       # "worst" | "ewma" (EOS-aware)
+    cache_tokens: Optional[int] = None  # per-group KV policy budget;
+    # default = the physical pool slice (max_seq × ubatch).  A tighter
+    # budget (e.g. from the HRM policy) is what makes EOS-aware
+    # reservations bite: more concurrent admissions, preemption on miss
     # ---------------------------------------- block-granular paged KV (r_c)
     kv_paged: bool = False            # shared block arena + page tables
     block_tokens: int = 16            # ring positions per KV block
@@ -200,6 +214,7 @@ class Engine:
         self.params = _to_device(resident, self.device)
         self.scheduler = Scheduler(
             ubatch=ecfg.ubatch, num_ubs=ecfg.num_ubs, max_seq=ecfg.max_seq,
+            cache_tokens=ecfg.cache_tokens, reserve_mode=ecfg.reserve_mode,
             block_tokens=ecfg.block_tokens if ecfg.kv_paged else None)
         self.paged_blocks: Optional[paging.PagedWeights] = None
         self.residency: Dict[str, residency.ExpertResidency] = {}
@@ -214,9 +229,6 @@ class Engine:
         self._copy_stream = None
         self._fwd_passes = 0          # forward passes dispatched (traffic)
         if ecfg.expert_paged:
-            if ecfg.kv_paged:
-                raise NotImplementedError(
-                    "expert_paged with kv_paged is not ported yet")
             self._init_expert_pool(params.get("blocks"), paged_weights)
         self._prefill = serve_steps.make_prefill_fill_step(
             cfg, policy, paged_blocks=self.paged_blocks)
@@ -567,7 +579,12 @@ class Engine:
         transcript equals the lockstep schedule's."""
         b, chunk = self.ecfg.ubatch, self.ecfg.decode_chunk
         window = len(gids) > 1
+        # EOS-aware reservations are optimistic: preempt (recompute) the
+        # youngest rows of a group this chunk could take past its budget
+        for gid in gids:
+            self.scheduler.enforce_budget(gid, chunk)
         if self._kv is not None:
+            self._kv_sweep()              # blocks of budget-preempted slots
             # fetch/alloc the working set of every row the dispatch reads
             # (one protect set for the window; may preempt)
             self._kv_prepare_group(gids, chunk)
@@ -981,6 +998,16 @@ class Engine:
             idx = torch.tensor(fresh, device=self.device)
             for g in self._kv_arena.values():
                 g["slot_pos"][:, idx] = -1
+
+    def _kv_sweep(self) -> None:
+        """Release the arena and host blocks of any slot that fell back to
+        FREE outside the engine's own retire path (budget preemption)."""
+        for grp in self.scheduler.slots:
+            for s in grp:
+                if s.state == SlotState.FREE:
+                    idx = self._slot_of(s)
+                    if self._kv.slot_in_use(idx):
+                        self._kv.free_slot(idx)
 
     def _kv_prepare_group(self, gids: List[int], chunk: int) -> None:
         """Pre-dispatch guard for the paged pool: every decoding row's

@@ -547,11 +547,16 @@ def test_expert_engine_matches_resident_engine(smoke_params, jax_runs, impl):
 
 
 def test_expert_paged_with_kv_paged_raises(smoke_params):
-    with pytest.raises(NotImplementedError):
-        Engine(_smoke(t_get_config),
-               params_from_numpy(smoke_params, device="cpu"),
-               EngineConfig(expert_paged=True, kv_paged=True),
-               device="cpu")
+    """The pair no longer raises: the engine builds both control planes
+    and reports both traffic dicts (``test_torch_pair.py`` holds the pair
+    against the JAX engine)."""
+    eng = Engine(_smoke(t_get_config),
+                 params_from_numpy(smoke_params, device="cpu"),
+                 EngineConfig(expert_paged=True, kv_paged=True),
+                 device="cpu")
+    assert eng.residency and eng._kv is not None
+    assert eng.weight_traffic()["mode"] == "expert_paged"
+    assert eng.kv_traffic()["mode"] == "kv_paged"
 
 
 # ------------------------------------------------------------- on the card

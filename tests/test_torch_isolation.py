@@ -2,6 +2,7 @@
 its entry points refuse to fall back to the CPU quietly, its kernels' launch
 counters count CUDA launches only, and ``chip_smoke.py`` refuses to run
 without a GPU or without the repository."""
+import json
 import os
 import re
 import subprocess
@@ -41,10 +42,14 @@ def test_port_imports_without_jax_or_the_jax_package():
         "       or m == 'jax' and sys.modules[m] is not None\n"
         "       or m.startswith('jax.') or m.startswith('jaxlib')]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     r = _run(code)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 20
+    names = set(r.stdout.split())
+    assert len(names) >= 20
+    # the policy path's modules are among those imported without jax
+    assert {"repro_torch.core.hrm", "repro_torch.core.policy",
+            "repro_torch.core.cgopipe", "repro_torch.launch.serve"} <= names
 
 
 _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
@@ -108,6 +113,33 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
     finally:
         for name, fn in ops.KERNELS.items():
             fn.launches = saved[name]
+
+
+def _launch(module: str, extra=()):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    return subprocess.run(
+        [sys.executable, "-m", module, "--smoke", "--hw", "l4",
+         "--requests", "4", *extra], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+
+
+def test_launcher_matches_the_reference_advice_and_serves():
+    """``repro_torch.launch.serve`` prints the HRM advice that
+    ``repro.launch.serve`` prints with the same flags, then serves every
+    request on the CPU and reports them done in its JSON line."""
+    port = _launch("repro_torch.launch.serve", ("--device", "cpu"))
+    ref = _launch("repro.launch.serve")
+    assert port.returncode == 0, port.stderr
+    assert ref.returncode == 0, ref.stderr
+
+    def advice(out):
+        return [ln for ln in out.splitlines()
+                if ln.startswith("[serve] HRM policy")]
+    assert advice(port.stdout) == advice(ref.stdout)
+    assert len(advice(port.stdout)) == 1
+    res = json.loads(port.stdout.strip().splitlines()[-1])
+    assert res["requests"] == res["done"] == 4
+    assert res["tokens"] == 4 * 16 and res["device"] == "cpu"
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
