@@ -42,6 +42,18 @@ Phases, each printing JSON lines:
                    layers staging both groups' routed tokens into one
                    ``moe_ffn`` launch; its greedy transcripts must equal
                    ``serve``'s.
+     serve_static — ``serve``'s requests in static mode (Algorithm 2's
+                   micro-batches of 8, each prefilled 8 rows at once,
+                   decoded one token a tick), and ``serve_static_module``
+                   with windows of both micro-batches, whose transcripts
+                   must equal lockstep static's; each micro-batch's
+                   first-token logits within ``LOGIT_TOL`` of the plain
+                   path; how many transcripts equal ``serve``'s is
+                   printed.
+     serve_static_paged — static mode over ``serve_paged``'s arena and
+                   prompts, 128 new tokens each: it must spill, its peak
+                   within the arena; beside a dense static engine on the
+                   same requests.
      serve_overlap — ``serve_paged`` with overlapped admission: prompts
                    drain in chunks of 32 (one a tick, ahead of the decode
                    chunks), each landing in the paged pool at once; prints
@@ -81,7 +93,27 @@ Phases, each printing JSON lines:
                    tokens that overflow it, against a fresh KV-paged
                    engine: transcripts and the whole ``kv_traffic()``
                    equal, spills and expert misses required.
-  7. serve_expert — the mixtral engines are released; mixtral-8x7b at full
+                   ``check_layer_paged``: 8 of ``serve``'s prompts through
+                   a static engine with the weights packed whole-layer
+                   into page-locked stores, and ``check_static_expert``
+                   through a static expert-paged one: transcripts equal
+                   to the static resident engine's.
+     sample      — temperature 0.8: the engine reproduces its transcripts
+                   from its seed and changes them with it; ``sample``'s
+                   frequencies over 200 000 draws match softmax(logits /
+                   T), and top_k=8 draws nothing else.
+  7. serve_layer_paged — the mixtral engines are released; the paper's
+                   configuration: mixtral-8x7b at full width, 8 of its 32
+                   layers drawn into page-locked whole-layer stores (23.2
+                   GB; MemAvailable must hold them plus 20 % and 20 GiB),
+                   every layer streamed each pass, static micro-batches of
+                   32 through windows: 64 requests of 32..256 prompt
+                   tokens x 32; the bytes the copies moved against
+                   ``weight_traffic()``, their rate against ``h2d_copy``,
+                   and a trace window.  The stores are released after
+                   (the process may keep their host memory for reuse, so
+                   the expert phases read MemAvailable after this).
+     serve_expert — mixtral-8x7b at full
                    width and the deepest cut of its 32 layers that the
                    host holds (all 32 are ~93 GB of bf16 weights, more
                    than the card holds): MemAvailable must hold the stores
@@ -116,7 +148,7 @@ Phases, each printing JSON lines:
                    ``serve_expert``'s measured and booked ones, and a timed
                    probe of the host's copy rate and f32 matmul rate.
      launch      — the port's ``launch/serve.py --smoke --hw h100`` on the
-                   card: every request done.
+                   card, and with ``--paged``: every request done.
   8. serve_mla   — deepseek-v3-671b at full width with the depth cut from
                    61 to 5 layers (its 3 dense-FFN prologue layers and 2
                    MoE layers, 53.2 GB of bf16 weights, every weight on the
@@ -189,6 +221,26 @@ CHECK_KV_REQUESTS, CHECK_KV_PROMPT_LENS = 16, (448, 640)
 # under-reserves the long ones and enforce_budget preempts them
 SERVE_BUDGET = {**SERVE_PAGED, "reserve_mode": "ewma", "cache_tokens": 2048}
 BUDGET_NEW_TOKENS = (NEW_TOKENS // 8, 2 * NEW_TOKENS)
+# Static mode (serve_static, serve_static_module, serve_static_paged):
+# Algorithm 2's micro-batches of 8, admitted as a unit, one token a tick
+SERVE_STATIC = {**SERVE, "mode": "static"}
+# serve_static_paged: in static mode the arena's floor is one micro-batch's
+# worst case (512 of serve_paged's 1024 blocks, above r_c 0.4's 410); two
+# micro-batches of the 16 longest paged prompts peak at 504 blocks with 64
+# new tokens (CPU rehearsal), so they take 128 and overflow it
+STATIC_PAGED_NEW_TOKENS = 2 * NEW_TOKENS
+# The paper's configuration (serve_layer_paged): whole-layer paged weights
+# streamed every pass, static micro-batches of 32 through windows of both
+# rotation groups; Algorithm 2's budget (gen_len 32, 512 x 32 = 16384
+# tokens a micro-batch) admits 32 prompts of 32..256 tokens at once
+SERVE_LAYER = dict(ubatch=32, num_ubs=2, max_seq=512, mode="static",
+                   module_batch=True, paged=True)
+LAYER_PAGED_LAYERS = 8        # of mixtral-8x7b's 32: 8 x 2.90 GB pinned
+LAYER_REQUESTS, LAYER_PROMPT_LENS, LAYER_NEW_TOKENS = 64, (32, 256), 32
+# Sampling at a temperature (sample): the engine's draws, and one logits
+# row of 64 entries drawn 200 000 times, whose frequencies' standard error
+# is at most 0.0011: the bound is over 4 of them
+SAMPLE_TEMPERATURE, SAMPLE_ROWS, SAMPLE_FREQ_TOL = 0.8, 200_000, 0.005
 HOST_MARGIN = 1.2             # MemAvailable must hold the stores + 20 %
 HOST_RESERVE = 20 << 30       # ... and leave 20 GiB beside them
 # bf16 tolerances.  A kernel and its plain version both compute in f32 from
@@ -1159,7 +1211,7 @@ def phase_serve(torch, np, ops):
     require(all(launches[k] > 0 for k in
                 ("moe_ffn", "gqa_decode", "flash_prefill")),
             f"a kernel of the dense path never launched: {launches}")
-    return eng, prompts[:2], launches, outs
+    return eng, prompts, launches, outs
 
 
 def phase_serve_module(torch, np, ops, params, want, launches_serve):
@@ -1195,6 +1247,496 @@ def phase_serve_module(torch, np, ops, params, want, launches_serve):
     require(launches["moe_ffn"] < launches_serve["moe_ffn"],
             f"windows launched moe_ffn no fewer times: {launches}")
     return launches
+
+
+def phase_serve_static(torch, np, ops, params, want):
+    """``serve``'s weights, settings and requests in static mode
+    (``serve_static``: Algorithm 2's micro-batches of 8, each prefilled 8
+    rows at once and decoded one token a tick), then with module-batched
+    windows of both micro-batches (``serve_static_module``), whose
+    transcripts must equal lockstep static's bit for bit.  How many of the
+    24 equal continuous ``serve``'s is printed, not required: static
+    prefill runs 8 rows in one call, where a row's bits and the grouped
+    MoE's capacity drops can differ.  Each micro-batch's first-token
+    logits through the kernels are held against the plain
+    path (``check_static_logits``)."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(_mixtral(), num_layers=LAYERS)
+    pol = ExecPolicy(moe_impl="grouped", use_kernels=True)
+    out = {}
+    for phase, settings in (
+            ("serve_static", SERVE_STATIC),
+            ("serve_static_module", {**SERVE_STATIC, "module_batch": True})):
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, EngineConfig(**settings), pol,
+                     device=DEVICE)
+        batches = []
+        inner = eng._prefill
+
+        def recorded(p, toks, cache, lens, inner=inner, batches=batches):
+            with RoutingTape() as tape:
+                logits, cache = inner(p, toks, cache, lens)
+            batches.append((toks.clone(), lens.clone(), logits.clone(),
+                            tape))
+            return logits, cache
+        eng._prefill = recorded
+        # a window whose groups are not ascending and consecutive copies
+        # its batches' caches together (``concat_slot_caches``) and back
+        concat, copied = kvcache.concat_slot_caches, [0]
+
+        def counted(caches, concat=concat, copied=copied):
+            copied[0] += 1
+            return concat(caches)
+        kvcache.concat_slot_caches = counted
+        try:
+            _, res, outs = serve_run(torch, np, eng, ops, PROMPT_LENS,
+                                     N_REQUESTS, SEED)
+        finally:
+            kvcache.concat_slot_caches = concat
+        launches = res["launches"]
+        line = {"phase": phase, "model": "mixtral-8x7b", "layers": LAYERS,
+                "engine": settings, **res, "micro_batches": len(batches),
+                "window_copy": {"ticks": copied[0],
+                                **window_copy_cost(torch, eng)},
+                "module_groups": eng.weight_traffic()["module_groups"],
+                "identical_requests_vs_serve": sum(
+                    a == b for a, b in zip(outs, want)),
+                "requests_total": len(want)}
+        if phase == "serve_static":
+            line.update(check_static_logits(torch, cfg, params, batches,
+                                            settings["max_seq"]))
+        else:
+            line["identical_requests_vs_serve_static"] = sum(
+                a == b for a, b in zip(outs, out["serve_static"][1]))
+            require(outs == out["serve_static"][1],
+                    "static windows' transcripts differ from lockstep "
+                    "static's")
+        emit(line)
+        require(all(launches[k] > 0 for k in
+                    ("moe_ffn", "gqa_decode", "flash_prefill")),
+                f"a kernel of {phase} never launched: {launches}")
+        out[phase] = (launches, outs)
+    return {k: v[0] for k, v in out.items()}
+
+
+def window_copy_cost(torch, eng):
+    """What a static window's cache copy costs on `eng`'s rotation groups
+    (the pool's rows of each, after its run): their caches concatenated
+    and written back, as ``Engine._tick_static`` does for a window whose
+    groups are not ascending and consecutive; CUDA events, the mean of 5
+    after one warm-up.  Other windows are views of the pool, copied
+    never."""
+    from repro_torch.models import kvcache
+    from repro_torch.serving import engine
+
+    caches = [g.cache for g in eng.groups]
+    ms = []
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        dense = kvcache.concat_slot_caches(caches)
+        for c, part in zip(caches, kvcache.split_slot_cache(dense,
+                                                            len(caches))):
+            engine._copy_into(c, part)
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return {"ms_per_copy": statistics.mean(ms[1:]),
+            "cache_bytes": sum(engine._nbytes(c) for c in caches)}
+
+
+class RoutingTape:
+    """``moe.route``'s decisions on a forward pass: recorded in call order
+    (each layer's weights, experts and aux loss, with the grouped MoE's
+    keep mask from ``moe.stage_bucket``), or, given a recorded tape,
+    replayed so that another path takes the same experts and drops the
+    same tokens."""
+
+    def __init__(self, replay=None):
+        self.entries = []
+        self._replay = None if replay is None else iter(replay.entries)
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe = moe
+        self._route, self._stage = moe.route, moe.stage_bucket
+
+        def route(cfg, router_w, x, token_groups=None):
+            if self._replay is not None:
+                return next(self._replay)["route"]
+            out = self._route(cfg, router_w, x, token_groups)
+            self.entries.append({"route": out})
+            return out
+
+        def stage_bucket(dest, n_buckets, cap, groups=1):
+            slot, keep = self._stage(dest, n_buckets, cap, groups)
+            if self._replay is None:
+                self.entries[-1]["keep"] = keep
+            return slot, keep
+        moe.route, moe.stage_bucket = route, stage_bucket
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route, self._moe.stage_bucket = self._route, self._stage
+
+    def moved_tokens(self, other, seq: int, lens):
+        """Per batch row, over the layers: how many of its real tokens
+        (position < its length) `other` routed to other experts (a top-k
+        flip), and how many it routed alike but kept in other buckets (a
+        capacity drop that moved)."""
+        import torch
+        B = lens.shape[0]
+        real = torch.arange(seq, device=lens.device)[None, :] < lens[:, None]
+        flipped = torch.zeros((B,), dtype=torch.int64, device=lens.device)
+        dropped = torch.zeros_like(flipped)
+        for a, b in zip(self.entries, other.entries):
+            ia, ib = a["route"][1], b["route"][1]
+            flip = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+            ka = a["keep"].reshape(ia.shape)
+            kb = b["keep"].reshape(ib.shape)
+            kept_a = ia.masked_fill(~ka, -1).sort(-1).values
+            kept_b = ib.masked_fill(~kb, -1).sort(-1).values
+            drop = ~flip & (kept_a != kept_b).any(-1)
+            flipped += (flip.reshape(B, seq) & real).sum(-1)
+            dropped += (drop.reshape(B, seq) & real).sum(-1)
+        return flipped, dropped
+
+
+def check_static_logits(torch, cfg, params, batches, max_seq):
+    """Each static micro-batch's first-token logits, as served, against
+    the plain path (``impl="ref"``) on the same rows.  In float32 with a
+    capacity factor of E / top_k, at which no expert bucket can overflow,
+    the kernel and plain paths differ in summation order only: within
+    ``F32_TOL``.  In bf16 at the served capacity, a rounding can flip a
+    token's top-2 experts, or move which tokens a full bucket drops, and
+    then a row's logits move by more than ``LOGIT_TOL``.  So the plain
+    path is also run with the served prefill's routing replayed
+    (``RoutingTape``): every row must then be within ``LOGIT_TOL`` of the
+    served logits, and a row past ``LOGIT_TOL`` of the plain path's own
+    routing must show the cause, a real token of it routed or dropped
+    otherwise in some layer; those rows are printed with their counts."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving import steps
+
+    kern = ExecPolicy(moe_impl="grouped", use_kernels=True)
+    plain = ExecPolicy(moe_impl="grouped", use_kernels=True, impl="ref")
+    nd32 = dataclasses.replace(cfg, dtype="float32",
+                               capacity_factor=cfg.num_experts / cfg.top_k)
+
+    def to_f32(tree):
+        return {k: to_f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    p32 = to_f32(params)
+
+    def first_logits(c, p, pol, toks, lens):
+        cache = kvcache.init_cache(c, toks.shape[0], max_seq, device=DEVICE)
+        return steps.make_prefill_fill_step(c, pol)(p, toks, cache, lens)[0]
+
+    worst = {"float32": 0.0, "bfloat16_served": 0.0,
+             "bfloat16_served_routing_replayed": 0.0}
+    over, rows, moved_tokens = [], 0, 0
+    for b, (toks, lens, logits, tape) in enumerate(batches):
+        real = lens > 0
+        require(bool(torch.isfinite(logits[real]).all())
+                and logits.shape == (toks.shape[0], cfg.vocab_size),
+                "bad first-token logits")
+        worst["float32"] = max(worst["float32"], max_err(
+            first_logits(nd32, p32, kern, toks, lens)[real],
+            first_logits(nd32, p32, plain, toks, lens)[real]))
+        with RoutingTape() as own:
+            want = first_logits(cfg, params, plain, toks, lens)
+        with RoutingTape(replay=tape):
+            replayed = first_logits(cfg, params, plain, toks, lens)
+        diff = (logits - want).abs().amax(-1)
+        rdiff = (logits - replayed).abs().amax(-1)
+        flipped, dropped = tape.moved_tokens(own, toks.shape[1], lens)
+        moved_tokens += int((flipped + dropped).sum())
+        worst["bfloat16_served"] = max(worst["bfloat16_served"],
+                                       float(diff[real].max()))
+        worst["bfloat16_served_routing_replayed"] = max(
+            worst["bfloat16_served_routing_replayed"],
+            float(rdiff[real].max()))
+        for r in torch.nonzero(real & (diff > LOGIT_TOL)).flatten().tolist():
+            over.append({"micro_batch": b, "row": r,
+                         "prompt_tokens": int(lens[r]),
+                         "diff": float(diff[r]),
+                         "routing_replayed_diff": float(rdiff[r]),
+                         "flipped_tokens": int(flipped[r]),
+                         "drop_moved_tokens": int(dropped[r])})
+        rows += int(real.sum())
+    del p32
+    torch.cuda.empty_cache()
+    out = {"max_abs_first_logit_diff": worst, "f32_tol": F32_TOL,
+           "logit_tol": LOGIT_TOL, "rows": rows,
+           "real_tokens_routed_otherwise": moved_tokens,
+           "bf16_rows_over_logit_tol": over}
+    require(worst["float32"] <= F32_TOL,
+            f"static first-token logits differ from the plain path in "
+            f"float32: {out}")
+    require(worst["bfloat16_served_routing_replayed"] <= LOGIT_TOL,
+            f"static first-token logits differ from the plain path under "
+            f"the served routing: {out}")
+    require(all(o["flipped_tokens"] + o["drop_moved_tokens"] > 0
+                for o in over),
+            f"a static first-token row moved past LOGIT_TOL with the "
+            f"plain path routing every token alike: {out}")
+    return out
+
+
+def phase_serve_static_paged(torch, np, ops, params, paged_outs):
+    """Static mode over ``serve_paged``'s arena (r_c 0.4, whose floor in
+    static mode is one micro-batch's worst case: 512 of the 1024 blocks)
+    and prompts, 128 new tokens each: the 16 longest prompts come first
+    (Algorithm 2), and two micro-batches of them outgrow the arena, so
+    blocks spill.  Beside it
+    a dense static engine of the same ring width on the same requests: how
+    many transcripts the paged run shares with it, and how many begin
+    with ``serve_paged``'s continuous transcript, is printed."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(_mixtral(), num_layers=LAYERS)
+    pol = ExecPolicy(moe_impl="grouped", use_kernels=True)
+    settings = {**SERVE_PAGED, "mode": "static"}
+    dense = {k: v for k, v in settings.items()
+             if not k.startswith("kv_") and k != "block_tokens"}
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, EngineConfig(**settings), pol, device=DEVICE)
+    _, res, outs = serve_run(torch, np, eng, ops, PAGED_PROMPT_LENS,
+                             N_REQUESTS, SEED + 2, STATIC_PAGED_NEW_TOKENS)
+    traffic = eng.kv_traffic()
+    launches = res["launches"]
+    ref = Engine(cfg, params, EngineConfig(**dense), pol, device=DEVICE)
+    _, _, dense_outs = serve_run(torch, np, ref, ops, PAGED_PROMPT_LENS,
+                                 N_REQUESTS, SEED + 2,
+                                 STATIC_PAGED_NEW_TOKENS)
+    emit({"phase": "serve_static_paged", "model": "mixtral-8x7b",
+          "layers": LAYERS, "engine": settings, **res,
+          "identical_requests_vs_dense_static": sum(
+              a == b for a, b in zip(outs, dense_outs)),
+          "identical_first_64_vs_serve_paged": sum(
+              a[:NEW_TOKENS] == b for a, b in zip(outs, paged_outs)),
+          "requests_total": len(outs), "kv_traffic": traffic})
+    require(traffic["spills"] > 0,
+            f"static mode never spilled the arena: {traffic}")
+    require(traffic["peak_blocks_in_use"] <= traffic["device_blocks"],
+            f"static admission overran the arena: {traffic}")
+    require(all(launches[k] > 0 for k in
+                ("moe_ffn", "paged_gqa_decode", "flash_prefill")),
+            f"a kernel of the static paged path never launched: {launches}")
+    require(launches["gqa_decode"] == 0,
+            f"the static paged path ran the dense decode kernel: {launches}")
+    return launches
+
+
+def phase_check_static(torch, np, ops, cfg, params, prompts):
+    """8 of ``serve``'s prompts x 16 tokens through a static resident
+    engine, then ``check_layer_paged``: a static ``paged=True`` engine on
+    the same weights packed whole-layer into page-locked stores (~11.6
+    GB): its transcripts must equal the resident engine's bit for bit (the
+    same kernels read the same bytes), and ``weight_traffic()`` must book
+    the page-padded layers once a forward pass; and
+    ``check_static_expert``: a static ``expert_paged=True`` engine at r_w
+    0.25, with transcripts equal to the resident engine's and
+    ``expert_gather`` launched."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = ExecPolicy(moe_impl="grouped", use_kernels=True)
+
+    def run(e):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rids = [e.submit(p, NEW_TOKENS // 4) for p in prompts]
+        out = e.run_until_idle()
+        torch.cuda.synchronize()
+        return ([out[r] for r in rids], ops.launch_counts(),
+                time.perf_counter() - t0)
+
+    want, _, resident_s = run(Engine(cfg, params,
+                                     EngineConfig(**SERVE_STATIC), pol,
+                                     device=DEVICE))
+    launches = {}
+    for phase, extra in (("check_layer_paged", {"paged": True}),
+                         ("check_static_expert",
+                          {"expert_paged": True, "w_gpu_ratio": 0.25})):
+        settings = {**SERVE_STATIC, **extra}
+        t0 = time.perf_counter()
+        e = Engine(cfg, params, EngineConfig(**settings), pol, device=DEVICE)
+        pack_s = time.perf_counter() - t0
+        try:
+            stores = [*e.paged_blocks.pages.values(),
+                      *e.paged_blocks.expert_pages.values()]
+            got, launches[phase], wall = run(e)
+            traffic = e.weight_traffic()
+            line = {"phase": phase, "layers": cfg.num_layers,
+                    "engine": settings, "requests": len(prompts),
+                    "store_bytes": sum(t.nbytes for t in stores),
+                    "stores_pinned": all(t.is_pinned() for t in stores),
+                    "pack_s": pack_s, "wall_s": wall,
+                    "resident_wall_s": resident_s,
+                    "agree_tokens": sum(a == b for x, y in zip(got, want)
+                                        for a, b in zip(x, y)),
+                    "total_tokens": sum(len(x) for x in want),
+                    "identical_requests": sum(
+                        x == y for x, y in zip(got, want)),
+                    "launches": launches[phase],
+                    "weight_traffic": {k: traffic[k] for k in (
+                        "mode", "fwd_passes", "h2d_bytes", "hits",
+                        "misses", "prefetches") if k in traffic}}
+            emit(line)
+            require(line["stores_pinned"], f"{phase}: a pageable store")
+            require(got == want, f"{phase}: transcripts differ from the "
+                                 "static resident engine's")
+            if extra.get("paged"):
+                per_pass = sum(t.nbytes for t in e.paged_blocks.pages.values())
+                require(traffic["h2d_bytes"]
+                        == traffic["fwd_passes"] * per_pass,
+                        f"whole-layer bytes booked wrong: {traffic}")
+            else:
+                require(launches[phase]["expert_gather"] > 0,
+                        f"static expert-paged never gathered: "
+                        f"{launches[phase]}")
+        finally:
+            e.paged_blocks.release()
+    return launches
+
+
+def phase_sample(torch, np, ops, cfg, params, prompts):
+    """Sampling at temperature 0.8: 8 of ``serve``'s prompts served twice
+    with seed 0 (transcripts identical) and once with seed 1 (at least one
+    token differs); then ``sample`` itself on one seeded logits row of 64
+    entries expanded to 200 000 rows: the empirical frequencies within
+    ``SAMPLE_FREQ_TOL`` of ``softmax(logits / T)``, and with ``top_k=8``
+    no token outside the top 8 drawn."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.sampling import sample
+
+    runs = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for seed in (0, 0, 1):
+        e = Engine(cfg, params, EngineConfig(
+            **SERVE, temperature=SAMPLE_TEMPERATURE, seed=seed),
+            ExecPolicy(moe_impl="grouped", use_kernels=True), device=DEVICE)
+        rids = [e.submit(p, NEW_TOKENS // 4) for p in prompts]
+        out = e.run_until_idle()
+        runs.append([out[r] for r in rids])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    row = torch.randn(64, generator=g, device=DEVICE) * 1.5
+    rows = row.expand(SAMPLE_ROWS, 64).contiguous()
+    want = torch.softmax(row / SAMPLE_TEMPERATURE, -1)
+    toks = sample(rows, g, temperature=SAMPLE_TEMPERATURE)
+    freq = torch.bincount(toks.long(), minlength=64).double() / SAMPLE_ROWS
+    err = float((freq - want.double()).abs().max())
+    top = sample(rows, g, temperature=SAMPLE_TEMPERATURE, top_k=8)
+    kept = torch.topk(row, 8).indices
+    outside = int((~torch.isin(top, kept.to(top.dtype))).sum())
+    emit({"phase": "sample", "temperature": SAMPLE_TEMPERATURE,
+          "requests": len(prompts),
+          "seed0_runs_identical": runs[0] == runs[1],
+          "seed1_tokens_differing": sum(
+              a != b for x, y in zip(runs[0], runs[2])
+              for a, b in zip(x, y)),
+          "tokens": sum(len(x) for x in runs[0]),
+          "rows": SAMPLE_ROWS, "max_abs_freq_err": err,
+          "tol": SAMPLE_FREQ_TOL, "top_k": 8,
+          "top_k_drawn_outside": outside,
+          "top_k_distinct_drawn": int(torch.unique(top).numel()),
+          "launches": launches})
+    require(runs[0] == runs[1], "sampling did not reproduce from its seed")
+    require(runs[2] != runs[0], "another seed drew the same transcripts")
+    require(err <= SAMPLE_FREQ_TOL,
+            f"sample frequencies off softmax(logits / T) by {err}")
+    require(outside == 0, f"top_k=8 drew {outside} tokens outside the top 8")
+    return launches
+
+
+def phase_serve_layer_paged(torch, np, ops, records):
+    """The paper's configuration: mixtral-8x7b at full width, 8 of its 32
+    layers drawn on the card layer by layer into page-locked whole-layer
+    stores (2.90 GB a layer), every layer streamed through the two-slot
+    buffer each forward pass, static micro-batches of 32 through windows
+    of both rotation groups (``SERVE_LAYER``): 64 requests of 32..256
+    prompt tokens, 32 new tokens each.  Beside the serve numbers: the
+    bytes the copies really moved (counted where the stream issues them)
+    against ``weight_traffic()``, their rate over the run's wall time
+    against this run's ``h2d_copy``, and the link bytes per token per
+    layer.  Then a trace window; the stores are released after.  The
+    stores must fit MemAvailable, read before they are drawn and printed
+    beside the depth, by ``serve_expert``'s rule (``host_room``)."""
+    from repro_torch.core import offload
+    from repro_torch.models import model
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import count_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(_mixtral(), num_layers=LAYER_PAGED_LAYERS)
+    need = LAYER_PAGED_LAYERS * store_bytes_per_layer(torch, split=False)
+    avail = host_mem_available()
+    require(need <= host_room(avail),
+            f"MemAvailable {avail} does not hold {LAYER_PAGED_LAYERS} "
+            f"whole layers ({need} bytes) with 20 % and 20 GiB to spare")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, pw, pin_s, build_s = draw_stores(torch, cfg, split=False)
+    eng = Engine(cfg, params, EngineConfig(**SERVE_LAYER),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE, paged_weights=pw)
+    moved = {"bytes": 0, "copies": 0}
+    issue = model._SpanStream._issue
+
+    def counted_issue(self, layer):
+        if layer < len(self.pages):
+            moved["bytes"] += self.pages[layer].nbytes
+            moved["copies"] += 1
+        issue(self, layer)
+    model._SpanStream._issue = counted_issue
+    try:
+        _, res, outs = serve_run(torch, np, eng, ops, LAYER_PROMPT_LENS,
+                                 LAYER_REQUESTS, SEED + 10,
+                                 LAYER_NEW_TOKENS)
+    finally:
+        model._SpanStream._issue = issue
+    traffic = eng.weight_traffic()
+    h2d = next(r for r in records if r["name"] == "expert_gather")[
+        "bound_rates"]["h2d_GBps_measured"]
+    tokens = sum(len(o) for o in outs)
+    link = moved["bytes"] / res["wall_s"] / 1e9
+    res.update(tokens=tokens, moved_bytes=moved["bytes"],
+               bytes_per_token_layer=moved["bytes"] / tokens
+               / cfg.num_layers)
+    emit({"phase": "serve_layer_paged", "model": "mixtral-8x7b",
+          "layers": cfg.num_layers, "of_layers": _mixtral().num_layers,
+          "params": count_params(cfg), "engine": SERVE_LAYER,
+          "page_elems": EngineConfig().page_elems, "mem_available": avail,
+          "host_room": host_room(avail),
+          "store_bytes": sum(t.nbytes for t in pw.pages.values()),
+          "pinned_bytes": offload.pinned_bytes(), "pin_s": pin_s,
+          "build_s": build_s, **res, "passes": traffic["fwd_passes"],
+          "copies": moved["copies"], "link_GBps_over_wall": link,
+          "h2d_copy_GBps": h2d, "link_over_h2d_copy": link / h2d,
+          "wall_over_link_time": res["wall_s"]
+          / (moved["bytes"] / (h2d * 1e9)),
+          "host_peak_rss": host_peak_rss(), "weight_traffic": traffic})
+    launches = res["launches"]
+    require(moved["bytes"] == traffic["h2d_bytes"] > 0,
+            f"the copies moved {moved['bytes']} bytes, "
+            f"weight_traffic() booked {traffic['h2d_bytes']}")
+    require(all(launches[k] > 0 for k in
+                ("moe_ffn", "gqa_decode", "flash_prefill")),
+            f"a kernel of the whole-layer path never launched: {launches}")
+    phase_trace(torch, np, eng, "layer_paged", LAYER_PROMPT_LENS, 4, 4)
+    pw.release()
+    return launches, res
 
 
 def phase_serve_paged(torch, np, ops, params):
@@ -1509,6 +2051,7 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests,
           "wall_ms": wall * 1e3, "device_ms": device_ms,
           "device_busy_share": device_ms / (wall * 1e3),
           "kernel_busy_share": kernel_ms / (wall * 1e3),
+          "htod_busy_share": ms["memcpy_htod"] / (wall * 1e3),
           "device_ms_by_family": ms, "host_peak_rss": host_peak_rss()})
 
 
@@ -1747,6 +2290,67 @@ def host_mem_available() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
+def host_memory(at: str) -> None:
+    """MemAvailable and the peak resident memory at a point of the run."""
+    emit({"phase": "host_memory", "at": at,
+          "mem_available": host_mem_available(),
+          "host_peak_rss": host_peak_rss()})
+
+
+def host_room(avail: int) -> float:
+    """The bytes of host stores that MemAvailable `avail` holds with 20 %
+    and at least 20 GiB to spare (the serve and its profiled window run
+    beside them)."""
+    return min(avail / HOST_MARGIN, avail - HOST_RESERVE)
+
+
+def store_bytes_per_layer(torch, split: bool) -> int:
+    """Bytes of one mixtral-8x7b layer's host stores, expert-granular
+    (`split`) or whole-layer; sized on the CPU, nothing written."""
+    from repro_torch.core import paging
+    from repro_torch.models.params import abstract_params, param_defs
+    from repro_torch.serving.engine import EngineConfig
+
+    one = dataclasses.replace(_mixtral(), num_layers=1)
+    probe = paging.PagedWeights.empty(
+        abstract_params(one, param_defs(one)["blocks"]),
+        EngineConfig().page_elems, torch.device("cpu"), split=split)
+    return sum(t.nbytes for t in (*probe.pages.values(),
+                                  *probe.expert_pages.values()))
+
+
+def draw_stores(torch, cfg, split: bool):
+    """`cfg`'s resident params drawn on the card from ``SEED``, and its
+    block params drawn there one layer at a time and written into
+    page-locked host stores (``PagedWeights.empty``: expert-granular if
+    `split`, else whole-layer), so that neither the card nor pageable host
+    memory ever holds the stack.  Returns the params, the stores and the
+    seconds taken to pin the stores and to fill them."""
+    from repro_torch.core import paging
+    from repro_torch.models.params import (abstract_params, init_params,
+                                           param_defs)
+    from repro_torch.serving.engine import EngineConfig
+
+    t0 = time.perf_counter()
+    defs = param_defs(cfg)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_params(cfg, g, DEVICE,
+                         defs={k: v for k, v in defs.items()
+                               if k != "blocks"})
+    pw = paging.PagedWeights.empty(abstract_params(cfg, defs["blocks"]),
+                                   EngineConfig().page_elems,
+                                   torch.device(DEVICE), split=split)
+    pin_s = time.perf_counter() - t0
+    one_defs = param_defs(dataclasses.replace(cfg, num_layers=1))["blocks"]
+    for layer in range(cfg.num_layers):
+        drawn = init_params(cfg, g, DEVICE, defs=one_defs)
+        for key, tree in drawn.items():
+            pw.write_layer(key, layer, paging.layer_slice(tree, 0))
+        del drawn
+    torch.cuda.synchronize()
+    return params, pw, pin_s, time.perf_counter() - t0
+
+
 def phase_serve_expert(torch, np, ops):
     """mixtral-8x7b at full width through the expert-granular paged
     weights: every layer drawn on the card and written into pinned host
@@ -1757,21 +2361,13 @@ def phase_serve_expert(torch, np, ops):
     its profiled window run beside the stores), never below 8.
     Returns the engine, its launches, the stores (kept for
     ``phase_serve_expert_module``) and its numbers."""
-    from repro_torch.core import offload, paging
+    from repro_torch.core import offload
     from repro_torch.models import kvcache
-    from repro_torch.models.params import (abstract_params, count_params,
-                                           init_params, param_defs)
-    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.models.params import count_params
 
     full = _mixtral()
     one = dataclasses.replace(full, num_layers=1)
-    page_elems = EngineConfig().page_elems
-    probe = paging.PagedWeights.empty(
-        abstract_params(one, param_defs(one)["blocks"]), page_elems,
-        torch.device("cpu"))
-    per_layer = sum(t.nbytes for t in (*probe.pages.values(),
-                                       *probe.expert_pages.values()))
-    del probe
+    per_layer = store_bytes_per_layer(torch, split=True)
     # serve_expert_kv's host tier holds every KV block of every layer; the
     # pinned allocator may round each store up to twice its bytes
     kv = SERVE_EXPERT_KV
@@ -1781,8 +2377,8 @@ def phase_serve_expert(torch, np, ops):
         one, kv_blocks, kv["block_tokens"], device="meta").values()
         for a in g.values())
     avail = host_mem_available()
-    room = min(avail / HOST_MARGIN, avail - HOST_RESERVE)
-    layers = min(full.num_layers, int(room // (per_layer + kv_host)))
+    layers = min(full.num_layers,
+                 int(host_room(avail) // (per_layer + kv_host)))
     require(layers >= MIN_EXPERT_LAYERS,
             f"MemAvailable {avail} holds {layers} layers of {per_layer} "
             f"+ {kv_host} bytes with 20 % and 20 GiB to spare; "
@@ -1790,23 +2386,7 @@ def phase_serve_expert(torch, np, ops):
     cfg = dataclasses.replace(full, num_layers=layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    defs = param_defs(cfg)
-    g = torch.Generator(device=DEVICE).manual_seed(SEED)
-    params = init_params(cfg, g, DEVICE,
-                         defs={k: v for k, v in defs.items()
-                               if k != "blocks"})
-    pw = paging.PagedWeights.empty(abstract_params(cfg, defs["blocks"]),
-                                   page_elems, torch.device(DEVICE))
-    pin_s = time.perf_counter() - t0
-    one_defs = param_defs(dataclasses.replace(cfg, num_layers=1))["blocks"]
-    for layer in range(layers):
-        drawn = init_params(cfg, g, DEVICE, defs=one_defs)
-        for key, tree in drawn.items():
-            pw.write_layer(key, layer, paging.layer_slice(tree, 0))
-        del drawn
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    params, pw, pin_s, build_s = draw_stores(torch, cfg, split=True)
     pinned = offload.pinned_bytes()
     stores = {"cfg": cfg, "params": params, "pw": pw, "layers": layers,
               "of_layers": full.num_layers, "params_count": count_params(cfg),
@@ -2057,19 +2637,24 @@ def phase_launch(torch, ops):
     """The port's serve launcher, as a user runs it, on the card:
     ``repro_torch.launch.serve --smoke --hw h100`` (HRM advice for the full
     model on the H100 preset, then synthetic requests through the engine
-    on the smoke config); its JSON line must report every request done."""
+    on the smoke config), and again with ``--paged`` (whole-layer paged
+    weights); each JSON line must report every request done."""
     from repro_torch.launch import serve
 
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    res = serve.main(["--smoke", "--hw", "h100"])
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    emit({"phase": "launch", **res, "launches": launches})
-    require(res["requests"] > 0 and res["done"] == res["requests"],
-            f"the launcher left requests undone: {res}")
-    require(res["device"].startswith("cuda"), "the launcher ran off the card")
-    return launches
+    out = {}
+    for phase, extra in (("launch", []), ("launch_paged", ["--paged"])):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = serve.main(["--smoke", "--hw", "h100", *extra])
+        torch.cuda.synchronize()
+        out[phase] = ops.launch_counts()
+        emit({"phase": phase, **res, "launches": out[phase]})
+        require(res["requests"] > 0 and res["done"] == res["requests"],
+                f"the launcher left requests undone: {res}")
+        require(res["device"].startswith("cuda"),
+                "the launcher ran off the card")
+        require(res["paged"] == bool(extra), f"--paged not applied: {res}")
+    return out
 
 
 def phase_serve_mla(torch, np, ops):
@@ -2194,13 +2779,18 @@ def main() -> int:
           "libraries": sorted(libs), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    host_memory("start")
     records = phase_kernels(torch, F)
     torch.cuda.empty_cache()
-    eng, prompts, launches, serve_outs = phase_serve(torch, np, ops)
+    eng, serve_prompts, launches, serve_outs = phase_serve(torch, np, ops)
     launches_module = phase_serve_module(torch, np, ops, eng.params,
                                          serve_outs, launches)
+    launches_static = phase_serve_static(torch, np, ops, eng.params,
+                                         serve_outs)
     eng_paged, launches_paged, paged_outs, paged_res = phase_serve_paged(
         torch, np, ops, eng.params)
+    launches_static_paged = phase_serve_static_paged(torch, np, ops,
+                                                     eng.params, paged_outs)
     launches_overlap = phase_serve_overlap(torch, np, ops, eng.params,
                                            paged_outs)
     launches_budget = phase_serve_budget(torch, np, ops, eng.params,
@@ -2208,13 +2798,26 @@ def main() -> int:
     phase_trace(torch, np, eng, "dense", PROMPT_LENS, 8)
     phase_trace(torch, np, eng_paged, "paged", PAGED_PROMPT_LENS, 16)
     engine_prompts, dense_runs = phase_check(torch, np, eng.cfg, eng.params,
-                                             prompts, eng, eng_paged)
+                                             serve_prompts[:2], eng,
+                                             eng_paged)
     phase_check_expert(torch, np, eng, engine_prompts, dense_runs)
     launches_check_kv = phase_check_expert_kv(torch, np, ops, eng)
-    # the last two models each need most of the card's memory: the 4-layer
-    # mixtral engines go first, then the 32-layer one with its host stores
+    launches_check_static = phase_check_static(torch, np, ops, eng.cfg,
+                                               eng.params, serve_prompts[:8])
+    launches_sample = phase_sample(torch, np, ops, eng.cfg, eng.params,
+                                   serve_prompts[:8])
+    # the last models each need most of the card's or the host's memory:
+    # the 4-layer mixtral engines go first, then the whole-layer stores,
+    # then the expert stores.  The host may not get a released store's
+    # memory back (MemAvailable stays down; the process reuses it), so
+    # each phase sizes its stores by the MemAvailable it reads
     del eng, eng_paged
     gc.collect()
+    host_memory("before serve_layer_paged")
+    launches_layer, layer_res = phase_serve_layer_paged(torch, np, ops,
+                                                        records)
+    gc.collect()
+    host_memory("after serve_layer_paged")
     eng_expert, launches_expert, stores, expert_res = phase_serve_expert(
         torch, np, ops)
     phase_trace(torch, np, eng_expert, "expert", EXPERT_PROMPT_LENS, 4,
@@ -2236,7 +2839,23 @@ def main() -> int:
     del eng_expert
     gc.collect()
     phase_policy(torch, records, stores, expert_res)
+    expert_layers = stores["layers"]
     del stores
+    gc.collect()
+    # link bytes a token a layer: whole-layer streaming of a large static
+    # batch against the expert-paged windows (the gather's bytes, and with
+    # the shared spans streamed every pass)
+    expert_tokens = sum(len(t) for t in module_res["transcripts"])
+    shared = module_res["weight_traffic"]["shared_bytes"]
+    emit({"phase": "link_bytes_per_token_layer",
+          "serve_layer_paged": layer_res["bytes_per_token_layer"],
+          "serve_expert_module_gather": module_res["gather_host_bytes"]
+          / expert_tokens / expert_layers,
+          "serve_expert_module_gather_and_shared": (
+              module_res["gather_host_bytes"] + shared)
+          / expert_tokens / expert_layers,
+          "tokens": [layer_res["tokens"], expert_tokens],
+          "layers": [LAYER_PAGED_LAYERS, expert_layers]})
     launches_launch = phase_launch(torch, ops)
     eng_mla, mla_prompts, launches_mla = phase_serve_mla(torch, np, ops)
     phase_trace(torch, np, eng_mla, "mla", PAGED_PROMPT_LENS, 16)
@@ -2245,14 +2864,20 @@ def main() -> int:
     by_path = {"paged_gqa_decode": launches_paged,
                "paged_mla_decode": launches_mla,
                "expert_gather": launches_expert}
-    # the launches of this slice's paths, beside each kernel's main path
+    # the launches of the later slices' paths, beside each kernel's main
+    # path
     new_paths = {"serve_module": launches_module,
                  "serve_overlap": launches_overlap,
                  "serve_expert_module": launches_expert_module,
                  "serve_budget": launches_budget,
                  "check_expert_kv": launches_check_kv,
                  "serve_expert_kv": launches_expert_kv,
-                 "launch": launches_launch}
+                 **launches_static,
+                 "serve_static_paged": launches_static_paged,
+                 **launches_check_static,
+                 "sample": launches_sample,
+                 "serve_layer_paged": launches_layer,
+                 **launches_launch}
     for rec in records:
         rec["launches"] = by_path.get(rec["name"], launches)[rec["name"]]
         rec["launches_by_path"] = {k: v[rec["name"]]

@@ -1,12 +1,19 @@
-"""Request batching (paper Algorithm 2, Appendix A.2): the balance
-criterion applied to one request at a time, as the continuous-batching
-scheduler admits it, the block-granular charge of the paged KV pool, and
-the running estimate of generation lengths behind EOS-aware reservations.
-The whole-queue pass of static mode is a later slice."""
+"""Request batching (paper Algorithm 2, Appendix A.2).
+
+Balanced token distribution: requests sorted by input length descending,
+each placed into the micro-batch with the fewest tokens, subject to a KV
+cache budget; full micro-batches are sealed (``batch_requests``, the
+static mode's admission).  The same balance criterion applied to one
+request at a time is how the continuous-batching scheduler admits
+(``place_request``).  Beside them: the block-granular charge of the paged
+KV pool, and the running estimate of generation lengths behind EOS-aware
+reservations.
+"""
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
 
 
 class GenLenEWMA:
@@ -37,6 +44,59 @@ class GenLenEWMA:
         if self.value is None:
             return max_new_tokens
         return max(1, min(max_new_tokens, math.ceil(self.value)))
+
+
+@dataclass(frozen=True)
+class Request:
+    rid: int
+    input_len: int
+    gen_len: int = 0
+
+
+@dataclass
+class MicroBatch:
+    requests: List[Request] = field(default_factory=list)
+
+    @property
+    def tokens(self) -> int:
+        return sum(r.input_len for r in self.requests)
+
+    def __len__(self):
+        return len(self.requests)
+
+
+def batch_requests(req_queue: List[Request], n_ub: int, ubs: int,
+                   gen_len: int, cache_size: int
+                   ) -> Tuple[List[MicroBatch], List[Request]]:
+    """Algorithm 2 verbatim.
+
+    req_queue: queue of requests; n_ub: number of micro-batches;
+    ubs: max requests per micro-batch; gen_len: generation length;
+    cache_size: max cache tokens per micro-batch.
+    Returns (micro_batches, aborted_requests)."""
+    partitions: List[MicroBatch] = [MicroBatch() for _ in range(n_ub)]
+    partition_sums: List[int] = [0] * n_ub
+    micro_batches: List[MicroBatch] = []
+    aborted: List[Request] = []
+
+    for req in sorted(req_queue, key=lambda r: r.input_len, reverse=True):
+        idx = place_request(req.input_len, partition_sums,
+                            [len(p) for p in partitions],
+                            gen_len=gen_len, cache_size=cache_size)
+        if idx is None:
+            aborted.append(req)
+            continue
+        partitions[idx].requests.append(req)
+        partition_sums[idx] += req.input_len
+        if len(partitions[idx]) == ubs:
+            micro_batches.append(partitions.pop(idx))
+            partition_sums.pop(idx)
+    # remaining (non-empty, unsealed) partitions are emitted too — they are
+    # simply smaller; the engine pads them to the micro-batch size
+    for p in partitions:
+        if len(p):
+            micro_batches.append(p)
+    return micro_batches, aborted
 
 
 def place_request(input_len: int, partition_sums: Sequence[int],

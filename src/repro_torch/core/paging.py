@@ -1,7 +1,10 @@
 """Paged weights (``repro/core/paging.py``; paper Appendix A.1, Fig. 11).
 
 Layer weights are chunked into fixed-size *pages*; a page table maps
-(layer, leaf) → page span.  The expert-granular split
+(layer, leaf) → page span.  Whole-layer paging (``pack_block_groups``)
+packs every leaf of a layer into one span, streamed whole through the
+two-slot device buffer each forward pass (CGOPipe with paged weights).
+The expert-granular split
 (``pack_layer_stack_split`` / ``pack_block_groups_split``) divides each
 layer's manifest into a *shared* span (attention, norms, router, shared
 experts: streamed every layer through a two-slot device buffer, the
@@ -17,9 +20,10 @@ The port adds one affordance: ``PagedWeights.empty`` sizes the stores of a
 model from its stacked parameter shapes (tensors on the ``meta`` device
 will do), and ``write_layer`` fills them one (group, layer) at a time, so
 a model whose stack does not fit anywhere whole is packed layer by layer;
-``pack_block_groups_split`` is that loop over the stacked blocks.  The
-stores are host memory (``core.offload.weight_store``: page-locked for a
-CUDA engine).
+``pack_block_groups_split`` and ``pack_block_groups`` are that loop over
+the stacked blocks.  Whole-layer paging is a ``PagedWeights`` with no
+expert manifests (``split=False``).  The stores are host memory
+(``core.offload.weight_store``: page-locked for a CUDA engine).
 
 ``transfer_plan``, ``window_plan`` and ``predicted_drain_order`` schedule
 which pending transfer moves during which micro-batch.
@@ -242,16 +246,21 @@ class PagedWeights:
         return m.pages_per_layer * m.page_elems * _itemsize(m.dtype)
 
     @classmethod
-    def empty(cls, blocks: Dict, page_elems: int, device) -> "PagedWeights":
+    def empty(cls, blocks: Dict, page_elems: int, device, *,
+              split: bool = True) -> "PagedWeights":
         """Manifests and unfilled host stores for a model's stacked block
         params (``{key: tree of (L, ...) tensors}``; only shapes and dtypes
-        are read, so ``meta`` tensors do), for an engine on `device`."""
+        are read, so ``meta`` tensors do), for an engine on `device`.
+        ``split=False``: whole-layer spans, every leaf in ``pages`` (the
+        reference's ``pack_layer_stack`` layout) and no expert spans."""
         device = torch.device(device)
         pw = cls({}, {}, {}, {})
         for key, group in blocks.items():
             leaves = _flatten_with_paths(group)
-            shared = [(p, t) for p, t in leaves if not _is_expert_leaf(p)]
-            experts = [(p, t) for p, t in leaves if _is_expert_leaf(p)]
+            shared = [(p, t) for p, t in leaves
+                      if not (split and _is_expert_leaf(p))]
+            experts = [(p, t) for p, t in leaves
+                       if split and _is_expert_leaf(p)]
             m = _shared_manifest(shared, page_elems)
             pw.manifests[key] = m
             pw.pages[key] = offload.weight_store(
@@ -292,6 +301,19 @@ def pack_block_groups_split(blocks: Dict, page_elems: int = 1 << 20,
     params into host stores for an engine on `device`, one layer at a
     time (``PagedWeights.write_layer``)."""
     pw = PagedWeights.empty(blocks, page_elems, device)
+    for key, group in blocks.items():
+        for layer in range(pw.manifests[key].num_layers):
+            pw.write_layer(key, layer, layer_slice(group, layer))
+    return pw
+
+
+def pack_block_groups(blocks: Dict, page_elems: int = 1 << 20,
+                      device="cpu") -> PagedWeights:
+    """Whole-layer-pack every period-position group of a model's stacked
+    block params into host stores for an engine on `device`: pages[key] is
+    (L, pages_per_layer, page_elems), as the reference's
+    ``pack_block_groups`` returns it, and there are no expert spans."""
+    pw = PagedWeights.empty(blocks, page_elems, device, split=False)
     for key, group in blocks.items():
         for layer in range(pw.manifests[key].num_layers):
             pw.write_layer(key, layer, layer_slice(group, layer))

@@ -4,11 +4,11 @@ requested hardware, then runs the engine on synthetic requests and reports
 generation throughput as one JSON line.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
-      --smoke --requests 16 --hw h100 [--device cpu]
+      --smoke --requests 16 --hw h100 [--paged] [--device cpu]
 
-The port of ``repro/launch/serve.py``; whole-layer paged weights
-(``--paged``) are a later slice.  It runs on the card unless ``--device``
-names another device.
+The port of ``repro/launch/serve.py``: ``--paged`` streams the blocks'
+weights whole-layer from page-locked host stores.  It runs on the card
+unless ``--device`` names another device.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--hw", default="l4",
                     help="HRM hardware preset for policy advice")
+    ap.add_argument("--paged", action="store_true")
     ap.add_argument("--ubatch", type=int, default=4)
     ap.add_argument("--num-ubs", type=int, default=2)
     ap.add_argument("--device", default=None,
@@ -61,7 +62,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          device=device)
     eng = Engine(cfg, params, EngineConfig(
         ubatch=args.ubatch, num_ubs=args.num_ubs,
-        max_seq=args.prompt_len + args.gen_len + 8),
+        max_seq=args.prompt_len + args.gen_len + 8, paged=args.paged),
         ExecPolicy(moe_impl="grouped", use_kernels=True), device=device)
     rng = np.random.default_rng(0)
     for _ in range(args.requests):
@@ -75,8 +76,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
            "done": sum(r.done and not r.aborted
                        for r in eng.scheduler.requests.values()),
            "tokens": total, "seconds": round(dt, 2),
-           "tok_per_s": round(total / dt, 2), "device": str(device)}
+           "tok_per_s": round(total / dt, 2), "paged": args.paged,
+           "device": str(device)}
     print(json.dumps(res), flush=True)
+    if eng.paged_blocks is not None:
+        eng.paged_blocks.release()
     return res
 
 

@@ -255,11 +255,12 @@ def write_decode_paged(layer_cache: Dict, new: Dict, pos) -> Dict:
 # axis) for every other leaf.
 # ---------------------------------------------------------------------------
 
-def reset_slot(cache: Dict, row: int) -> Dict:
-    """Restore batch row `row` to its init_cache state (slot_pos = -1,
-    pos = 0, zeros elsewhere), in place; other rows are untouched.  Paged
-    groups are left alone: a freed slot maps no arena blocks, and fresh
-    allocations clear their slot_pos plane at map time."""
+def reset_slot(cache: Dict, row) -> Dict:
+    """Restore batch row `row` (an index, or a slice of rows) to its
+    init_cache state (slot_pos = -1, pos = 0, zeros elsewhere), in place;
+    other rows are untouched.  Paged groups are left alone: a freed slot
+    maps no arena blocks, and fresh allocations clear their slot_pos plane
+    at map time."""
     for k, v in cache.items():
         if k == "pos":
             v[row] = 0
@@ -379,6 +380,16 @@ def slot_rows(cache: Dict, start: int, n: int) -> Dict:
     return {k: (slot_rows(v, start, n) if isinstance(v, dict)
                 else v.narrow(0 if k == "pos" else 1, start, n))
             for k, v in cache.items()}
+
+
+def concat_slot_caches(caches):
+    """One window cache of several groups' slot caches, group-major (a
+    copy; the static engine's windows, whose micro-batches need not hold
+    consecutive rows of the pool)."""
+    return {k: (concat_slot_caches([c[k] for c in caches])
+                if isinstance(v, dict)
+                else torch.cat([c[k] for c in caches], 0 if k == "pos" else 1))
+            for k, v in caches[0].items()}
 
 
 def split_slot_cache(cache: Dict, n: int):

@@ -7,14 +7,16 @@ JAX's ``lax.scan`` over the stacked layers becomes a Python loop over layer
 slices: each layer's parameters and cache are views into the stacked
 tensors, so the ring writes of a layer land in the stacked cache.
 
-With expert-granular paged weights (``paged_blocks``, a
-``core.paging.PagedWeights`` in host stores) the blocks' parameters are not
-on the device: each layer's shared span (attention, norms, router) streams
-through a two-slot device buffer, layer i+1's copy running on a copy stream
-while layer i computes (``_SpanStream``, the Appendix A.1 double buffer),
-and the MoE FFN fetches only the activated experts' spans per layer
-(``_ExpertCtx``).  The schedule is fixed by the layer index and ordered by
-CUDA events, so nothing is read back to the host.
+With paged weights (``paged_blocks``, a ``core.paging.PagedWeights`` in
+host stores) the blocks' parameters are not on the device: each layer's
+span streams through a two-slot device buffer, layer i+1's copy running on
+a copy stream while layer i computes (``_SpanStream``, the Appendix A.1
+double buffer).  Whole-layer paging streams every leaf of the layer that
+way; on the expert-granular path the span holds the shared leaves
+(attention, norms, router) and the MoE FFN fetches only the activated
+experts' spans per layer (``_ExpertCtx``).  The schedule is fixed by the
+layer index and ordered by CUDA events, so nothing is read back to the
+host.
 
 Execution strategy is injected through an `ExecPolicy`, as in the JAX
 package.
@@ -75,7 +77,8 @@ class _ExpertCtx:
 
 
 class _SpanStream:
-    """One group's shared spans through a two-slot device buffer (the
+    """One group's layer spans (whole layers, or their shared leaves on the
+    expert-granular path) through a two-slot device buffer (the
     ``paging.DoubleBuffer`` of Appendix A.1): layer i+1's span is copied on
     the copy stream while layer i computes out of the other slot.  Events
     order it: a slot is refilled only after the layer that read it is done,
@@ -214,9 +217,10 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
     one expert-span read each, and "expert_counts" gains a group axis.
 
     paged_blocks: a ``core.paging.PagedWeights`` in host stores that
-    replaces ``params["blocks"]``: each layer's shared span streams through
-    a two-slot device buffer and the MoE experts are fetched router-gated
-    per layer.  ``expert_state`` then maps each MoE group key to (pool
+    replaces ``params["blocks"]``: each layer's span (the whole layer, or
+    its shared leaves) streams through a two-slot device buffer, and with
+    expert manifests the MoE experts are fetched router-gated per layer.
+    ``expert_state`` then maps each MoE group key to (pool
     (slots, ppe, page_elems), resident_map (L, E) int32) on the device:
     spans whose map entry is >= 0 are read from the pool, the rest from
     the host store.  The result gains "expert_counts" ({key: (L, E)}, or

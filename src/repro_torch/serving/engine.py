@@ -1,7 +1,11 @@
-"""Continuous-batching inference engine of the PyTorch port: the
-``mode="continuous"`` subset of ``repro/serving/engine.py`` with resident
-weights, and the KV cache either as a dense ring per slot or as the shared
-block-paged arena with a host tier (``kv_paged``).
+"""Offloading-aware inference engine of the PyTorch port
+(``repro/serving/engine.py``) with a continuous-batching slot pool, the
+static micro-batch mode, the weights resident, paged whole-layer
+(``paged``) or paged per expert (``expert_paged``), and the KV cache either
+as a dense ring per slot or as the shared block-paged arena with a host
+tier (``kv_paged``).
+
+Continuous mode (``mode="continuous"``, the default):
 
   * one persistent KV pool of ``num_ubs × ubatch`` slots is allocated at
     construction — ``num_ubs`` rotation groups of ``ubatch`` batch rows.  A
@@ -85,13 +89,39 @@ prepares the KV working set first, reads the arena through its page table
 and the experts through the residency map, and the KV prefetch drains
 after the expert one, in the reference's order.
 
+Static mode (``mode="static"``, the paper's schedule and the reference's
+baseline): the scheduler's Algorithm 2 pass (``Scheduler.admit``) turns the
+queue into micro-batches of up to ``ubatch`` requests, admitted as a unit
+into the rotation groups retired micro-batches freed, prefilled μ rows at
+once at the bucket of the longest prompt, and decoded one token a tick
+(a chunk of 1), in rotation order, until every row is done; module-batched
+windows run ``module_groups`` micro-batches through one dispatch (their
+caches concatenated, a copy, and written back).  A micro-batch's rows are
+its rotation group's rows of the slot pool, reset at admission (the
+reference allocates a fresh cache).  Over the paged arena each admission
+books its rows' blocks; the arena's floor is one micro-batch, and a window
+that does not fit falls back to lockstep.  Static mode never prefetches
+experts (no group's router has run ahead of it, as in the reference).
+
+Whole-layer paged weights (``paged=True``, CGOPipe with paged weights,
+App. A.1): every leaf of a layer is packed into one span of page-locked
+host pages (``core.paging.pack_block_groups``), and every forward pass
+streams each layer through the two-slot device buffer, layer i+1's copy on
+the copy stream while layer i computes.  ``weight_traffic()`` books the
+page-padded bytes of every layer per forward pass.
+
+Sampling: greedy at ``temperature`` 0, else a categorical draw from
+``softmax(logits / temperature)`` with the engine's ``torch.Generator``,
+seeded by ``seed`` (prefill's first tokens and every decode step).  A
+prompt whose prompt + quota exceeds ``max_seq`` is rejected, or with
+``on_long_prompt="truncate"`` trimmed to ``max_seq - max_new_tokens``.
+
 Greedy transcripts, slot histories and every ``kv_traffic()`` and
 ``weight_traffic()`` counter equal the JAX engine's on the same weights
-(the parity tests hold the two against each other).  Whole-layer paged
-weights, static mode, int8 KV and the fault plane (with the degradation
-ladder's window rung) are later slices, and so are sampling at a
-temperature and long-prompt truncation: ``EngineConfig`` keeps the JAX
-package's names for the fields it has, and has no others.
+(the parity tests hold the two against each other).  int8 KV and the
+fault plane (with the degradation ladder's window rung) are later slices:
+``EngineConfig`` keeps the JAX package's names for the fields it has, and
+has no others.
 """
 from __future__ import annotations
 
@@ -109,16 +139,22 @@ from repro_torch.models import kvcache
 from repro_torch.models.model import ExecPolicy
 from repro_torch.serving import steps as serve_steps
 from repro_torch.serving.sampling import sample
-from repro_torch.serving.scheduler import Scheduler, SlotState
+from repro_torch.serving.scheduler import Scheduler, ServeRequest, SlotState
 
 
 @dataclass
 class EngineConfig:
-    ubatch: int = 4                   # μ rows per slot group
+    ubatch: int = 4                   # μ rows per micro-batch / slot group
     num_ubs: int = 2                  # rotation groups in the slot pool
-    max_seq: int = 128                # ring width; longer requests abort
+    max_seq: int = 128                # ring width
+    temperature: float = 0.0          # 0: greedy
+    paged: bool = False               # whole-layer paged-weight streaming
+    page_elems: int = 1 << 16
     eos_id: int = 1
-    decode_chunk: int = 8             # tokens per masked decode chunk
+    seed: int = 0                     # seeds the sampling generator
+    mode: str = "continuous"          # "continuous" | "static"
+    decode_chunk: int = 8             # tokens per masked chunk (continuous)
+    on_long_prompt: str = "reject"    # "reject" | "truncate" (> max_seq)
     overlap: bool = False             # staged chunked-prefill admission
     prefill_chunk: int = 32           # chunk width for overlapped prefill
     reserve_mode: str = "worst"       # "worst" | "ewma" (EOS-aware)
@@ -135,7 +171,6 @@ class EngineConfig:
                                       # spilled blocks back in
                                       # paging.transfer_plan slices
     # ------------------------------------ expert-granular paged weights
-    page_elems: int = 1 << 16
     expert_paged: bool = False        # per-(layer, expert) spans + residency
     w_gpu_ratio: float = 0.25         # r_w — sizes the resident expert pool
     expert_slots: Optional[int] = None  # explicit pool size (spans) override
@@ -185,6 +220,19 @@ class _SlotGroup:
         self.pred: Dict[str, np.ndarray] = {}
 
 
+class _ActiveBatch:
+    """Static mode: a micro-batch admitted (and retired) as a unit, in the
+    rows of rotation group `gid` of the slot pool (`cache`: views)."""
+
+    def __init__(self, requests: List[ServeRequest], cache, last_tokens,
+                 gid: int):
+        self.requests = requests
+        self.cache = cache
+        self.last_tokens = last_tokens       # (μ,) next input token
+        self.pred: Dict[str, np.ndarray] = {}
+        self.gid = gid
+
+
 def _to_device(tree: Dict, device: torch.device) -> Dict:
     return {k: (_to_device(v, device) if isinstance(v, dict)
                 else v.to(device))
@@ -196,26 +244,45 @@ def _nbytes(tree: Dict) -> int:
                for v in tree.values())
 
 
+def _copy_into(dst: Dict, src: Dict) -> None:
+    """Copy every leaf of `src` into `dst`'s leaf of the same path."""
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_into(v, src[k])
+        else:
+            v.copy_(src[k])
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
                  policy: Optional[ExecPolicy] = None, *,
                  device: DeviceLike = None,
                  paged_weights: Optional[paging.PagedWeights] = None):
-        """With ``expert_paged``, the blocks' weights come from
+        """With ``paged`` or ``expert_paged``, the blocks' weights come from
         ``params["blocks"]`` (packed here into host stores) or, already
-        packed, from ``paged_weights``; ``params`` then needs no "blocks",
-        and its other leaves go to the device."""
+        packed, from ``paged_weights`` (``core.paging.pack_block_groups``
+        or ``pack_block_groups_split`` form); ``params`` then needs no
+        "blocks", and its other leaves go to the device."""
+        if ecfg.mode not in ("continuous", "static"):
+            raise ValueError(f"unknown mode {ecfg.mode!r}")
+        if ecfg.overlap and ecfg.mode != "continuous":
+            raise ValueError("overlap admission requires continuous mode")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
         self.policy = policy
         resident = ({k: v for k, v in params.items() if k != "blocks"}
-                    if ecfg.expert_paged else params)
+                    if ecfg.expert_paged or ecfg.paged else params)
         self.params = _to_device(resident, self.device)
         self.scheduler = Scheduler(
-            ubatch=ecfg.ubatch, num_ubs=ecfg.num_ubs, max_seq=ecfg.max_seq,
-            cache_tokens=ecfg.cache_tokens, reserve_mode=ecfg.reserve_mode,
+            ubatch=ecfg.ubatch, num_ubs=ecfg.num_ubs,
+            cache_tokens=ecfg.cache_tokens or ecfg.max_seq * ecfg.ubatch,
+            gen_len=32, max_input_len=ecfg.max_seq,
+            on_long_prompt=ecfg.on_long_prompt,
+            reserve_mode=ecfg.reserve_mode,
             block_tokens=ecfg.block_tokens if ecfg.kv_paged else None)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            ecfg.seed)
         self.paged_blocks: Optional[paging.PagedWeights] = None
         self.residency: Dict[str, residency.ExpertResidency] = {}
         self._expert_pool: Dict[str, torch.Tensor] = {}
@@ -230,11 +297,22 @@ class Engine:
         self._fwd_passes = 0          # forward passes dispatched (traffic)
         if ecfg.expert_paged:
             self._init_expert_pool(params.get("blocks"), paged_weights)
+        elif ecfg.paged:
+            self.paged_blocks = paged_weights or paging.pack_block_groups(
+                params["blocks"], ecfg.page_elems, self.device)
+        # router-ahead and gate-predicted prefetch run ahead of the next
+        # rotation group's chunk: continuous mode only (in static mode no
+        # group's router has run ahead, as in the reference)
+        self._prefetching = ecfg.prefetch and ecfg.mode == "continuous"
         self._prefill = serve_steps.make_prefill_fill_step(
             cfg, policy, paged_blocks=self.paged_blocks)
+        # static mode decodes one token a tick, so that it can retire a
+        # micro-batch on the token its last row finishes
+        chunk = ecfg.decode_chunk if ecfg.mode == "continuous" else 1
         self._decode_chunk = serve_steps.make_decode_chunk(
-            cfg, policy, paged_blocks=self.paged_blocks, eos_id=ecfg.eos_id,
-            chunk=ecfg.decode_chunk)
+            cfg, policy, paged_blocks=self.paged_blocks,
+            temperature=ecfg.temperature, generator=self.generator,
+            eos_id=ecfg.eos_id, chunk=chunk)
         # module-based batching: windows of _mg rotation groups decode
         # through one dispatch; a remainder window runs lockstep
         self._mg = 1
@@ -248,8 +326,9 @@ class Engine:
                 mg = max(1, min(mg, ecfg.module_stage_tokens // ecfg.ubatch))
             self._mg = mg
         self._decode_window = (serve_steps.make_decode_chunk(
-            cfg, policy, paged_blocks=self.paged_blocks, eos_id=ecfg.eos_id,
-            chunk=ecfg.decode_chunk, token_groups=self._mg)
+            cfg, policy, paged_blocks=self.paged_blocks,
+            temperature=ecfg.temperature, generator=self.generator,
+            eos_id=ecfg.eos_id, chunk=chunk, token_groups=self._mg)
             if self._mg > 1 else None)
         self._windows = [list(range(i, min(i + self._mg, ecfg.num_ubs)))
                          for i in range(0, ecfg.num_ubs, self._mg)]
@@ -272,6 +351,12 @@ class Engine:
         self.groups: List[_SlotGroup] = [
             _SlotGroup(c, ecfg.ubatch)
             for c in kvcache.split_slot_cache(self._slot_pool, ecfg.num_ubs)]
+        # static mode: the active micro-batches in rotation order, and the
+        # rotation groups free to take the next ones (FIFO, as the
+        # reference hands out its paged-KV slot groups)
+        self.active: List[_ActiveBatch] = []
+        self._static_gids: List[int] = list(range(ecfg.num_ubs))
+        self._static_scratch = None
         # overlapped (staged) admission: PREFILL slots in FIFO order, the
         # scratch of the one in flight, and two batch-1 scratches (the next
         # admission's first chunk takes one while the other is reset)
@@ -285,10 +370,16 @@ class Engine:
             self._free_scratches = [
                 kvcache.init_cache(cfg, 1, ecfg.max_seq, device=self.device)
                 for _ in range(2)]
-        else:
+        elif ecfg.mode == "continuous":
             # batch-1 admission-prefill cache, reset before every admission
             self._prefill_scratch = kvcache.init_cache(
                 cfg, 1, ecfg.max_seq, device=self.device)
+        elif ecfg.kv_paged:
+            # static over the paged arena: a micro-batch prefills into a
+            # dense μ-row cache, reset before every admission, whose rows
+            # are then scattered into their arena blocks
+            self._static_scratch = kvcache.init_cache(
+                cfg, ecfg.ubatch, ecfg.max_seq, device=self.device)
         self.steps = 0
         self.tokens_out = 0
 
@@ -340,10 +431,12 @@ class Engine:
         n_slots = ecfg.num_ubs * ecfg.ubatch
         total = n_slots * mb
         # r_c sizes the arena; the floor keeps one admission's worst case
-        # (one slot) mappable so progress is always possible — kv_traffic()
-        # reports the bytes actually allocated, never the un-clamped ratio
+        # (one slot continuous, one micro-batch static) mappable so progress
+        # is always possible — kv_traffic() reports the bytes actually
+        # allocated, never the un-clamped ratio
+        floor = mb * (ecfg.ubatch if ecfg.mode == "static" else 1)
         device_blocks = min(total, max(
-            mb, int(round(ecfg.kv_gpu_ratio * total))))
+            floor, int(round(ecfg.kv_gpu_ratio * total))))
         self._kv_arena = kvcache.init_paged_arena(
             cfg, device_blocks, ecfg.block_tokens, device=self.device)
         block_bytes = sum(
@@ -387,8 +480,13 @@ class Engine:
         `decode_chunk`-token masked chunk per rotation group (or per
         module-batched window of groups) and recycle the slots that drain.
         With ``overlap`` admission is staged: one prompt chunk is
-        prefilled per tick, ahead of the decode chunks.  Returns True if
-        any work was done."""
+        prefilled per tick, ahead of the decode chunks.  Static mode admits
+        whole micro-batches into free rotation groups, decodes one token
+        per active micro-batch (or window of them) and retires the
+        micro-batches whose rows are all done.  Returns True if any work
+        was done."""
+        if self.ecfg.mode == "static":
+            return self._step_static()
         if self.ecfg.overlap:
             self._staged.extend(self.scheduler.admit_to_slots())
             did = self._prefill_tick()
@@ -432,6 +530,10 @@ class Engine:
             w <<= 1
         return min(w, self.ecfg.prefill_chunk)
 
+    def _sample_first(self, logits) -> int:
+        return int(sample(logits, self.generator,
+                          temperature=self.ecfg.temperature)[0])
+
     @staticmethod
     def _emit(toks, emitted, row_req):
         """Replay a chunk's emissions into request transcripts.
@@ -461,7 +563,7 @@ class Engine:
                 scratch,
                 torch.tensor([len(eff)], dtype=torch.int32,
                              device=self.device))
-            first = int(sample(logits)[0])
+            first = self._sample_first(logits)
             r.generated.append(first)
             group = self.groups[slot.gid]
             if self._kv is not None:
@@ -545,7 +647,7 @@ class Engine:
                                      slot.row, t, length=width)
         self.scheduler.prefill_progress(slot, n)
         if slot.prefill_pos >= len(eff):         # final chunk: first token
-            first = int(sample(logits)[0])
+            first = self._sample_first(logits)
             r.generated.append(first)
             group.last_tok[slot.row] = first
             self._free_scratches.append(
@@ -638,12 +740,196 @@ class Engine:
             self._kv_enqueue_prefetch(gids)
             self._kv_drain_prefetch(gids)
 
+    # ----------------------------------------------------- static mode
+    def _admit_static(self) -> None:
+        """Admit Algorithm 2's micro-batches into the rotation groups that
+        retired micro-batches freed: each is prefilled μ rows at once (rows
+        beyond its requests are padding, of length 0) at the bucket of its
+        longest prompt, in its group's rows of the slot pool, reset first.
+        Over the paged arena the prefill runs on a dense μ-row scratch, and
+        each row's prompt blocks are booked before its ring is scattered
+        into them."""
+        mu = self.ecfg.ubatch
+        dev = self.device
+        for group in self.scheduler.admit(self.ecfg.num_ubs
+                                          - len(self.active)):
+            S = self._bucket(max(r.input_len for r in group))
+            toks = np.zeros((mu, S), np.int32)
+            lens = np.zeros((mu,), np.int32)
+            for i, r in enumerate(group):
+                toks[i, :r.input_len] = r.prompt
+                lens[i] = r.input_len
+            gid = self._static_gids.pop(0)
+            rows = self.groups[gid].cache
+            kvcache.reset_slot(rows, slice(None))
+            cache = (dict(rows) if self._kv is None else
+                     kvcache.reset_slot(self._static_scratch, slice(None)))
+            logits, cache = self._run_prefill(
+                self._prefill, torch.as_tensor(toks, device=dev), cache,
+                torch.as_tensor(lens, device=dev))
+            first = sample(logits, self.generator,
+                           temperature=self.ecfg.temperature).cpu().numpy()
+            for i, r in enumerate(group):
+                r.generated.append(int(first[i]))
+                if len(r.generated) >= r.max_new_tokens:
+                    r.done = True                 # 1-token request
+            if self._kv is None:
+                rows["pos"].copy_(cache["pos"])
+            else:
+                # land the dense prefill in arena blocks: book each row's
+                # prompt, then scatter the rows through the page table
+                slots = list(range(gid * mu, (gid + 1) * mu))
+                for i, r in enumerate(group):
+                    ops, ok, _ = self._kv.ensure_tokens(
+                        slots[i], r.input_len, self.ecfg.block_tokens, slots)
+                    self._kv_exec(ops)
+                    if not ok:
+                        raise RuntimeError("a static micro-batch exceeds "
+                                           "the KV arena")
+                pooled = self._compose_kv(rows, [gid])
+                for i in range(len(group)):
+                    kvcache.insert_slot(pooled, cache, i, i)
+            self.active.append(_ActiveBatch(list(group), rows,
+                                            first.astype(np.int32), gid))
+
+    def _release_static(self, ab: _ActiveBatch) -> None:
+        self.active.remove(ab)
+        if self._kv is not None:
+            for row in range(ab.gid * self.ecfg.ubatch,
+                             (ab.gid + 1) * self.ecfg.ubatch):
+                self._kv.free_slot(row)
+        self._static_gids.append(ab.gid)
+
+    def _kv_prepare_static(self, window) -> bool:
+        """Static analogue of `_kv_prepare_group` for one micro-batch or a
+        window of them: every live row's blocks device-resident plus its
+        next token's block mapped, under one protect set (preparing a
+        later batch must not spill an earlier one's blocks).  Static mode
+        never preempts: the arena's floor guarantees that one micro-batch
+        fits (else this raises), but not a window — for a window this
+        returns False, and the caller runs its batches lockstep."""
+        mu = self.ecfg.ubatch
+        protect = [ab.gid * mu + i for ab, active, _ in window
+                   for i in range(len(ab.requests)) if active[i]]
+        for ab, active, _ in window:
+            for i, r in enumerate(ab.requests):
+                if not active[i]:
+                    continue
+                ops, ok, _ = self._kv.ensure_tokens(
+                    ab.gid * mu + i, r.footprint + 1, self.ecfg.block_tokens,
+                    protect)
+                self._kv_exec(ops)
+                if ok:
+                    continue
+                if len(window) > 1:
+                    return False
+                raise RuntimeError("a static micro-batch exceeds the KV "
+                                   "arena")
+        return True
+
+    def _tick_static(self, window) -> bool:
+        """One single-token dispatch over `window`, a list of (micro-batch,
+        active rows, remaining quotas): one micro-batch (lockstep), or
+        ``_mg`` of them through one module-batched dispatch (their rows of
+        the pool as one view where their groups are ascending and
+        consecutive, else their caches concatenated in window order and
+        written back after) and, over the paged arena, one window-wide
+        page table.  Returns False, having dispatched nothing,
+        if a window's working set does not fit the arena at once."""
+        mu = self.ecfg.ubatch
+        abs_ = [ab for ab, _, _ in window]
+        gids = [ab.gid for ab in abs_]
+        if self._kv is not None:
+            if not self._kv_prepare_static(window):
+                return False
+            for g in gids:
+                self._kv_note_gather([g], 1)
+        # batches in ascending, consecutive rotation groups are one run of
+        # the pool's rows: a view the dispatch writes in place (as the
+        # continuous windows do); others are concatenated in window order
+        view = gids == list(range(gids[0], gids[0] + len(gids)))
+        if view:
+            dense = kvcache.slot_rows(self._slot_pool, gids[0] * mu,
+                                      len(gids) * mu)
+            pos = dense["pos"]
+        else:
+            dense = kvcache.concat_slot_caches([ab.cache for ab in abs_])
+        cache = (self._compose_kv(dense, gids) if self._kv is not None
+                 else dense)
+        dev = self.device
+        args = (self.params, cache,
+                torch.as_tensor(np.concatenate(
+                    [ab.last_tokens for ab in abs_])[:, None], device=dev),
+                torch.as_tensor(np.concatenate([a for _, a, _ in window]),
+                                device=dev),
+                torch.as_tensor(np.concatenate([r for _, _, r in window]),
+                                device=dev))
+        fn = self._decode_window if len(abs_) > 1 else self._decode_chunk
+        self._fwd_passes += 1
+        if self.residency:
+            cache, tok, act2, toks, emitted = self._decode_expert(
+                fn, args, abs_, gids)
+        else:
+            cache, tok, act2, _, toks, emitted = fn(*args)
+        if view:
+            pos.copy_(cache["pos"])
+        else:
+            for ab, part in zip(abs_, kvcache.split_slot_cache(
+                    {k: cache[k] for k in dense}, len(abs_))):
+                _copy_into(ab.cache, part)
+        tok = tok[:, 0].cpu().numpy()                     # sync
+        act2, toks, emitted = (act2.cpu().numpy(), toks.cpu().numpy(),
+                               emitted.cpu().numpy())
+        for j, (ab, (_, active, _)) in enumerate(zip(abs_, window)):
+            sl = slice(j * mu, (j + 1) * mu)
+            ab.last_tokens = tok[sl]
+            row_req = [ab.requests[i] if i < len(ab.requests) else None
+                       for i in range(mu)]
+            self.tokens_out += self._emit(toks[:, sl], emitted[:, sl],
+                                          row_req)
+            for i, r in enumerate(ab.requests):
+                if active[i] and not act2[j * mu + i]:
+                    r.done = True
+            if all(r.done for r in ab.requests):
+                self._release_static(ab)
+        return True
+
+    def _step_static(self) -> bool:
+        self._admit_static()
+        if not self.active:
+            return False
+        mu = self.ecfg.ubatch
+        work = []
+        for ab in list(self.active):  # rotation: ub_0, ub_1, ... (Alg. 1)
+            active = np.zeros((mu,), bool)
+            rem = np.zeros((mu,), np.int32)
+            for i, r in enumerate(ab.requests):
+                if not r.done and len(r.generated) < r.max_new_tokens:
+                    active[i] = True
+                    rem[i] = r.max_new_tokens - len(r.generated)
+            if not active.any():          # e.g. every quota met at prefill
+                self._release_static(ab)
+                continue
+            work.append((ab, active, rem))
+        i = 0
+        while i < len(work):
+            window = work[i:i + self._mg]
+            if self._mg > 1 and len(window) == self._mg \
+                    and self._tick_static(window):
+                i += self._mg
+            else:
+                self._tick_static(work[i:i + 1])
+                i += 1
+        self.steps += 1
+        return True
+
     # ---------------------------------- expert residency (data+control)
     def _decode_expert(self, fn, args, holders, gids: List[int]):
-        """One dispatch (a group's chunk, or a window's) on the
-        expert-paged path.  Every resident span is pinned for the dispatch
-        (the chunk may read any of them from the pool); after the
-        dispatch, the router-ahead sets of the next window's groups and
+        """One dispatch (a group's chunk, or a window's; a static
+        micro-batch's or a static window's) on the expert-paged path.
+        Every resident span is pinned for the dispatch (the chunk may read
+        any of them from the pool); after the dispatch (continuous mode
+        only), the router-ahead sets of the next window's groups and
         the gate predictor's spans for these groups' next chunk are queued
         and the union of these positions' slices drains into free slots on
         the copy stream; once the results are back, the spans are
@@ -657,7 +943,7 @@ class Engine:
             r.pin_resident()
         cache, tok, act2, _, toks, emitted, counts = fn(
             *args, self._expert_state())
-        if self.ecfg.prefetch:
+        if self._prefetching:
             self._enqueue_prediction(gids)
             if self._predictors:
                 self._enqueue_gate_predictions(holders)
@@ -670,7 +956,7 @@ class Engine:
                   for k, r in self.residency.items()}
         for r in self.residency.values():
             r.unpin_all()
-        if self.ecfg.prefetch:
+        if self._prefetching:
             # landed: retry the refused slice, evictions now allowed
             self._drain_prefetch(gids, retry_refused=False)
         if len(gids) > 1:
@@ -875,7 +1161,8 @@ class Engine:
         self._pending = keep + requeued
 
     def weight_traffic(self) -> Dict[str, float]:
-        """H2D weight traffic, the JAX engine's dict.  The expert-granular
+        """H2D weight traffic, the JAX engine's dict.  Whole-layer paging
+        moves every layer's span each forward pass.  The expert-granular
         path moves every layer's shared span each forward pass (through
         the two-slot buffer) plus the missed and prefetched expert spans
         that core.residency booked.  Per phase: ``attn_phase_bytes`` are the
@@ -889,10 +1176,21 @@ class Engine:
                                  "module_batch": self._mg > 1,
                                  "module_groups": self._mg}
         if not self.residency:
-            out.update(mode="resident", h2d_bytes=0, attn_phase_bytes=0,
+            per_pass = 0
+            if self.ecfg.paged:
+                # every layer's page-padded span streams each forward pass
+                per_pass = sum(self.paged_blocks.shared_layer_bytes(k)
+                               * m.num_layers for k, m in
+                               self.paged_blocks.manifests.items())
+                out["mode"] = "paged"
+            else:
+                out["mode"] = "resident"
+            out.update(h2d_bytes=per_pass * self._fwd_passes,
+                       attn_phase_bytes=per_pass * self._fwd_passes,
                        expert_phase_bytes=0,
                        module_groups_effective=float(self._mg))
-            out["bytes_per_token_amortized"] = 0 / max(1, self.tokens_out)
+            out["bytes_per_token_amortized"] = (out["h2d_bytes"]
+                                                / max(1, self.tokens_out))
             return out
         pw = self.paged_blocks
         shared = sum(pw.shared_layer_bytes(k) * pw.manifests[k].num_layers

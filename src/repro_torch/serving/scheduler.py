@@ -1,13 +1,23 @@
-"""Request scheduler of the continuous-batching slot-pool engine: a FCFS
-queue, per-slot lifecycle tracking, and admission of single requests into
-freed slots via the paper's Algorithm 2 balance criterion
-(core.batching.place_request).
+"""Request scheduler of the slot-pool engine: a FCFS queue, admission via
+the paper's Algorithm 2, and per-slot lifecycle tracking.
 
-The continuous subset of ``repro/serving/scheduler.py``.  Each rotation
-group has a KV budget of ``cache_tokens`` (by default its physical slice of
-the pool, ``max_seq × ubatch``; a tighter one, e.g. from the HRM policy, is
-what lets more requests share a group).  Reservation policy,
-``reserve_mode``:
+``repro/serving/scheduler.py`` without degraded-mode shedding.  Two
+admission modes:
+
+  * batch (``admit``): Algorithm 2 over the whole queue — μ-sized
+    micro-batches with balanced token counts under the KV budget, each
+    request reserving the uniform ``gen_len`` (static engine mode);
+  * incremental (``admit_to_slots``): FCFS placement of single requests
+    into freed slots via Algorithm 2's balance criterion
+    (core.batching.place_request), used by the continuous engine.
+
+Each rotation group has a KV budget of ``cache_tokens`` (the engine passes
+its physical slice of the pool, ``max_seq × ubatch``, unless a tighter
+one, e.g. from the HRM policy, is set).  A prompt whose prompt +
+generation exceeds ``max_input_len`` (the ring width) is rejected at
+``submit``, or with ``on_long_prompt="truncate"`` trimmed to
+``max_input_len - max_new_tokens`` tokens.  Reservation policy of
+incremental admission, ``reserve_mode``:
 
   * ``"worst"`` — every live request reserves its full remaining quota, so
     admission alone keeps a group's KV footprint within ``cache_tokens``.
@@ -22,8 +32,7 @@ to whole blocks, and the engine may also preempt a request when the shared
 arena overflows.  A preempted request's slot is freed and the request
 re-queued at its FCFS position with its transcript intact; re-admission
 prefills prompt + generated-so-far (recompute preemption), so greedy output
-is unchanged.  Batch admission (static mode) and degraded-mode shedding are
-later slices.
+is unchanged.
 
 Slot lifecycle: FREE → PREFILL → DECODE → FREE.  A slot is one batch row
 of one rotation group's pooled KV cache; `Slot.history` records every
@@ -40,7 +49,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.batching import (GenLenEWMA, place_request,
+from repro_torch.core.batching import (GenLenEWMA, Request,
+                                       batch_requests, place_request,
                                        round_to_blocks)
 
 
@@ -97,20 +107,22 @@ class Slot:
 
 
 class Scheduler:
-    def __init__(self, *, ubatch: int, num_ubs: int, max_seq: int,
-                 cache_tokens: Optional[int] = None,
+    def __init__(self, *, ubatch: int, num_ubs: int, cache_tokens: int,
+                 gen_len: int, max_input_len: Optional[int] = None,
+                 on_long_prompt: str = "reject",
                  reserve_mode: str = "worst", ewma_alpha: float = 0.25,
                  block_tokens: Optional[int] = None):
         self.ubatch = ubatch
         self.num_ubs = num_ubs
-        self.max_seq = max_seq
-        # per-group KV budget: by default the group's physical slice of the
-        # pool; a tighter policy budget makes EOS-aware reservations bite
-        self.cache_tokens = cache_tokens or max_seq * ubatch
+        self.cache_tokens = cache_tokens
+        self.gen_len = gen_len
+        self.max_input_len = max_input_len
         # block-granular paged KV: a request occupies whole arena blocks,
         # so every budget charge rounds up to the block boundary (None =
         # dense max_seq-wide pool, token-exact accounting)
         self.block_tokens = block_tokens
+        assert on_long_prompt in ("reject", "truncate")
+        self.on_long_prompt = on_long_prompt
         assert reserve_mode in ("worst", "ewma")
         self.reserve_mode = reserve_mode
         self.gen_ewma = GenLenEWMA(ewma_alpha)
@@ -122,17 +134,60 @@ class Scheduler:
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int) -> int:
         rid = next(self._rid)
-        req = ServeRequest(rid, np.asarray(prompt, np.int32), max_new_tokens)
+        prompt = np.asarray(prompt, np.int32)
+        req = ServeRequest(rid, prompt, max_new_tokens)
         self.requests[rid] = req
-        if req.input_len + max_new_tokens > self.max_seq:
+        if self.max_input_len is not None and \
+                len(prompt) + max_new_tokens > self.max_input_len:
             # prompt + generation must fit the per-slot ring width: a longer
             # prompt crashes at prefill, and generation past the ring wraps
             # it and silently evicts the earliest context
-            req.aborted = True
-            req.done = True
-        else:
-            self.queue.append(req)
+            keep = self.max_input_len - max_new_tokens
+            if self.on_long_prompt == "truncate" and keep >= 1:
+                req.prompt = prompt[:keep]
+            else:
+                req.aborted = True
+                req.done = True
+                return rid
+        self.queue.append(req)
         return rid
+
+    def admit(self, max_groups: Optional[int] = None
+              ) -> List[List[ServeRequest]]:
+        """Run Algorithm 2 over the current queue; returns micro-batches
+        of ServeRequests (≤ max_groups ≤ num_ubs batches of ≤ ubatch
+        requests).
+        `max_groups` lets the engine cap admission to the rotation capacity
+        it has free, keeping the KV pool at its fixed budget."""
+        cap = self.num_ubs if max_groups is None \
+            else min(max_groups, self.num_ubs)
+        if not self.queue or cap <= 0:
+            return []
+        algo_reqs = [Request(r.rid, r.input_len, r.max_new_tokens)
+                     for r in self.queue]
+        mbs, aborted = batch_requests(algo_reqs, self.num_ubs, self.ubatch,
+                                      self.gen_len, self.cache_tokens)
+        aborted_ids = set()
+        for r in aborted:
+            if r.input_len + self.gen_len > self.cache_tokens:
+                # cannot fit even an empty partition under Algorithm 2's
+                # uniform gen_len reservation, so batch mode can never
+                # place it: abort permanently instead of re-queueing it
+                # forever (continuous mode reserves per-request quotas
+                # instead and would admit some of these)
+                req = self.requests[r.rid]
+                req.aborted = True
+                req.done = True
+            else:
+                aborted_ids.add(r.rid)         # deferred to a later round
+        admitted: List[List[ServeRequest]] = []
+        for mb in mbs[:cap]:
+            admitted.append([self.requests[r.rid] for r in mb.requests])
+        admitted_ids = {r.rid for g in admitted for r in g}
+        self.queue = [r for r in self.queue
+                      if not r.aborted and (r.rid in aborted_ids
+                                            or r.rid not in admitted_ids)]
+        return admitted
 
     def _reserve(self, req: ServeRequest) -> int:
         """Generation tokens reserved for a live (or candidate) request
@@ -166,14 +221,19 @@ class Scheduler:
         using Algorithm 2's balance criterion with per-request reservations
         (the exact remaining quota, or the EWMA expectation in "ewma"
         mode).  A request that would not fit an empty group even at its
-        worst case is aborted (preemption cannot shrink a lone request).
+        worst case, or whose transcript would outgrow ``max_input_len``,
+        is aborted (preemption cannot shrink a lone request; the ring
+        bound is normally enforced at submit, and re-checking it here
+        keeps recompute preemption safe for callers that skipped it).
         Marks chosen slots PREFILL and returns them; the engine prefills
         and flips them to DECODE."""
         assigned: List[Slot] = []
         while self.queue:
             req = self.queue[0]
-            if self._charge(req.footprint + req.remaining) \
-                    > self.cache_tokens:
+            worst = req.footprint + req.remaining
+            if self._charge(worst) > self.cache_tokens or \
+                    (self.max_input_len is not None
+                     and worst > self.max_input_len):
                 self.queue.pop(0)
                 req.aborted = True
                 req.done = True

@@ -1,8 +1,15 @@
 """Serving step functions of the PyTorch port (``repro/serving/steps.py``):
-the batch-1 admission prefill, its chunked form for overlapped admission
+the admission prefill (batch 1 in continuous mode, a whole micro-batch in
+static mode), its chunked form for overlapped admission
 (``prefill_chunk``) and the masked multi-token ``decode_chunk`` of the
-continuous-batching engine.  Prefill, monolithic or chunked, always runs
-on a dense batch-1 scratch; the paged pool is written by the slot inserts.
+slot-pool engine (a chunk of 1 in static mode).  Prefill, monolithic or
+chunked, runs on a dense cache; the paged pool is written by the slot
+inserts.  The reference's ``make_serve_step`` and ``make_prefill_step``
+are not ported: no ported driver calls them.
+
+Whole-layer paged weights (a ``core.paging.PagedWeights`` without expert
+manifests as ``paged_blocks``) change nothing here: the forward streams
+each layer through a two-slot device buffer.
 
 Expert-granular paging (a ``core.paging.PagedWeights`` with expert
 manifests as ``paged_blocks``) changes the step signatures: each step takes
@@ -87,8 +94,9 @@ def make_prefill_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
 
 
 def make_decode_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
-                      *, paged_blocks=None, eos_id: int = 1,
-                      chunk: int = 8,
+                      *, paged_blocks=None, temperature: float = 0.0,
+                      generator: Optional[torch.Generator] = None,
+                      eos_id: int = 1, chunk: int = 8,
                       token_groups: Optional[int] = None) -> Callable:
     """Masked multi-token decode for the slot-pool engine: `chunk` decode
     steps with a per-row *active* mask, so drained / free slots are carried
@@ -98,8 +106,10 @@ def make_decode_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
     (params, cache, tok (B,1), active (B,) bool, rem (B,) int32)
     -> (cache, tok, active, rem, toks (chunk,B) int32, emitted (chunk,B) bool)
 
-    Per step, an active row takes its greedy token, decrements its remaining
-    quota, and goes inactive on EOS or quota exhaustion; `emitted` marks
+    Per step, an active row samples its token (greedy at temperature 0,
+    else from ``softmax(logits / temperature)`` with uniforms drawn from
+    `generator`, the engine's), decrements its remaining quota, and goes
+    inactive on EOS or quota exhaustion; `emitted` marks
     exactly the (step, row) pairs whose token belongs to a request.
     Inactive rows keep their `pos`; the fixed-shape forward still writes KV
     at their frozen `pos % W` slot, so a drained row's cache is garbage
@@ -130,7 +140,7 @@ def make_decode_chunk(cfg: ModelConfig, policy: Optional[ExecPolicy] = None,
                           token_groups=token_groups)
             logits = unembed(cfg, params, out["hidden"][:, -1],
                              token_groups)
-            nxt = sample(logits)
+            nxt = sample(logits, generator, temperature=temperature)
             cache = out["cache"]
             cache["pos"] = torch.where(active, cache["pos"], pos0)
             emitted = active

@@ -87,8 +87,8 @@ def test_scheduler_event_trace_matches_jax(mode, block_tokens, seed):
     step (``ewma_alpha``)."""
     ub, nub, max_seq, budget, chunk = 3, 2, 48, 48, 4
     alpha = 0.25 if seed < 4 else 0.5
-    port = Scheduler(ubatch=ub, num_ubs=nub, max_seq=max_seq,
-                     cache_tokens=budget, reserve_mode=mode,
+    port = Scheduler(ubatch=ub, num_ubs=nub, cache_tokens=budget,
+                     gen_len=32, max_input_len=max_seq, reserve_mode=mode,
                      ewma_alpha=alpha, block_tokens=block_tokens)
     ref = JaxScheduler(ubatch=ub, num_ubs=nub, cache_tokens=budget,
                        gen_len=32, max_input_len=max_seq, reserve_mode=mode,
@@ -146,8 +146,8 @@ def test_scheduler_ewma_budget_preempts_youngest():
     token overrun the budget by their next chunk, so the youngest is
     preempted, re-queued and its slot freed."""
     ub, chunk = 3, 4
-    sched = Scheduler(ubatch=ub, num_ubs=1, max_seq=32, cache_tokens=40,
-                      reserve_mode="ewma")
+    sched = Scheduler(ubatch=ub, num_ubs=1, cache_tokens=40, gen_len=32,
+                      max_input_len=32, reserve_mode="ewma")
     sched.gen_ewma.observe(1)                # optimistic: expect 1 token
     for _ in range(3):
         sched.submit(np.arange(2, 12), 12)

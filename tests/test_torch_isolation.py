@@ -142,6 +142,28 @@ def test_launcher_matches_the_reference_advice_and_serves():
     assert res["tokens"] == 4 * 16 and res["device"] == "cpu"
 
 
+def test_launcher_paged_serves_without_jax():
+    """``repro_torch.launch.serve --paged --device cpu`` in a process where
+    jax cannot be imported: the whole-layer paged engine serves the same
+    requests and tokens as the resident one."""
+    code = (
+        "import sys, json\n"
+        "sys.modules['jax'] = None\n"
+        "from repro_torch.launch import serve\n"
+        "args = ['--smoke', '--hw', 'l4', '--requests', '4', "
+        "'--device', 'cpu']\n"
+        "res = [serve.main(args + extra) for extra in ([], ['--paged'])]\n"
+        "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
+        "print(json.dumps(res))\n")
+    r = _run(code, timeout=300)
+    assert r.returncode == 0, r.stderr
+    plain, paged = json.loads(r.stdout.strip().splitlines()[-1])
+    assert not plain["paged"] and paged["paged"]
+    for k in ("requests", "done", "tokens"):
+        assert paged[k] == plain[k]
+    assert paged["requests"] == paged["done"] == 4
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path, where):
     if where == "alone":
