@@ -26,6 +26,14 @@ Phases, each printing JSON lines:
                    with a pad slot at 4) must equal its plain version bit
                    for bit; beside it the pinned host-to-device copy rate
                    (``h2d_copy``) and the route through PyTorch calls.
+                   The int8 paths at the same served shapes (records
+                   ``kernel_int8``): moe_ffn with int8 experts and
+                   per-expert scales (decode, as 8 routed rows fill it,
+                   prefill), gqa_decode over the int8 ring of the half-
+                   filled row, the fused paged decode over the int8 arena
+                   (fused equal to write-then-attend bit for bit); their
+                   library yardsticks run on weights or rings dequantized
+                   to bf16 beforehand.
   3. serve       — the port's Engine at the full width of mixtral-8x7b with
                    the depth cut from 32 to 4 layers and every weight on
                    the card, random weights from a seed, the dense KV
@@ -102,21 +110,41 @@ Phases, each printing JSON lines:
                    from its seed and changes them with it; ``sample``'s
                    frequencies over 200 000 draws match softmax(logits /
                    T), and top_k=8 draws nothing else.
-  7. serve_layer_paged — the mixtral engines are released; the paper's
+     serve_int8  — ``serve`` with int8 expert weights and int8 KV
+                   (``expert_dtype`` / ``kv_dtype``), 4 layers on the
+                   card; ``serve_paged_int8`` the same weights over
+                   ``serve_paged``'s arena (spills, misses, prefetches
+                   required; KV bytes beside ``serve_paged``'s);
+                   ``check_int8`` (``check`` on them, and the int8-KV
+                   logits within a relative 0.05 of the bf16-KV ones with
+                   the routing replayed); ``check_expert_int8`` (the int8
+                   weights expert-paged at r_w 0.25: transcripts equal to
+                   a resident engine's whose scales are rounded to bf16,
+                   as the shared span holds them).
+  7. serve_expert_int8 — the mixtral engines are released; mixtral-8x7b
+                   at full width with int8 experts, all 32 layers where
+                   the host holds their 47.8 GB of stores (the rule's
+                   arithmetic printed), expert-paged with
+                   ``serve_expert``'s settings, the gather's link bytes
+                   a token a layer and rate; a trace window; the stores
+                   released, with a ``host_memory`` line after each
+                   release of stores.
+     serve_layer_paged — the paper's
                    configuration: mixtral-8x7b at full width, 8 of its 32
                    layers drawn into page-locked whole-layer stores (23.2
-                   GB; MemAvailable must hold them plus 20 % and 20 GiB),
+                   GB; the host must hold them plus 20 % and 20 GiB),
                    every layer streamed each pass, static micro-batches of
                    32 through windows: 64 requests of 32..256 prompt
                    tokens x 32; the bytes the copies moved against
                    ``weight_traffic()``, their rate against ``h2d_copy``,
-                   and a trace window.  The stores are released after
-                   (the process may keep their host memory for reuse, so
-                   the expert phases read MemAvailable after this).
+                   and a trace window.  The stores are released after.
+                   The host rule reads ``host_mem_available``: the
+                   machine's MemAvailable credits a released store's
+                   pages back late, the process's resident set at once.
      serve_expert — mixtral-8x7b at full
                    width and the deepest cut of its 32 layers that the
                    host holds (all 32 are ~93 GB of bf16 weights, more
-                   than the card holds): MemAvailable must hold the stores
+                   than the card holds): the host must hold the stores
                    plus 20 % and 20 GiB (never below 8 layers; printed as
                    layers / of_layers), drawn on the card layer by layer
                    from a seed into pinned host stores, served
@@ -436,6 +464,7 @@ def phase_kernels(torch, F):
             rec["served_occupancy"] = moe_occupancy_case(
                 torch, F, timer, rn, wi, wo, cfg_full, B, C)
     del wi, wo, x
+    records[-1]["int8"] = moe_int8_cases(torch, F, timer, rn, cfg_full, B, g)
 
     # gqa_decode over a half-filled 512-slot ring, as mid-serve, and over
     # the full ring (every slot valid)
@@ -476,6 +505,9 @@ def phase_kernels(torch, F):
            "full_ring": cases[1]}
     emit({"phase": "kernel_bf16", **rec})
     records.append(rec)
+    rec["int8"] = gqa_int8_case(
+        torch, F, timer, q, k, v,
+        torch.arange(W, device=DEVICE)[None, :] < lens[:, None])
 
     # flash_prefill on the largest prompt bucket
     S = PROMPT_LENS[1]
@@ -807,6 +839,7 @@ def kernel_paged(torch, F, timer, rn):
            "dense_gqa_decode_ms": timer(lambda: gqa_decode(
                q, vk, vv, vmask, **kw))}
     emit({"phase": "kernel_bf16", **rec})
+    rec["int8"] = paged_int8_case(torch, F, timer, q, cache, pos, new, kw)
     emit({"phase": "paged_sweep",
           **paged_sweep(torch, rng, timer, rn, q, Hkv, kw)})
     return rec
@@ -864,16 +897,20 @@ def routed_xbuf(torch, rn, E, C, D, top_k, rows):
     return xbuf, int(xbuf.ne(0).any(-1).any(-1).sum())
 
 
-def moe_occupancy_case(torch, F, timer, rn, wi, wo, cfg, rows, C):
+def moe_occupancy_case(torch, F, timer, rn, wi, wo, cfg, rows, C,
+                       scales=(None, None), library_w=None):
     """moe_ffn at the decode bucket as `rows` routed rows fill it: held
     against its plain version, the empty rows exactly zero; the bound
     counts the weight bytes of the occupied experts only (the work this
-    input needs)."""
+    input needs).  int8 weights pass their per-expert `scales` and, for
+    the library's yardstick, the weights dequantized to bf16
+    (`library_w`)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.moe_ffn import moe_ffn
     E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
     x, occ = routed_xbuf(torch, rn, E, C, D, cfg.top_k, rows)
-    got, want = moe_ffn(x, wi, wo), ref.moe_ffn_ref(x, wi, wo)
+    got, want = moe_ffn(x, wi, wo, *scales), \
+        ref.moe_ffn_ref(x, wi, wo, *scales)
     err = max_err(got, want)
     empty = ~x.ne(0).any(-1)
     require(close(got, want, BF16_OUT_TOL),
@@ -881,25 +918,205 @@ def moe_occupancy_case(torch, F, timer, rn, wi, wo, cfg, rows, C):
     require(bool((got[empty] == 0).all()),
             f"moe_ffn {cfg.name}: an empty bucket row gave a nonzero output")
     del got, want
-    wi3 = wi.view(E, D, 2 * Fd)
+    lwi, lwo = library_w or (wi, wo)
+    wi3 = lwi.view(E, D, 2 * Fd)
 
     def library():
         h = torch.bmm(x, wi3)
-        return torch.bmm(F.silu(h[..., :Fd]) * h[..., Fd:], wo)
-    bms, by = bound(2 * (2 * E * C * D + 3 * occ * D * Fd),
+        return torch.bmm(F.silu(h[..., :Fd]) * h[..., Fd:], lwo)
+    wbytes = wi.element_size()
+    bms, by = bound(2 * 2 * E * C * D + 3 * occ * D * Fd * wbytes
+                    + (8 * occ if scales[0] is not None else 0),
                     6 * occ * C * D * Fd)
     rec = {"shape": {"E": E, "C": C, "D": D, "F": Fd, "dtype": "bf16",
+                     "weights": str(wi.dtype).removeprefix("torch."),
                      "at": "decode", "routed_rows": rows,
                      "top_k": cfg.top_k, "occupied_experts": occ,
                      "occupied_rows": int((~empty).sum())},
            "max_abs_err": err, "empty_rows_exact_zero": True,
-           "ms": timer(lambda: moe_ffn(x, wi, wo), 5, 1),
-           "plain_ms": timer(lambda: ref.moe_ffn_ref(x, wi, wo), 3, 1),
+           "ms": timer(lambda: moe_ffn(x, wi, wo, *scales), 5, 1),
+           "plain_ms": timer(lambda: ref.moe_ffn_ref(x, wi, wo, *scales),
+                             3, 1),
            "bound_ms": bms, "bound_by": by,
            "library_ms": timer(library, 5, 1),
-           "library_call": "torch.bmm chain (up, silu * up, down)"}
+           "library_call": "torch.bmm chain (up, silu * up, down)"
+           + (" on the weights dequantized to bf16 beforehand"
+              if library_w else "")}
     emit({"phase": "kernel_bf16", "name": "moe_ffn", "model": cfg.name,
           "case": "served_occupancy", **rec})
+    return rec
+
+
+def moe_int8_cases(torch, F, timer, rn, cfg, B, g):
+    """moe_ffn with int8 expert weights (drawn as ``init_params`` draws
+    them, per-expert f32 scales around std / 48) and bf16 activations at
+    mixtral's decode bucket (C 3, every row full), at the occupancy `B`
+    routed rows give it, and at the largest prefill bucket, each against
+    its plain version.  The bound counts the int8 weight bytes plus the
+    scales'; the library's yardstick runs the torch.bmm chain on the
+    weights dequantized to bf16 beforehand (the port never does)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn
+    E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
+
+    def q8(*shape):
+        w = torch.randn(shape, generator=g, device=DEVICE)
+        return torch.clamp(torch.round(w * 48.0), -127, 127).to(torch.int8)
+
+    def scales(fan_in):
+        return ((torch.rand(E, generator=g, device=DEVICE) * 0.5 + 0.75)
+                * fan_in ** -0.5 / 48.0)
+
+    wi, wo = q8(E, D, 2, Fd), q8(E, Fd, D)
+    si, so = scales(D), scales(Fd)
+    lwi = (wi.to(torch.bfloat16) * si.to(torch.bfloat16)[:, None, None, None])
+    lwo = (wo.to(torch.bfloat16) * so.to(torch.bfloat16)[:, None, None])
+    lwi3 = lwi.view(E, D, 2 * Fd)
+    out = {}
+    for tokens, label in ((B, "decode"), (PROMPT_LENS[1], "prefill")):
+        C = max(1, int(tokens * cfg.top_k * cfg.capacity_factor / E + 0.999))
+        x = torch.empty((E, C, D), dtype=torch.bfloat16,
+                        device=DEVICE).normal_(0.0, 1.0, generator=g)
+        got, want = moe_ffn(x, wi, wo, si, so), \
+            ref.moe_ffn_ref(x, wi, wo, si, so)
+        err = max_err(got, want)
+        require(close(got, want, BF16_OUT_TOL),
+                f"moe_ffn int8 {label}: {err}")
+        del got, want
+
+        def library():
+            h = torch.bmm(x, lwi3)
+            return torch.bmm(F.silu(h[..., :Fd]) * h[..., Fd:], lwo)
+        nbytes = 2 * 2 * E * C * D + 3 * E * D * Fd + 2 * 4 * E
+        bms, by = bound(nbytes, 6 * E * C * D * Fd)
+        rec = {"shape": {"E": E, "C": C, "D": D, "F": Fd, "dtype": "bf16",
+                         "weights": "int8", "at": label},
+               "max_abs_err": err,
+               "ms": timer(lambda: moe_ffn(x, wi, wo, si, so)),
+               "plain_ms": timer(lambda: ref.moe_ffn_ref(x, wi, wo, si, so),
+                                 3, 1),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": timer(library),
+               "library_call": "torch.bmm chain (up, silu * up, down) on "
+                               "the weights dequantized to bf16 beforehand"}
+        emit({"phase": "kernel_int8", "name": "moe_ffn", **rec})
+        out[label] = rec
+        if label == "decode":
+            rec["served_occupancy"] = moe_occupancy_case(
+                torch, F, timer, rn, wi, wo, cfg, B, C, (si, so),
+                (lwi, lwo))
+    return out
+
+
+def gqa_int8_case(torch, F, timer, q, k, v, valid):
+    """gqa_decode over the int8 ring ``kvcache.quantize_kv`` makes of the
+    bf16 row's ring, at its valid positions, against its plain version on
+    the same int8 ring.  The bound counts the int8 K/V rows of the valid
+    slots and their f32 scales; the library's yardstick is SDPA over the
+    ring dequantized to bf16 beforehand."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gqa_decode import gqa_decode
+    from repro_torch.models import kvcache
+    B, H, Dh = q.shape
+    W, Hkv = k.shape[1], k.shape[2]
+    ring = kvcache.quantize_kv(k, v)
+    k8, v8 = ring["k"], ring["v"]
+    kw = dict(scale=Dh ** -0.5, k_scale=ring["k_scale"],
+              v_scale=ring["v_scale"])
+    got = gqa_decode(q, k8, v8, valid, **kw)
+    want = ref.gqa_decode_ref(q, k8, v8, valid, **kw)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
+            f"gqa_decode int8: {err}")
+    nvalid = int(valid.sum())
+    nbytes = 2 * B * H * Dh + nvalid * Hkv * (2 * Dh + 2 * 4) + B * W \
+        + 4 * B * H * (Dh + 2)
+    bms, by = bound(nbytes, 2 * nvalid * H * 2 * Dh)
+    kd, vd = kvcache.dequantize_kv(ring)
+    kt = kd.to(torch.bfloat16).transpose(1, 2)
+    vt = vd.to(torch.bfloat16).transpose(1, 2)
+    rec = {"shape": {"B": B, "H": H, "Hkv": Hkv, "D": Dh, "W": W,
+                     "valid": nvalid, "dtype": "bf16", "kv": "int8"},
+           "max_abs_err": err,
+           "ms": timer(lambda: gqa_decode(q, k8, v8, valid, **kw)),
+           "plain_ms": timer(lambda: ref.gqa_decode_ref(q, k8, v8, valid,
+                                                        **kw)),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(sdpa_gqa(F, q[:, :, None], kt, vt, H // Hkv,
+                                        attn_mask=valid[:, None, None, :])),
+           "library_call": "scaled_dot_product_attention, masked, over the "
+                           "ring dequantized to bf16 beforehand"}
+    emit({"phase": "kernel_int8", "name": "gqa_decode", **rec})
+    return rec
+
+
+def paged_int8_case(torch, F, timer, q, cache, pos, new, kw):
+    """The fused paged_gqa_decode over the int8 arena ``quantize_kv`` makes
+    of the bf16 record's arena (its trash block's scales NaN, never read)
+    and the quantized fresh token, against its plain version on the same
+    arena with a zero trash block; fused must equal write-then-attend bit
+    for bit, scales included.  The bound counts the mapped blocks' int8
+    rows and f32 scales; the library's yardstick is SDPA over the gathered
+    view dequantized to bf16 beforehand."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_decode import paged_gqa_decode
+    from repro_torch.models import kvcache
+    from repro_torch.models.attention import decode_valid_mask
+    B, H, D = q.shape
+    Hkv, NB1, bt, _ = cache["k"].shape
+    MB = cache["page_table"].shape[1]
+    arena = kvcache.quantize_kv(torch.nan_to_num(cache["k"]),
+                                torch.nan_to_num(cache["v"]))
+    c8 = {**arena, "slot_pos": cache["slot_pos"],
+          "page_table": cache["page_table"]}
+    plain = {n: a.clone() for n, a in c8.items()}
+    for name in ("k_scale", "v_scale"):
+        c8[name][:, -1] = float("nan")       # never read by the kernel
+        plain[name][:, -1] = 0.0
+    fresh = kvcache.quantize_kv(new["k"], new["v"])
+    fk = dict(k_new=fresh["k"][:, 0], v_new=fresh["v"][:, 0],
+              k_scale_new=fresh["k_scale"][:, 0].contiguous(),
+              v_scale_new=fresh["v_scale"][:, 0].contiguous())
+    args = (q, c8["k"], c8["v"], c8["slot_pos"], c8["page_table"], pos)
+    scales = dict(k_scale=c8["k_scale"], v_scale=c8["v_scale"])
+    got = paged_gqa_decode(*args, **scales, **fk, **kw)
+    want = ref.paged_gqa_decode_ref(q, plain, pos, **fk, **kw)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
+            f"paged_gqa_decode int8: {err}")
+    # fused against write-then-attend, both through the kernel
+    c2 = {n: a.clone() for n, a in c8.items()}
+    fused = ops.paged_gqa_decode_fused(q, c2, fresh, pos, **kw)
+    after = ops.paged_gqa_decode(q, c2, pos, **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(fused, after)),
+            "paged_gqa_decode int8: fused differs from write-then-attend")
+    mapped = int((cache["page_table"] >= 0).sum())
+    valid = int(pos.sum()) + B
+    nbytes = (mapped * (Hkv * bt * (2 * D + 2 * 4) + bt * 4) + 2 * B * H * D
+              + B * Hkv * (2 * D + 2 * 4) + 4 * B * (MB + 1)
+              + 4 * B * H * (D + 2))
+    bms, by = bound(nbytes, 2 * valid * H * 2 * D)
+    view = kvcache.paged_view(plain)
+    kd, vd = kvcache.dequantize_kv(view)
+    kt = kd.to(torch.bfloat16).transpose(1, 2).contiguous()
+    vt = vd.to(torch.bfloat16).transpose(1, 2).contiguous()
+    vmask = decode_valid_mask(view["slot_pos"], pos, 0)
+    rec = {"shape": {"B": B, "H": H, "Hkv": Hkv, "D": D, "bt": bt, "MB": MB,
+                     "arena_blocks": NB1 - 1, "mapped_blocks": mapped,
+                     "valid": valid, "dtype": "bf16", "kv": "int8",
+                     "fused": True},
+           "max_abs_err": err,
+           "fused_equals_write_then_attend": "bit for bit",
+           "ms": timer(lambda: paged_gqa_decode(*args, **scales, **fk, **kw)),
+           "plain_ms": timer(lambda: ref.paged_gqa_decode_ref(
+               q, plain, pos, **fk, **kw)),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(sdpa_gqa(F, q[:, :, None], kt, vt, H // Hkv,
+                                        attn_mask=vmask[:, None, None, :])),
+           "library_call": "scaled_dot_product_attention over the gathered "
+                           "view dequantized to bf16 beforehand"}
+    emit({"phase": "kernel_int8", "name": "paged_gqa_decode", **rec})
     return rec
 
 
@@ -1211,7 +1428,8 @@ def phase_serve(torch, np, ops):
     require(all(launches[k] > 0 for k in
                 ("moe_ffn", "gqa_decode", "flash_prefill")),
             f"a kernel of the dense path never launched: {launches}")
-    return eng, prompts, launches, outs
+    res["device_kv_bytes"] = eng.kv_traffic()["device_kv_bytes"]
+    return eng, prompts, launches, outs, res
 
 
 def phase_serve_module(torch, np, ops, params, want, launches_serve):
@@ -1774,9 +1992,10 @@ def phase_serve_paged(torch, np, ops, params):
     eng._kv_exec, eng._compose_kv = exec_, compose
     traffic = eng.kv_traffic()
     preempted = sum(r.preemptions for r in eng.scheduler.requests.values())
+    res.update(arena_bytes=traffic["arena_bytes"],
+               host_tier_bytes=kv_host_bytes(eng))
     emit({"phase": "serve_paged", "model": "mixtral-8x7b", "layers": LAYERS,
           "engine": SERVE_PAGED, **res, "preemptions": preempted,
-          "arena_bytes": traffic["arena_bytes"],
           "dense_equiv_bytes": traffic["dense_equiv_bytes"],
           "h2d_bytes": traffic["h2d_bytes"], "d2h_bytes": traffic["d2h_bytes"],
           "host": host, "kv_traffic": traffic})
@@ -2084,7 +2303,13 @@ def clone_cache(cache):
             for k, v in cache.items()}
 
 
-def phase_check(torch, np, cfg, params, prompts, eng, eng_paged):
+def phase_check(torch, np, cfg, params, prompts, eng, eng_paged,
+                phase="check"):
+    """Prefill, decode and paged-decode logits of `prompts` through the
+    kernels against the plain path (within ``LOGIT_TOL``), their greedy
+    transcripts, and the paged engine's transcripts against the dense
+    engine's on 8 more prompts (printed).  Returns those prompts and the
+    dense engine's transcripts."""
     from repro_torch.models import kvcache
     from repro_torch.models.model import ExecPolicy, forward, unembed
     from repro_torch.serving import steps
@@ -2147,7 +2372,7 @@ def phase_check(torch, np, cfg, params, prompts, eng, eng_paged):
         runs.append([out[r] for r in rids])
     eng_agree = sum(a == b for x, y in zip(*runs) for a, b in zip(x, y))
     eng_total = sum(len(x) for x in runs[0])
-    emit({"phase": "check", "prompts": len(prompts),
+    emit({"phase": phase, "prompts": len(prompts),
           "engine_prompts": len(engine_prompts),
           "max_abs_logit_diff": worst, "tol": LOGIT_TOL,
           "greedy_agree": agree, "greedy_total": total,
@@ -2160,11 +2385,13 @@ def phase_check(torch, np, cfg, params, prompts, eng, eng_paged):
     return engine_prompts, runs[0]
 
 
-def phase_check_expert(torch, np, eng, engine_prompts, want):
+def phase_check_expert(torch, np, eng, engine_prompts, want,
+                       phase="check_expert", extra=None):
     """The expert-paged engine on the dense engine's weights (4 layers,
     packed into pinned host stores; a pool of r_w 0.25 of the 32 spans),
     grouped moe_ffn: its greedy transcripts on the check phase's prompts
-    must equal the dense engine's token for token."""
+    must equal `want` (the dense engine's) token for token.  Returns
+    them."""
     from repro_torch.core import offload
     from repro_torch.models.model import ExecPolicy
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -2182,8 +2409,8 @@ def phase_check_expert(torch, np, eng, engine_prompts, want):
         got = [out[r] for r in rids]
         agree = sum(a == b for x, y in zip(got, want) for a, b in zip(x, y))
         traffic = e.weight_traffic()
-        emit({"phase": "check_expert", "layers": eng.cfg.num_layers,
-              "engine": settings,
+        emit({"phase": phase, "layers": eng.cfg.num_layers,
+              "engine": settings, **(extra(got) if extra else {}),
               "pool_spans": sum(r.capacity for r in e.residency.values()),
               "pinned_bytes": offload.pinned_bytes(), "pack_s": pack_s,
               "requests": len(rids),
@@ -2197,6 +2424,7 @@ def phase_check_expert(torch, np, eng, engine_prompts, want):
                              "the dense engine's")
     finally:
         e.paged_blocks.release()
+    return got
 
 
 def phase_check_expert_kv(torch, np, ops, eng):
@@ -2276,12 +2504,198 @@ def phase_check_expert_kv(torch, np, ops, eng):
     return launches
 
 
+# ----------------------------------------------------------- int8 phases
+
+def _mixtral_int8(layers: int):
+    """mixtral-8x7b with int8 expert weights and int8 KV (the model
+    config's ``expert_dtype`` / ``kv_dtype``, as the JAX tests set them),
+    cut to `layers`."""
+    return dataclasses.replace(_mixtral(), num_layers=layers,
+                               expert_dtype="int8", kv_dtype="int8")
+
+
+def kv_host_bytes(eng) -> int:
+    """Bytes of a KV-paged engine's pinned host tier."""
+    return sum(a.nbytes for g in eng._kv_host.values() for a in g.values())
+
+
+def phase_serve_int8(torch, np, ops, serve_res):
+    """``serve`` with int8 expert weights and int8 KV: mixtral-8x7b at
+    full width, 4 layers, every weight on the card (drawn from ``SEED``
+    as ``init_params`` draws int8 leaves), ``serve``'s 24 requests over
+    the dense int8 ring.  Every moe_ffn and gqa_decode launch of the run
+    takes the kernels' int8 paths.  Returns the engine, its prompts,
+    launches and transcripts."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = _mixtral_int8(LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                         device=DEVICE)
+    eng = Engine(cfg, params, EngineConfig(**SERVE),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    prompts, res, outs = serve_run(torch, np, eng, ops, PROMPT_LENS,
+                                   N_REQUESTS, SEED)
+    kv = eng.kv_traffic()
+    launches = res["launches"]
+    emit({"phase": "serve_int8", "model": "mixtral-8x7b", "layers": LAYERS,
+          "of_layers": _mixtral().num_layers, "params": count_params(cfg),
+          "expert_dtype": "int8", "kv_dtype": "int8", "engine": SERVE, **res,
+          "int8_launches": {k: launches[k] for k in ("moe_ffn",
+                                                     "gqa_decode")},
+          "device_kv_bytes": kv["device_kv_bytes"],
+          "serve_device_kv_bytes": serve_res["device_kv_bytes"],
+          "decode_tok_per_s_serve": serve_res["decode_tok_per_s"]})
+    require(all(launches[k] > 0 for k in
+                ("moe_ffn", "gqa_decode", "flash_prefill")),
+            f"a kernel of the int8 path never launched: {launches}")
+    return eng, prompts, launches, outs
+
+
+def phase_serve_paged_int8(torch, np, ops, params, paged_res):
+    """``serve_int8``'s weights over ``serve_paged``'s arena and pinned
+    host tier (r_c 0.4, 24 requests of 128..640 x 64): the arena and the
+    tier hold int8 rows and their f32 scales.  Spills, misses and
+    prefetches must all happen; the device and host-tier KV bytes are
+    printed beside ``serve_paged``'s."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = _mixtral_int8(LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, EngineConfig(**SERVE_PAGED),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    _, res, outs = serve_run(torch, np, eng, ops, PAGED_PROMPT_LENS,
+                             N_REQUESTS, SEED + 2)
+    traffic = eng.kv_traffic()
+    host = kv_host_bytes(eng)
+    launches = res["launches"]
+    emit({"phase": "serve_paged_int8", "model": "mixtral-8x7b",
+          "layers": LAYERS, "engine": SERVE_PAGED, **res,
+          "arena_bytes": traffic["arena_bytes"], "host_tier_bytes": host,
+          "serve_paged_arena_bytes": paged_res["arena_bytes"],
+          "serve_paged_host_tier_bytes": paged_res["host_tier_bytes"],
+          "arena_ratio": traffic["arena_bytes"] / paged_res["arena_bytes"],
+          "host_tier_ratio": host / paged_res["host_tier_bytes"],
+          "preemptions": sum(r.preemptions
+                             for r in eng.scheduler.requests.values()),
+          "kv_traffic": traffic})
+    require(traffic["spills"] > 0 and traffic["misses"] > 0
+            and traffic["prefetches"] > 0,
+            f"the int8 host tier was not exercised: {traffic}")
+    require(all(launches[k] > 0 for k in
+                ("moe_ffn", "paged_gqa_decode", "flash_prefill")),
+            f"a kernel of the int8 paged path never launched: {launches}")
+    return eng, launches
+
+
+def phase_check_int8(torch, np, cfg, params, prompts, eng, eng_paged):
+    """``check`` on the int8 weights and KV (kernel path against plain
+    path, within ``LOGIT_TOL``; how many transcripts the paged and dense
+    int8 engines share, printed), then the int8 KV against bf16 KV on the
+    same weights: a prefill and three teacher-forced decode steps of each
+    prompt through the kernels, the int8-KV logits within a relative
+    error of 0.05 of the bf16-KV ones (``test_serve_consistency.py``'s
+    int8 budget).  The int8 run replays the bf16 run's routing
+    (``RoutingTape``), so that the difference is the quantized KV's and
+    not a top-2 flip it causes downstream; the error under its own
+    routing is printed beside.  Returns the engine prompts and the dense
+    int8 engine's transcripts."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import ExecPolicy, forward, unembed
+
+    engine_prompts, runs = phase_check(torch, np, cfg, params, prompts, eng,
+                                       eng_paged, phase="check_int8")
+    bf16_kv = dataclasses.replace(cfg, kv_dtype=_mixtral().kv_dtype)
+    pol = ExecPolicy(moe_impl="grouped", use_kernels=True)
+    rel, rel_own = [], []
+    for prompt in prompts:
+        tok = torch.as_tensor(prompt[None].astype("int32"), device=DEVICE)
+        forced = []
+
+        def run(c, tape):
+            """Prefill and three decode steps (fed the bf16-KV run's greedy
+            tokens) under `tape`; returns the four logits rows."""
+            with tape:
+                cache = kvcache.init_cache(c, 1, SERVE["max_seq"],
+                                           device=DEVICE)
+                h = forward(c, params, tok, cache=cache, mode="prefill",
+                            policy=pol)["hidden"][:, -1]
+                seq = [unembed(c, params, h)]
+                for i in range(3):
+                    if len(forced) == i:
+                        forced.append(torch.argmax(seq[-1], -1).to(
+                            torch.int32))
+                    h = forward(c, params, forced[i][:, None], cache=cache,
+                                mode="decode", policy=pol)["hidden"][:, -1]
+                    seq.append(unembed(c, params, h))
+            return seq
+        tape = RoutingTape()
+        want = run(bf16_kv, tape)
+        for out, got in ((rel, run(cfg, RoutingTape(replay=tape))),
+                         (rel_own, run(cfg, RoutingTape()))):
+            for a, b in zip(got, want):
+                require(bool(torch.isfinite(a).all()), "bad int8-KV logits")
+                out.append(float((a.float() - b.float()).abs().max()
+                                 / b.float().abs().max()))
+    emit({"phase": "check_int8_kv_vs_bf16_kv", "prompts": len(prompts),
+          "steps": "prefill + 3 decodes", "routing": "the bf16-KV run's",
+          "max_rel_err": max(rel), "rel_errs": rel, "bound": 0.05,
+          "own_routing_max_rel_err": max(rel_own),
+          "own_routing_rel_errs": rel_own})
+    require(max(rel) < 0.05,
+            f"int8-KV logits off the bf16-KV ones by {max(rel)}")
+    return engine_prompts, runs
+
+
+def phase_check_expert_int8(torch, np, eng, engine_prompts, want_f32):
+    """The 4-layer int8 weights packed into pinned stores and served
+    expert-paged at r_w 0.25.  The int8 experts' f32 scales travel in the
+    shared span, which takes its first leaf's dtype (bf16 here), so the
+    expert-paged path computes with the scales rounded to bf16, as the
+    JAX package does: its transcripts must equal, token for token, a
+    resident int8 engine's whose scales are rounded so; how many equal the
+    resident engine's with f32 scales (`want_f32`) is printed."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.serving.engine import Engine
+
+    rounded = {**eng.params, "blocks": {
+        key: {**g, "moe": {**g["moe"], **{
+            n: g["moe"][n].to(torch.bfloat16).float()
+            for n in ("wi_scale", "wo_scale")}}}
+        for key, g in eng.params["blocks"].items()}}
+    changed = sum(int((rounded["blocks"][k]["moe"][n]
+                       != eng.params["blocks"][k]["moe"][n]).sum())
+                  for k in rounded["blocks"] for n in ("wi_scale",
+                                                       "wo_scale"))
+    e = Engine(eng.cfg, rounded, eng.ecfg,
+               ExecPolicy(moe_impl="grouped", use_kernels=True),
+               device=DEVICE)
+    rids = [e.submit(p, NEW_TOKENS // 4) for p in engine_prompts]
+    out = e.run_until_idle()
+    want = [out[r] for r in rids]
+    del e
+    phase_check_expert(
+        torch, np, eng, engine_prompts, want, phase="check_expert_int8",
+        extra=lambda got: {
+            "scales_rounded_to": "bfloat16", "scales_changed": changed,
+            "vs_f32_scales_identical_requests": sum(
+                x == y for x, y in zip(got, want_f32)),
+            "vs_f32_scales_agree": sum(
+                a == b for x, y in zip(got, want_f32)
+                for a, b in zip(x, y))})
+
+
 def host_peak_rss() -> int:
     """The process's peak resident host memory so far, in bytes."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def host_mem_available() -> int:
+def mem_available() -> int:
     """MemAvailable of /proc/meminfo, in bytes."""
     with open("/proc/meminfo") as f:
         for line in f:
@@ -2290,10 +2704,37 @@ def host_mem_available() -> int:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
+def host_rss() -> int:
+    """The process's resident host memory now, in bytes."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+HOST_START = {}               # MemAvailable and the resident set at start
+
+
+def host_mem_available() -> int:
+    """The host memory the process can still draw on: MemAvailable, or the
+    start's MemAvailable less what the process's resident set has grown
+    by since, whichever is larger.  The machine's MemAvailable credits the
+    pages of a released store back late (seconds to minutes after the
+    process has given them back, its resident set dropping at once),
+    while a new store is drawn into them at once; read alone, it made a
+    later phase size its stores as if the released ones were still held.
+    Nothing else runs on the machine."""
+    if not HOST_START:
+        HOST_START.update(avail=mem_available(), rss=host_rss())
+    return max(mem_available(),
+               HOST_START["avail"] - (host_rss() - HOST_START["rss"]))
+
+
 def host_memory(at: str) -> None:
-    """MemAvailable and the peak resident memory at a point of the run."""
+    """MemAvailable, the resident set, the memory the host rule reads
+    (``host_mem_available``) and the peak resident memory at a point of
+    the run."""
     emit({"phase": "host_memory", "at": at,
-          "mem_available": host_mem_available(),
+          "mem_available": mem_available(), "host_rss": host_rss(),
+          "host_available": host_mem_available(),
           "host_peak_rss": host_peak_rss()})
 
 
@@ -2304,14 +2745,15 @@ def host_room(avail: int) -> float:
     return min(avail / HOST_MARGIN, avail - HOST_RESERVE)
 
 
-def store_bytes_per_layer(torch, split: bool) -> int:
-    """Bytes of one mixtral-8x7b layer's host stores, expert-granular
-    (`split`) or whole-layer; sized on the CPU, nothing written."""
+def store_bytes_per_layer(torch, split: bool, cfg=None) -> int:
+    """Bytes of one layer's host stores of `cfg` (mixtral-8x7b by
+    default), expert-granular (`split`) or whole-layer; sized on the CPU,
+    nothing written."""
     from repro_torch.core import paging
     from repro_torch.models.params import abstract_params, param_defs
     from repro_torch.serving.engine import EngineConfig
 
-    one = dataclasses.replace(_mixtral(), num_layers=1)
+    one = dataclasses.replace(cfg or _mixtral(), num_layers=1)
     probe = paging.PagedWeights.empty(
         abstract_params(one, param_defs(one)["blocks"]),
         EngineConfig().page_elems, torch.device("cpu"), split=split)
@@ -2395,6 +2837,61 @@ def phase_serve_expert(torch, np, ops):
               "pinned_bytes": pinned, "pin_s": pin_s, "build_s": build_s}
     eng, launches, res = serve_expert_engine(torch, np, ops, stores,
                                              SERVE_EXPERT, "serve_expert")
+    return eng, launches, stores, res
+
+
+def phase_serve_expert_int8(torch, np, ops, records):
+    """mixtral-8x7b at full width with int8 experts, expert-paged with
+    ``serve_expert``'s settings (r_w 0.5, 8 requests of 32..256 x 32):
+    every layer drawn on the card and written into pinned host stores
+    (1.49 GB a layer, against 2.90 in bf16), to the depth the host rule
+    holds (all 32 layers when ~69 GB are free), never below 8.  The rule's
+    arithmetic is printed before the stores are drawn; beside the serve
+    numbers, the gather's link bytes and rate against ``h2d_copy``.
+    Returns the engine, its launches, the stores and its numbers."""
+    from repro_torch.core import offload
+    from repro_torch.models.params import count_params
+
+    full = dataclasses.replace(_mixtral(), expert_dtype="int8")
+    per_layer = store_bytes_per_layer(torch, split=True, cfg=full)
+    avail = host_mem_available()
+    room = host_room(avail)
+    layers = min(full.num_layers, int(room // per_layer))
+    emit({"phase": "host_rule", "for": "serve_expert_int8",
+          "host_available": avail, "mem_available": mem_available(),
+          "room": room, "rule": "min(available / 1.2, available - 20 GiB)",
+          "store_bytes_per_layer": per_layer,
+          "layers_that_fit": int(room // per_layer),
+          "layers": layers, "of_layers": full.num_layers})
+    require(layers >= MIN_EXPERT_LAYERS,
+            f"the host holds {layers} int8 layers of {per_layer} bytes; "
+            f"serve_expert_int8 needs {MIN_EXPERT_LAYERS}")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, pw, pin_s, build_s = draw_stores(torch, cfg, split=True)
+    stores = {"cfg": cfg, "params": params, "pw": pw, "layers": layers,
+              "of_layers": full.num_layers, "params_count": count_params(cfg),
+              "store_bytes_per_layer": per_layer,
+              "kv_host_bytes_per_layer": 0, "mem_available": avail,
+              "pinned_bytes": offload.pinned_bytes(), "pin_s": pin_s,
+              "build_s": build_s}
+    eng, launches, res = serve_expert_engine(torch, np, ops, stores,
+                                             SERVE_EXPERT,
+                                             "serve_expert_int8")
+    h2d = next(r for r in records if r["name"] == "expert_gather")[
+        "bound_rates"]["h2d_GBps_measured"]
+    tokens = sum(len(t) for t in res["transcripts"])
+    res.update(tokens=tokens, gather_bytes_per_token_layer=(
+        res["gather_host_bytes"] / tokens / layers))
+    emit({"phase": "serve_expert_int8_link", "layers": layers,
+          "gather_host_bytes": res["gather_host_bytes"],
+          "gather_host_GBps": res["gather_host_GBps"],
+          "h2d_copy_GBps": h2d,
+          "gather_over_h2d_copy": res["gather_host_GBps"] / h2d,
+          "tokens": tokens,
+          "gather_bytes_per_token_layer":
+              res["gather_bytes_per_token_layer"]})
     return eng, launches, stores, res
 
 
@@ -2782,7 +3279,8 @@ def main() -> int:
     host_memory("start")
     records = phase_kernels(torch, F)
     torch.cuda.empty_cache()
-    eng, serve_prompts, launches, serve_outs = phase_serve(torch, np, ops)
+    eng, serve_prompts, launches, serve_outs, serve_res = phase_serve(
+        torch, np, ops)
     launches_module = phase_serve_module(torch, np, ops, eng.params,
                                          serve_outs, launches)
     launches_static = phase_serve_static(torch, np, ops, eng.params,
@@ -2806,18 +3304,39 @@ def main() -> int:
                                                eng.params, serve_prompts[:8])
     launches_sample = phase_sample(torch, np, ops, eng.cfg, eng.params,
                                    serve_prompts[:8])
+    # int8 expert weights and int8 KV through the three kernels' int8
+    # paths, 4 layers on the card
+    eng8, _, launches_int8, _ = phase_serve_int8(torch, np, ops, serve_res)
+    eng8_paged, launches_paged_int8 = phase_serve_paged_int8(
+        torch, np, ops, eng8.params, paged_res)
+    prompts8, dense8 = phase_check_int8(torch, np, eng8.cfg, eng8.params,
+                                        serve_prompts[:2], eng8, eng8_paged)
+    phase_check_expert_int8(torch, np, eng8, prompts8, dense8)
     # the last models each need most of the card's or the host's memory:
     # the 4-layer mixtral engines go first, then the whole-layer stores,
     # then the expert stores.  The host may not get a released store's
     # memory back (MemAvailable stays down; the process reuses it), so
     # each phase sizes its stores by the MemAvailable it reads
-    del eng, eng_paged
+    del eng, eng_paged, eng8, eng8_paged
     gc.collect()
-    host_memory("before serve_layer_paged")
+    torch.cuda.empty_cache()
+    # all 32 layers with int8 experts first, while the host holds the most
+    host_memory("before serve_expert_int8")
+    eng_int8, launches_expert_int8, stores8, int8_res = \
+        phase_serve_expert_int8(torch, np, ops, records)
+    phase_trace(torch, np, eng_int8, "expert_int8", EXPERT_PROMPT_LENS, 4,
+                EXPERT_NEW_TOKENS // 4)
+    del eng_int8
+    stores8["pw"].release()
+    expert_int8_layers = stores8["layers"]
+    del stores8
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_memory("after serve_expert_int8 (stores released)")
     launches_layer, layer_res = phase_serve_layer_paged(torch, np, ops,
                                                         records)
     gc.collect()
-    host_memory("after serve_layer_paged")
+    host_memory("after serve_layer_paged (stores released)")
     eng_expert, launches_expert, stores, expert_res = phase_serve_expert(
         torch, np, ops)
     phase_trace(torch, np, eng_expert, "expert", EXPERT_PROMPT_LENS, 4,
@@ -2838,6 +3357,7 @@ def main() -> int:
     stores["pw"].release()
     del eng_expert
     gc.collect()
+    host_memory("after serve_expert_kv (stores released)")
     phase_policy(torch, records, stores, expert_res)
     expert_layers = stores["layers"]
     del stores
@@ -2854,8 +3374,10 @@ def main() -> int:
           "serve_expert_module_gather_and_shared": (
               module_res["gather_host_bytes"] + shared)
           / expert_tokens / expert_layers,
-          "tokens": [layer_res["tokens"], expert_tokens],
-          "layers": [LAYER_PAGED_LAYERS, expert_layers]})
+          "serve_expert_int8_gather": int8_res[
+              "gather_bytes_per_token_layer"],
+          "tokens": [layer_res["tokens"], expert_tokens, int8_res["tokens"]],
+          "layers": [LAYER_PAGED_LAYERS, expert_layers, expert_int8_layers]})
     launches_launch = phase_launch(torch, ops)
     eng_mla, mla_prompts, launches_mla = phase_serve_mla(torch, np, ops)
     phase_trace(torch, np, eng_mla, "mla", PAGED_PROMPT_LENS, 16)
@@ -2877,19 +3399,27 @@ def main() -> int:
                  **launches_check_static,
                  "sample": launches_sample,
                  "serve_layer_paged": launches_layer,
-                 **launches_launch}
+                 **launches_launch,
+                 "serve_int8": launches_int8,
+                 "serve_paged_int8": launches_paged_int8,
+                 "serve_expert_int8": launches_expert_int8}
     for rec in records:
         rec["launches"] = by_path.get(rec["name"], launches)[rec["name"]]
         rec["launches_by_path"] = {k: v[rec["name"]]
                                    for k, v in new_paths.items()}
         if "deepseek" in rec:
             rec["deepseek"]["launches"] = launches_mla[rec["name"]]
+        if "int8" in rec:       # the launches of the int8 paths
+            rec["int8"] = {"launches": sum(
+                p[rec["name"]] for p in (launches_int8, launches_paged_int8,
+                                         launches_expert_int8)),
+                **rec["int8"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "shape", "launches_by_path")
     emit({"kernels": [{**{k: r[k] for k in keys},
                        **{k: r[k] for k in ("served_occupancy", "deepseek",
-                                            "full_ring")
+                                            "full_ring", "int8")
                           if k in r}} for r in records]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,10 +17,17 @@ Two ways to pin:
     allocates pageable memory and page-locks exactly its bytes in place
     with ``cudaHostRegister``: PyTorch's caching host allocator rounds each
     allocation up to a power of two, so an 84 GiB store would ask for 128.
-    ``release`` unregisters it (and so does dropping the tensor).
+    ``release`` unregisters it (and so does dropping the tensor), and hands
+    its pages back to the host at once (``madvise(MADV_DONTNEED)``), so
+    that a later store can be drawn in the same memory even while some
+    reference to the released tensor lives on: freeing a page-locked store
+    returned its memory to ``MemAvailable`` only once every reference to
+    the tensor had gone.
 """
 from __future__ import annotations
 
+import ctypes
+import mmap
 import weakref
 from typing import Dict
 
@@ -49,9 +56,31 @@ def host_store(shape, dtype: torch.dtype, device: torch.device
     return t.zero_()
 
 
-def _unregister(ptr: int) -> None:
-    if _registered.pop(ptr, None) is not None:
-        torch.cuda.cudart().cudaHostUnregister(ptr)
+_MADV_DONTNEED = 4
+
+
+def _unregister(ptr: int) -> int:
+    """Unpin a registered store; returns its bytes (0 if none was)."""
+    nbytes = _registered.pop(ptr, None)
+    if nbytes is None:
+        return 0
+    torch.cuda.cudart().cudaHostUnregister(ptr)
+    return nbytes
+
+
+def _discard(ptr: int, nbytes: int) -> None:
+    """Drop the whole pages inside [ptr, ptr + nbytes) from the process:
+    their memory goes back to the host now, and a later read of them
+    gives zeros (the mapping stays valid until the allocation is freed)."""
+    page = mmap.PAGESIZE
+    lo = -(-ptr // page) * page
+    hi = (ptr + nbytes) // page * page
+    if hi > lo:
+        libc = ctypes.CDLL(None, use_errno=True)
+        libc.madvise.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                                 ctypes.c_int]
+        if libc.madvise(lo, hi - lo, _MADV_DONTNEED) != 0:
+            raise OSError(ctypes.get_errno(), "madvise(MADV_DONTNEED) failed")
 
 
 def weight_store(shape, dtype: torch.dtype, device: torch.device
@@ -77,9 +106,13 @@ def weight_store(shape, dtype: torch.dtype, device: torch.device
 
 
 def release(t: torch.Tensor) -> None:
-    """Unregister a ``weight_store`` (no-op for any other tensor).  The
-    tensor must not be read through a device pointer after this."""
-    _unregister(t.data_ptr())
+    """Unregister a ``weight_store`` and give its pages back to the host
+    (no-op for any other tensor).  Waits for the device first; the tensor
+    must not be read after this (it reads as zeros)."""
+    if t.data_ptr() not in _registered:
+        return
+    torch.cuda.synchronize()
+    _discard(t.data_ptr(), _unregister(t.data_ptr()))
 
 
 def pinned_bytes() -> int:

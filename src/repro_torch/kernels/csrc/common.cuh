@@ -22,6 +22,10 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+// int8 storage (int8 KV, int8 expert weights): the value itself, exact
+__device__ __forceinline__ float to_f32(signed char x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);

@@ -25,6 +25,13 @@
 // loops over head tiles.  The tile's partials go to po (B*H, nsplit, Dv),
 // pm / pl (B*H, nsplit) at chunk `sp`: pm the tile's true max (the
 // sentinel when nothing is valid), pl its sum.
+//
+// int8 KV: the caller stages the int8 rows as bf16 (exact: |q| <= 127;
+// stage_i8), synchronously, and the tile's per-position f32 scales in
+// shared memory (ksc, vsc; 0 where a position is not valid).  The scores
+// become s = (q . k_int) * scale * ks, and each probability is multiplied
+// by its vs before the hi + lo split, so P.V sums p * vs * v_int; l sums
+// the unscaled p, as the Pallas kernels do.
 #pragma once
 
 #include "common.cuh"
@@ -62,8 +69,18 @@ struct Tile {
         ps(reinterpret_cast<float*>(vs + kSlots * LD)) {}
 };
 
+// Eight int8 values at `src` (8-byte aligned) as bf16 into shared `dst`,
+// or eight zeros without a read when `in` is false.
+__device__ __forceinline__ void stage_i8(bf16* dst, const signed char* src,
+                                         bool in) {
+  *reinterpret_cast<uint4*>(dst) =
+      in ? i8x8_to_bf16x8(*reinterpret_cast<const uint2*>(src))
+         : make_uint4(0u, 0u, 0u, 0u);
+}
+
 // The tile's partials for every head of the group (see the header); waits
-// for the caller's two cp.async groups itself.
+// for the caller's two cp.async groups itself.  ksc / vsc: the int8 tile's
+// per-position scales in shared memory, or null.
 template <int DP>
 __device__ __forceinline__ void attend(const Tile<DP>& tl,
                                        const unsigned char* ok_s, int G,
@@ -71,7 +88,9 @@ __device__ __forceinline__ void attend(const Tile<DP>& tl,
                                        float* __restrict__ po,
                                        float* __restrict__ pm,
                                        float* __restrict__ pl, size_t row0,
-                                       int nsplit, int sp) {
+                                       int nsplit, int sp,
+                                       const float* ksc = nullptr,
+                                       const float* vsc = nullptr) {
   constexpr int LD = Tile<DP>::LD;
   constexpr int KD = DP / 16;     // k16 steps of Q.K^T
   constexpr int NT = DP / 32;     // n8 output tiles of each warp
@@ -110,6 +129,7 @@ __device__ __forceinline__ void attend(const Tile<DP>& tl,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float x = sacc[j][2 * r + e] * scale;
+          if (ksc != nullptr) x *= ksc[slot + e];
           if (cap > 0.f) x = cap * tanhf(x / cap);
           s[e] = ok_s[slot + e] ? x : REPRO_NEG_INF;
         }
@@ -164,8 +184,13 @@ __device__ __forceinline__ void attend(const Tile<DP>& tl,
         const int c = k2 * 32 + kk * 16 + 2 * t;
 #pragma unroll
         for (int f = 0; f < 4; ++f) {  // a0..a3: rows g / g+8, cols c / c+8
-          const float2 x = *reinterpret_cast<const float2*>(
-              ps + (g + 8 * (f & 1)) * kLdP + c + 8 * (f >> 1));
+          const int pc = c + 8 * (f >> 1);
+          float2 x = *reinterpret_cast<const float2*>(
+              ps + (g + 8 * (f & 1)) * kLdP + pc);
+          if (vsc != nullptr) {  // fold v_scale into P
+            x.x *= vsc[pc];
+            x.y *= vsc[pc + 1];
+          }
           split_bf16(x.x, x.y, ah[kk][f], al[kk][f]);
         }
       }

@@ -193,7 +193,7 @@ extern "C" int expert_gather_launch(const void* store, const void* pool,
     used = offs[j] + ns[j] > used ? offs[j] + ns[j] : used;
   }
   const int unit = vec ? 16 : elem;
-  if (unit != 16 && unit != 4 && unit != 2)
+  if (unit != 16 && unit != 4 && unit != 2 && unit != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Leaves lv{};
   lv.count = nleaves;
@@ -243,9 +243,12 @@ extern "C" int expert_gather_launch(const void* store, const void* pool,
   else if (unit == 4)
     rc = launch<uint32_t>(pool, rmap, sel, n_act, lv, layer, E, A,
                           span_bytes, used, st);
-  else
+  else if (unit == 2)
     rc = launch<uint16_t>(pool, rmap, sel, n_act, lv, layer, E, A,
                           span_bytes, used, st);
+  else  // int8 expert pages
+    rc = launch<uint8_t>(pool, rmap, sel, n_act, lv, layer, E, A,
+                         span_bytes, used, st);
   if (rc != 0) return rc;
   err = cudaEventSynchronize(c.planned);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -116,3 +116,16 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
+
+// Eight int8 values (one 8-byte word) as eight bf16 values (one 16-byte
+// word), lower index first.  Every int8 value is exact in bf16, so a
+// bf16 product of them on the tensor cores is the int8 product's.
+__device__ __forceinline__ uint4 i8x8_to_bf16x8(uint2 r) {
+  const signed char* e = reinterpret_cast<const signed char*>(&r);
+  uint4 o;
+  o.x = pack_bf16(static_cast<float>(e[0]), static_cast<float>(e[1]));
+  o.y = pack_bf16(static_cast<float>(e[2]), static_cast<float>(e[3]));
+  o.z = pack_bf16(static_cast<float>(e[4]), static_cast<float>(e[5]));
+  o.w = pack_bf16(static_cast<float>(e[6]), static_cast<float>(e[7]));
+  return o;
+}

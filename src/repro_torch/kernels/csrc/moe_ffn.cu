@@ -52,7 +52,18 @@
 // hidden in f32), moe_down (one thread per output column, one block per
 // (d tile, C tile, expert, F split)) and moe_reduce (sums the F-split
 // partials in a fixed order, applies so[e]).
-// int8 weights are refused by the Python wrapper.
+//
+// int8 weights (weight-only quantization, the Pallas kernel's int8 path:
+// per-expert f32 scales si, so applied to the product tiles, as above):
+// the weights stay int8 in HBM, so a decode step streams half the bytes
+// (D*3F each).  The bf16 body's ring stages the int8 weight tiles by
+// 16-byte cp.async as they are; once a stage has landed the block widens
+// it to bf16 in one shared tile (exact: |w| <= 127), and the fragments and
+// products run on it as on a bf16 stage.  That costs the block a barrier
+// and a pass over the stage per k tile; no dequantized weight is written
+// to device memory.  The f32 body reads the int8 weights in its loads.
+#include <type_traits>
+
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -69,9 +80,9 @@ __device__ __forceinline__ float act_fn(float g, int act) {
 constexpr int kThreads = 128;  // output columns per block, both passes
 constexpr int kChunk = 128;    // reduction rows staged in shared memory
 
-template <int CT>
+template <int CT, typename WT>
 __global__ void __launch_bounds__(kThreads)
-    moe_up_kernel(const float* __restrict__ x, const float* __restrict__ wi,
+    moe_up_kernel(const float* __restrict__ x, const WT* __restrict__ wi,
                   const float* __restrict__ si, float* __restrict__ hid,
                   int C, int D, int F, int act) {
   __shared__ float xs[kChunk][CT + 1];
@@ -83,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* xe = x + (static_cast<size_t>(e) * C + c0) * D;
   // threads past the last column read column F-1 and write nothing, so
   // every thread reaches the barriers
-  const float* wcol = wi + static_cast<size_t>(e) * D * row + min(f, F - 1);
+  const WT* wcol = wi + static_cast<size_t>(e) * D * row + min(f, F - 1);
   float ag[CT], au[CT];
 #pragma unroll
   for (int i = 0; i < CT; ++i) {
@@ -100,11 +111,11 @@ __global__ void __launch_bounds__(kThreads)
                       : 0.f;
     }
     __syncthreads();
-    const float* w = wcol + static_cast<size_t>(d0) * row;
+    const WT* w = wcol + static_cast<size_t>(d0) * row;
 #pragma unroll 4
     for (int dd = 0; dd < dk; ++dd) {
-      const float g = w[dd * row];
-      const float u = w[dd * row + F];
+      const float g = to_f32(w[dd * row]);
+      const float u = to_f32(w[dd * row + F]);
 #pragma unroll
       for (int i = 0; i < CT; ++i) {
         ag[i] = fmaf(xs[dd][i], g, ag[i]);
@@ -121,10 +132,10 @@ __global__ void __launch_bounds__(kThreads)
           act_fn(ag[i] * s, act) * (au[i] * s);
 }
 
-template <int CT>
+template <int CT, typename WT>
 __global__ void __launch_bounds__(kThreads)
     moe_down_kernel(const float* __restrict__ hid,
-                    const float* __restrict__ wo, float* __restrict__ part,
+                    const WT* __restrict__ wo, float* __restrict__ part,
                     int E, int C, int D, int F, int fsplit) {
   __shared__ float ys[kChunk][CT + 1];
   const int e = blockIdx.z / fsplit, sp = blockIdx.z % fsplit;
@@ -134,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
   const int flen = (F + fsplit - 1) / fsplit;
   const int fbeg = sp * flen, fend = min(F, fbeg + flen);
   const float* he = hid + (static_cast<size_t>(e) * C + c0) * F;
-  const float* wcol = wo + static_cast<size_t>(e) * F * D + min(d, D - 1);
+  const WT* wcol = wo + static_cast<size_t>(e) * F * D + min(d, D - 1);
   float acc[CT];
 #pragma unroll
   for (int i = 0; i < CT; ++i) acc[i] = 0.f;
@@ -148,10 +159,10 @@ __global__ void __launch_bounds__(kThreads)
                       : 0.f;
     }
     __syncthreads();
-    const float* w = wcol + static_cast<size_t>(f0) * D;
+    const WT* w = wcol + static_cast<size_t>(f0) * D;
 #pragma unroll 4
     for (int ff = 0; ff < fk; ++ff) {
-      const float wv = w[static_cast<size_t>(ff) * D];
+      const float wv = to_f32(w[static_cast<size_t>(ff) * D]);
 #pragma unroll
       for (int i = 0; i < CT; ++i) acc[i] = fmaf(ys[ff][i], wv, acc[i]);
     }
@@ -176,17 +187,17 @@ __global__ void moe_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-template <int CT>
-void launch_f32(const float* x, const float* wi, const float* wo,
-                const float* si, const float* so, float* out, float* hid,
-                float* part, int E, int C, int D, int F, int fsplit, int act,
-                cudaStream_t st) {
+template <int CT, typename WT>
+void launch_f32(const float* x, const WT* wi, const WT* wo, const float* si,
+                const float* so, float* out, float* hid, float* part, int E,
+                int C, int D, int F, int fsplit, int act, cudaStream_t st) {
   const dim3 gu((F + kThreads - 1) / kThreads, (C + CT - 1) / CT, E);
-  moe_up_kernel<CT><<<gu, kThreads, 0, st>>>(x, wi, si, hid, C, D, F, act);
+  moe_up_kernel<CT, WT><<<gu, kThreads, 0, st>>>(x, wi, si, hid, C, D, F,
+                                                 act);
   const dim3 gd((D + kThreads - 1) / kThreads, (C + CT - 1) / CT,
                 E * fsplit);
-  moe_down_kernel<CT><<<gd, kThreads, 0, st>>>(hid, wo, part, E, C, D, F,
-                                               fsplit);
+  moe_down_kernel<CT, WT><<<gd, kThreads, 0, st>>>(hid, wo, part, E, C, D,
+                                                   F, fsplit);
   const size_t n = static_cast<size_t>(E) * C * D;
   const int blocks = static_cast<int>(
       n / 256 + 1 < 4096 ? n / 256 + 1 : 4096);
@@ -215,9 +226,20 @@ struct TcCfg {
   static constexpr size_t PIPE = sizeof(bf16) * STAGES * STAGE;
   static constexpr size_t EPI = sizeof(float) * M * LDE;
   static constexpr size_t SMEM = PIPE > EPI ? PIPE : EPI;
+  // int8 weights: a stage holds KT rows of M int8 weights (padded by 16
+  // bytes) and the x rows; one bf16 tile [KT][LDA] after the ring takes
+  // the stage being consumed, widened
+  static constexpr int LDA8 = M + 16;                   // bytes
+  static constexpr int STAGE8 = KT * LDA8 + 2 * N * LDX;  // bytes
+  static constexpr size_t PIPE8 =
+      static_cast<size_t>(STAGES) * STAGE8 + sizeof(bf16) * KT * LDA;
+  static constexpr size_t SMEM8 = PIPE8 > EPI ? PIPE8 : EPI;
   static_assert(N <= THREADS, "one thread per bucket row reads its flag");
   static_assert(THREADS % (M / 8) == 0 && KT % (THREADS / (M / 8)) == 0,
                 "each thread stages whole rows' worth of weight chunks");
+  static_assert(THREADS % (M / 16) == 0 && KT % (THREADS / (M / 16)) == 0 &&
+                    (M / 2) % 16 == 0,
+                "int8: each thread stages whole 16-column chunks");
   static_assert(KT % 16 == 0 && THREADS % (KT / 8) == 0, "k16 steps");
 };
 
@@ -240,17 +262,32 @@ __device__ __forceinline__ void stage8(bf16* dst, const bf16* src, int n) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(tmp);
 }
 
-__device__ __forceinline__ void zero8(bf16* dst) {
+// Sixteen int8 weights from `src` into shared `dst` by `n` (< 16 or
+// misaligned) byte loads, zeros after them.
+__device__ __forceinline__ void stage16_i8(void* dst, const signed char* src,
+                                           int n) {
+  alignas(16) signed char tmp[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) tmp[j] = j < n ? src[j] : 0;
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(tmp);
+}
+
+__device__ __forceinline__ void zero8(void* dst) {  // 16 bytes
   *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
 }
+
+// The weights' element type: bf16, or int8 (W8).
+template <bool W8>
+using WType = typename std::conditional<W8, signed char, bf16>::type;
 
 // acc += W^T X^T over k in [0, K): the block's M x N output tile, left in
 // the f32 epilogue tile ep[m][n] in shared memory.  W is k-major (row k at
 // W + k * ldw); the block's M columns come in two halves, half h starting
 // at column col[h] with its first nv[h] columns present (the rest read as
-// zero).  X holds nx rows of K values (row n at X + n * ldx).
-template <class Cfg>
-__device__ __forceinline__ void tc_gemm(const bf16* __restrict__ W,
+// zero).  X holds nx rows of K values (row n at X + n * ldx).  W8: int8
+// weights, widened to bf16 in shared memory a stage at a time.
+template <class Cfg, bool W8>
+__device__ __forceinline__ void tc_gemm(const WType<W8>* __restrict__ W,
                                         size_t ldw, const int (&col)[2],
                                         const int (&nv)[2],
                                         const bf16* __restrict__ X,
@@ -258,13 +295,13 @@ __device__ __forceinline__ void tc_gemm(const bf16* __restrict__ W,
                                         unsigned char* smem) {
   constexpr int M = Cfg::M, N = Cfg::N, KT = Cfg::KT, ST = Cfg::STAGES;
   constexpr int MW = Cfg::MW, NW = Cfg::NW, T = Cfg::THREADS;
-  constexpr int MCH = M / 8;      // 16-byte chunks of a weight row
+  constexpr int WCH = 16 / sizeof(WType<W8>);  // weights per 16 bytes
+  constexpr int MCH = M / WCH;    // 16-byte chunks of a weight row
   constexpr int ARS = T / MCH;    // weight rows staged per pass
   constexpr int XCH = KT / 8;     // 16-byte chunks of an x row in a stage
   constexpr int XRS = T / XCH;    // x rows staged per pass
   constexpr int KK = KT / 16;     // k16 steps per stage
   constexpr int NB = NW == 1 ? 1 : NW / 2;  // B fragment loads per k16
-  bf16* sm = reinterpret_cast<bf16*>(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp % Cfg::WM * 16 * MW;  // the warp's first column
   const int wn = warp / Cfg::WM * 8 * NW;   // ... and first bucket row
@@ -272,27 +309,40 @@ __device__ __forceinline__ void tc_gemm(const bf16* __restrict__ W,
   // the chunks this thread stages are the same in every stage: one weight
   // column chunk in rows ar0 + j * ARS, one x chunk in rows xr0 + j * XRS
   const int ac = tid % MCH, ar0 = tid / MCH;
-  const int ah = ac / (MCH / 2), acol = ac % (MCH / 2) * 8;
+  const int ah = ac / (MCH / 2), acol = ac % (MCH / 2) * WCH;
   const int an = nv[ah] - acol;  // columns of the chunk that exist
-  const bf16* wc = W + col[ah] + acol;
-  const bool afast = an >= 8 && ldw % 8 == 0 && aligned16(wc);
+  const WType<W8>* wc = W + col[ah] + acol;
+  const bool afast = an >= WCH && ldw % WCH == 0 && aligned16(wc);
   const int xk = tid % XCH * 8, xr0 = tid / XCH;
   const bool xfast = ldx % 8 == 0 && aligned16(X);
+  // a stage's weight tile and x rows (W8: the int8 tile, in bytes)
+  auto stage_w = [&](int slot) -> unsigned char* {
+    return smem + slot * (W8 ? static_cast<size_t>(Cfg::STAGE8)
+                             : sizeof(bf16) * Cfg::STAGE);
+  };
+  auto stage_x = [&](int slot) -> bf16* {
+    return reinterpret_cast<bf16*>(
+        stage_w(slot) + (W8 ? static_cast<size_t>(KT) * Cfg::LDA8
+                            : sizeof(bf16) * KT * Cfg::LDA));
+  };
 
   auto load_stage = [&](int kt, int slot) {
-    bf16* As = sm + slot * Cfg::STAGE;
-    bf16* Xs = As + KT * Cfg::LDA;
+    unsigned char* As = stage_w(slot);
+    bf16* Xs = stage_x(slot);
     const int k0 = kt * KT;
 #pragma unroll
     for (int j = 0; j < KT / ARS; ++j) {
       const int r = ar0 + j * ARS, k = k0 + r;
-      bf16* dst = As + r * Cfg::LDA + ac * 8;
+      void* dst = As + (W8 ? static_cast<size_t>(r) * Cfg::LDA8 + ac * 16
+                           : sizeof(bf16) * (r * Cfg::LDA + ac * 8));
       if (k >= K || an <= 0)
         zero8(dst);
       else if (afast)
         cp_async16(dst, wc + k * ldw, true);
+      else if constexpr (W8)
+        stage16_i8(dst, wc + k * ldw, an);
       else
-        stage8(dst, wc + k * ldw, an);
+        stage8(static_cast<bf16*>(dst), wc + k * ldw, an);
     }
 #pragma unroll
     for (int j = 0; j < (N + XRS - 1) / XRS; ++j) {
@@ -342,8 +392,26 @@ __device__ __forceinline__ void tc_gemm(const bf16* __restrict__ W,
     __syncthreads();          // ... and stage kt - 1 is consumed
     if (kt + ST - 1 < nk) load_stage(kt + ST - 1, (kt + ST - 1) % ST);
     cp_async_commit();
-    const bf16* As = sm + (kt % ST) * Cfg::STAGE;
-    const bf16* Xs = As + KT * Cfg::LDA;
+    const bf16* As;
+    const bf16* Xs = stage_x(kt % ST);
+    if constexpr (W8) {
+      // widen the landed int8 stage into the bf16 tile after the ring (the
+      // barrier above: every warp is done with the previous one)
+      const unsigned char* A8 = stage_w(kt % ST);
+      bf16* Ab = reinterpret_cast<bf16*>(smem + ST * Cfg::STAGE8);
+      for (int i = tid; i < KT * (M / 16); i += T) {
+        const int r = i / (M / 16), c = i % (M / 16);
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            A8 + static_cast<size_t>(r) * Cfg::LDA8 + c * 16);
+        uint4* d = reinterpret_cast<uint4*>(Ab + r * Cfg::LDA + c * 16);
+        d[0] = i8x8_to_bf16x8(make_uint2(raw.x, raw.y));
+        d[1] = i8x8_to_bf16x8(make_uint2(raw.z, raw.w));
+      }
+      __syncthreads();
+      As = Ab;
+    } else {
+      As = reinterpret_cast<const bf16*>(stage_w(kt % ST));
+    }
     load_frags(As, Xs, 0, 0);
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
@@ -410,9 +478,10 @@ __device__ __forceinline__ bool tile_occupied(const int* __restrict__ flags,
 // hid[e, c, f] (row stride FP) for f in the block's M / 2 hidden columns:
 // the block's weight columns are those gate columns and the same up
 // columns.  Grid (C tiles, F tiles, E).
-template <class Cfg>
+template <class Cfg, bool W8>
 __global__ void __launch_bounds__(Cfg::THREADS)
-    moe_up_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wi,
+    moe_up_tc_kernel(const bf16* __restrict__ x,
+                     const WType<W8>* __restrict__ wi,
                      const float* __restrict__ si,
                      const int* __restrict__ flags, bf16* __restrict__ hid,
                      int C, int D, int F, int FP, int act) {
@@ -425,7 +494,7 @@ __global__ void __launch_bounds__(Cfg::THREADS)
   const int f0 = blockIdx.y * FH;
   const int col[2] = {f0, F + f0};
   const int nv[2] = {min(FH, F - f0), min(FH, F - f0)};
-  tc_gemm<Cfg>(wi + static_cast<size_t>(e) * D * 2 * F,
+  tc_gemm<Cfg, W8>(wi + static_cast<size_t>(e) * D * 2 * F,
                2 * static_cast<size_t>(F), col, nv, x + row0 * D, D, nc, D,
                smem_raw);
   const float* ep = reinterpret_cast<const float*>(smem_raw);
@@ -442,10 +511,10 @@ __global__ void __launch_bounds__(Cfg::THREADS)
 
 // out[e, c, d] for d in the block's M output columns.  Grid (C tiles,
 // D tiles, E).
-template <class Cfg>
+template <class Cfg, bool W8>
 __global__ void __launch_bounds__(Cfg::THREADS)
     moe_down_tc_kernel(const bf16* __restrict__ hid,
-                       const bf16* __restrict__ wo,
+                       const WType<W8>* __restrict__ wo,
                        const float* __restrict__ so,
                        const int* __restrict__ flags, bf16* __restrict__ out,
                        int C, int D, int F, int FP) {
@@ -465,7 +534,7 @@ __global__ void __launch_bounds__(Cfg::THREADS)
   const int col[2] = {d0, d0 + M / 2};
   const int nv[2] = {max(0, min(M / 2, D - d0)),
                      max(0, min(M / 2, D - d0 - M / 2))};
-  tc_gemm<Cfg>(wo + static_cast<size_t>(e) * F * D, D, col, nv,
+  tc_gemm<Cfg, W8>(wo + static_cast<size_t>(e) * F * D, D, col, nv,
                hid + row0 * FP, FP, nc, F, smem_raw);
   const float* ep = reinterpret_cast<const float*>(smem_raw);
   const float s = so ? so[e] : 1.f;
@@ -485,24 +554,29 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // Up and down passes with their own tiles; both take Up::N bucket rows.
-template <class Up, class Down>
-int launch_tc(const bf16* x, const bf16* wi, const bf16* wo, const float* si,
-              const float* so, bf16* out, bf16* hid, int* flags, int E, int C,
-              int D, int F, int FP, int act, cudaStream_t st) {
+template <class Up, class Down, bool W8>
+int launch_tc(const bf16* x, const void* wiv, const void* wov,
+              const float* si, const float* so, bf16* out, bf16* hid,
+              int* flags, int E, int C, int D, int F, int FP, int act,
+              cudaStream_t st) {
   static_assert(Up::N == Down::N, "one row tile for both passes");
-  cudaError_t err = allow_smem(moe_up_tc_kernel<Up>, Up::SMEM);
+  const auto* wi = static_cast<const WType<W8>*>(wiv);
+  const auto* wo = static_cast<const WType<W8>*>(wov);
+  constexpr size_t up_smem = W8 ? Up::SMEM8 : Up::SMEM;
+  constexpr size_t down_smem = W8 ? Down::SMEM8 : Down::SMEM;
+  cudaError_t err = allow_smem(moe_up_tc_kernel<Up, W8>, up_smem);
   if (err == cudaSuccess)
-    err = allow_smem(moe_down_tc_kernel<Down>, Down::SMEM);
+    err = allow_smem(moe_down_tc_kernel<Down, W8>, down_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = E * C, nct = (C + Up::N - 1) / Up::N;
   moe_flags_kernel<<<(rows + 7) / 8, 256, 0, st>>>(x, flags, rows, D);
   // the row tiles of one weight tile are neighbours in launch order, so
   // the weight tile comes from device memory once and from L2 after
   const dim3 gu(nct, (F + Up::M / 2 - 1) / (Up::M / 2), E);
-  moe_up_tc_kernel<Up><<<gu, Up::THREADS, Up::SMEM, st>>>(
+  moe_up_tc_kernel<Up, W8><<<gu, Up::THREADS, up_smem, st>>>(
       x, wi, si, flags, hid, C, D, F, FP, act);
   const dim3 gd(nct, (D + Down::M - 1) / Down::M, E);
-  moe_down_tc_kernel<Down><<<gd, Down::THREADS, Down::SMEM, st>>>(
+  moe_down_tc_kernel<Down, W8><<<gd, Down::THREADS, down_smem, st>>>(
       hid, wo, so, flags, out, C, D, F, FP);
   return static_cast<int>(cudaGetLastError());
 }
@@ -515,7 +589,8 @@ int launch_tc(const bf16* x, const bf16* wi, const bf16* wo, const float* si,
 // DeepSeek-V3 prefill bucket) streams 256 weight columns a block.  Wider
 // decode tiles at one block to an SM were slower on the H100: with
 // per-thread cp.async issue, more blocks keep more bytes in flight.
-int launch_bf16(int nt, const bf16* x, const bf16* wi, const bf16* wo,
+template <bool W8>
+int launch_bf16(int nt, const bf16* x, const void* wi, const void* wo,
                 const float* si, const float* so, bf16* out, bf16* hid,
                 int* flags, int E, int C, int D, int F, int FP, int act,
                 cudaStream_t st) {
@@ -526,70 +601,70 @@ int launch_bf16(int nt, const bf16* x, const bf16* wi, const bf16* wo,
   using Both32 = TcCfg<4, 1, 4, 4, 64, 3>;
   using Both64 = TcCfg<2, 4, 4, 2, 32, 4>;
   using Both128 = TcCfg<2, 4, 4, 4, 32, 4>;
+#define REPRO_MOE_TC(U, D_)                                                \
+  launch_tc<U, D_, W8>(x, wi, wo, si, so, out, hid, flags, E, C, D, F, FP, \
+                       act, st)
   switch (nt) {
-    case 8:
-      return launch_tc<Up8, Down8>(x, wi, wo, si, so, out, hid, flags, E, C,
-                                   D, F, FP, act, st);
-    case 16:
-      return launch_tc<Up16, Down16>(x, wi, wo, si, so, out, hid, flags, E,
-                                     C, D, F, FP, act, st);
-    case 32:
-      return launch_tc<Both32, Both32>(x, wi, wo, si, so, out, hid, flags, E,
-                                       C, D, F, FP, act, st);
-    case 64:
-      return launch_tc<Both64, Both64>(x, wi, wo, si, so, out, hid, flags, E,
-                                       C, D, F, FP, act, st);
-    case 128:
-      return launch_tc<Both128, Both128>(x, wi, wo, si, so, out, hid, flags,
-                                         E, C, D, F, FP, act, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 8: return REPRO_MOE_TC(Up8, Down8);
+    case 16: return REPRO_MOE_TC(Up16, Down16);
+    case 32: return REPRO_MOE_TC(Both32, Both32);
+    case 64: return REPRO_MOE_TC(Both64, Both64);
+    case 128: return REPRO_MOE_TC(Both128, Both128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_MOE_TC
 }
 
 }  // namespace
 
-// f32 body.  x (E,C,D), wi (E,D,2,F), wo (E,F,D); si/so (E,) or null
-// (scale 1); out (E,C,D); hid (E,C,F) and part (fsplit,E,C,D) scratch.
-// ct: bucket rows per block (4, 8 or 32).  act: 0 silu, 1 gelu.
-extern "C" int moe_ffn_f32_launch(const float* x, const float* wi,
-                                  const float* wo, const float* si,
+// f32 body.  x (E,C,D), wi (E,D,2,F), wo (E,F,D), f32 or, with w8, int8
+// weights; si/so (E,) or null (scale 1); out (E,C,D); hid (E,C,F) and part
+// (fsplit,E,C,D) scratch.  ct: bucket rows per block (4, 8 or 32).  act:
+// 0 silu, 1 gelu.
+extern "C" int moe_ffn_f32_launch(const float* x, const void* wi,
+                                  const void* wo, const float* si,
                                   const float* so, float* out, float* hid,
                                   float* part, int E, int C, int D, int F,
-                                  int ct, int fsplit, int act, void* stream) {
+                                  int ct, int fsplit, int act, int w8,
+                                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_MOE_F32(CT)                                                  \
+  (w8 ? launch_f32<CT, signed char>(                                       \
+            x, static_cast<const signed char*>(wi),                        \
+            static_cast<const signed char*>(wo), si, so, out, hid, part, E, \
+            C, D, F, fsplit, act, st)                                      \
+      : launch_f32<CT, float>(x, static_cast<const float*>(wi),             \
+                              static_cast<const float*>(wo), si, so, out,   \
+                              hid, part, E, C, D, F, fsplit, act, st))
   switch (ct) {
-    case 4:
-      launch_f32<4>(x, wi, wo, si, so, out, hid, part, E, C, D, F, fsplit,
-                    act, st);
-      break;
-    case 8:
-      launch_f32<8>(x, wi, wo, si, so, out, hid, part, E, C, D, F, fsplit,
-                    act, st);
-      break;
-    case 32:
-      launch_f32<32>(x, wi, wo, si, so, out, hid, part, E, C, D, F, fsplit,
-                     act, st);
-      break;
+    case 4: REPRO_MOE_F32(4); break;
+    case 8: REPRO_MOE_F32(8); break;
+    case 32: REPRO_MOE_F32(32); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_MOE_F32
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 body.  x (E,C,D), wi (E,D,2,F), wo (E,F,D) bf16 with D % 8 == 0 and
-// 16-byte aligned bases; si/so (E,) f32 or null; out (E,C,D) bf16; hid
-// (E,C,FP) bf16 scratch, FP = F rounded up to 8; flags (E,C) int32
-// scratch.  nt: bucket rows per block (8, 16, 32, 64 or 128).
+// bf16 body.  x (E,C,D) bf16; wi (E,D,2,F), wo (E,F,D) bf16 or, with w8,
+// int8; D % 8 == 0 and 16-byte aligned bases; si/so (E,) f32 or null;
+// out (E,C,D) bf16; hid (E,C,FP) bf16 scratch, FP = F rounded up to 8;
+// flags (E,C) int32 scratch.  nt: bucket rows per block (8, 16, 32, 64 or
+// 128).
 extern "C" int moe_ffn_bf16_launch(const void* x, const void* wi,
                                    const void* wo, const float* si,
                                    const float* so, void* out, void* hid,
                                    int* flags, int E, int C, int D, int F,
-                                   int FP, int nt, int act, void* stream) {
+                                   int FP, int nt, int act, int w8,
+                                   void* stream) {
   if (D % 8 || FP % 8 || FP < F) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16(nt, static_cast<const bf16*>(x),
-                     static_cast<const bf16*>(wi),
-                     static_cast<const bf16*>(wo), si, so,
-                     static_cast<bf16*>(out), static_cast<bf16*>(hid), flags,
-                     E, C, D, F, FP, act, static_cast<cudaStream_t>(stream));
+  const auto* xb = static_cast<const bf16*>(x);
+  auto* ob = static_cast<bf16*>(out);
+  auto* hb = static_cast<bf16*>(hid);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return w8 ? launch_bf16<true>(nt, xb, wi, wo, si, so, ob, hb, flags, E, C,
+                                D, F, FP, act, st)
+            : launch_bf16<false>(nt, xb, wi, wo, si, so, ob, hb, flags, E, C,
+                                 D, F, FP, act, st);
 }

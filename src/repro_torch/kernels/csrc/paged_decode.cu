@@ -30,6 +30,15 @@
 // partials.  Its 4*valid*H*D operations are far below the card's rate,
 // so it is bound by bytes.
 //
+// int8 arena (the Pallas kernel's `quantized` branch): k, v hold int8
+// values and ks, vs (Hkv, NB+1, bt) one f32 scale per (head, position);
+// s = softcap(scale * (q . k_int) * ks) and o_unnorm sums
+// exp(s - m) * vs * v_int, l unscaled.  The fused form's fresh token
+// brings its scales ks_new, vs_new (B, Hkv) with its int8 rows, merged
+// like them, so fused equals write-then-attend bit for bit here too.  The
+// arena stays int8 in HBM (its K/V bytes halve); the rows are widened in
+// registers or shared memory only.
+//
 // Two bodies, chosen by dtype.  The source sizes a row's chunks, whose
 // partials a second launch merges in a fixed order (combine_partials_row):
 // paged_gqa_decode_splits.
@@ -67,7 +76,10 @@
 // padded to 16 rows (any G, G > 16 looping over head tiles), the masked
 // softmax on a shared f32 score tile, P.V with P split into bf16 hi + lo.
 // Takes any G, D a multiple of 8 up to 256, any bt and MB (at most 65535
-// chunks a row), 16-byte aligned rows.
+// chunks a row), 16-byte aligned rows.  An int8 arena's rows are loaded 8
+// bytes a thread and stored to the tile as bf16 (exact), the tile's
+// scales staged beside them (decode_tile.cuh folds them in); int8 rows
+// need 8-byte alignment.
 //
 // What bounds it: with a cold L2 the tile kernel streams the mapped
 // blocks' K and V near the card's memory rate, counting the dirty lines
@@ -81,7 +93,9 @@
 // every K and V load of the tile back to back (lanes across D, D/32
 // elements a lane), then scores them (shuffle sums), and the warps merge
 // through shared memory at the end.  Takes G in {1, 2, 4, 8} and
-// D <= 128.
+// D <= 128, and an int8 arena as well (f32 queries over int8 rows).
+#include <type_traits>
+
 #include "decode_tile.cuh"
 
 namespace {
@@ -93,6 +107,10 @@ constexpr int kChunk = 8;       // logical blocks per thread block
 
 template <int N>
 struct Raw;
+template <>
+struct Raw<1> { using type = unsigned char; };
+template <>
+struct Raw<2> { using type = unsigned short; };
 template <>
 struct Raw<4> { using type = unsigned int; };
 template <>
@@ -125,15 +143,21 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p,
   unpack<T, VPL>(load_raw<T, VPL>(p), out);
 }
 
-template <typename T, int G, int VPL>
+// KV: the arena's element type, T or signed char (int8, with ksc / vsc and
+// the fresh token's ksn / vsn).
+template <typename T, typename KV, int G, int VPL>
 __global__ void __launch_bounds__(kThreads)
-    paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
+    paged_chunk_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                       const KV* __restrict__ v,
                        const int* __restrict__ slot_pos,
                        const int* __restrict__ pt,
                        const int* __restrict__ pos_arr,
-                       const T* __restrict__ k_new,
-                       const T* __restrict__ v_new, float* __restrict__ po,
+                       const KV* __restrict__ k_new,
+                       const KV* __restrict__ v_new,
+                       const float* __restrict__ ksc,
+                       const float* __restrict__ vsc,
+                       const float* __restrict__ ksn,
+                       const float* __restrict__ vsn, float* __restrict__ po,
                        float* __restrict__ pm, float* __restrict__ pl,
                        int H, int Hkv, int NB1, int bt, int D, int MB,
                        int chunk, float scale, float cap, int window) {
@@ -169,6 +193,7 @@ __global__ void __launch_bounds__(kThreads)
   // the fused token's logical block and offset (-1: none)
   int tgt_lb = -1, tgt_off = -1;
   float kn[VPL], vn[VPL];
+  float kns = 1.f, vns = 1.f;  // the fresh token's int8 scales
 #pragma unroll
   for (int j = 0; j < VPL; ++j) kn[j] = vn[j] = 0.f;
   if (k_new != nullptr) {
@@ -177,8 +202,12 @@ __global__ void __launch_bounds__(kThreads)
     tgt_off = i % bt;
     if (has) {
       const size_t r = (static_cast<size_t>(b) * Hkv + hk) * D + c0;
-      load_vec<T, VPL>(k_new + r, kn);
-      load_vec<T, VPL>(v_new + r, vn);
+      load_vec<KV, VPL>(k_new + r, kn);
+      load_vec<KV, VPL>(v_new + r, vn);
+    }
+    if (ksc != nullptr) {
+      kns = ksn[static_cast<size_t>(b) * Hkv + hk];
+      vns = vsn[static_cast<size_t>(b) * Hkv + hk];
     }
   }
 
@@ -217,18 +246,23 @@ __global__ void __launch_bounds__(kThreads)
         // address inside the block and is dropped); an invalid position's
         // row (a stale or unwritten slot of a mapped block) is zeroed, the
         // fused token's replaced by k_new / v_new
-        RawVec<T, VPL> rk[kTile], rv[kTile];
+        RawVec<KV, VPL> rk[kTile], rv[kTile];
+        float ks[kTile], vs[kTile];  // int8: the positions' scales
 #pragma unroll
         for (int i = 0; i < kTile; ++i) {
-          const size_t r = (base + min(t0 + i, tend - 1)) * D + (has ? c0 : 0);
-          rk[i] = load_raw<T, VPL>(k + r);
-          rv[i] = load_raw<T, VPL>(v + r);
+          const size_t t = base + min(t0 + i, tend - 1);
+          const size_t r = t * D + (has ? c0 : 0);
+          rk[i] = load_raw<KV, VPL>(k + r);
+          rv[i] = load_raw<KV, VPL>(v + r);
+          const bool fresh = t0 + i == hit;
+          ks[i] = ksc == nullptr ? 1.f : (fresh ? kns : __ldg(ksc + t));
+          vs[i] = ksc == nullptr ? 1.f : (fresh ? vns : __ldg(vsc + t));
         }
         float kr[kTile][VPL], vr[kTile][VPL];
 #pragma unroll
         for (int i = 0; i < kTile; ++i) {
-          unpack<T, VPL>(rk[i], kr[i]);
-          unpack<T, VPL>(rv[i], vr[i]);
+          unpack<KV, VPL>(rk[i], kr[i]);
+          unpack<KV, VPL>(rv[i], vr[i]);
           const bool use = has && ((mask >> i) & 1u);
           const bool fresh = t0 + i == hit;
 #pragma unroll
@@ -257,6 +291,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
             for (int g = 0; g < G; ++g)
               s[g][i] += __shfl_xor_sync(0xffffffffu, s[g][i], o);
+        if (ksc != nullptr) {  // s = (q . k_int) * ks
+#pragma unroll
+          for (int i = 0; i < kTile; ++i)
+#pragma unroll
+            for (int g = 0; g < G; ++g) s[g][i] *= ks[i];
+        }
         if (cap > 0.f) {
 #pragma unroll
           for (int i = 0; i < kTile; ++i)
@@ -288,7 +328,8 @@ __global__ void __launch_bounds__(kThreads)
           for (int j = 0; j < VPL; ++j) {
             float a = acc[g][j] * corr;
 #pragma unroll
-            for (int i = 0; i < kTile; ++i) a = fmaf(s[g][i], vr[i][j], a);
+            for (int i = 0; i < kTile; ++i)
+              a = fmaf(s[g][i] * vs[i], vr[i][j], a);
             acc[g][j] = a;
           }
           m_run[g] = m_new;
@@ -348,21 +389,39 @@ __global__ void paged_combine_kernel(const float* __restrict__ po,
   combine_partials_row(po, pm, pl, o, m, l, nsplit, D);
 }
 
+// The int8 scales of the arena and of the fresh token (all null for an
+// unquantized arena).
+struct Scales {
+  const float* ks;
+  const float* vs;
+  const float* ksn;
+  const float* vsn;
+};
+
 template <typename T, int G, int VPL>
 int launch(const void* q, const void* k, const void* v, const int* slot_pos,
            const int* pt, const int* pos, const void* k_new,
-           const void* v_new, float* po, float* pm, float* pl, float* o,
-           float* m, float* l, int B, int H, int Hkv, int NB1, int bt, int D,
-           int MB, int chunk, float scale, float cap, int window,
-           cudaStream_t st) {
+           const void* v_new, Scales sc, float* po, float* pm, float* pl,
+           float* o, float* m, float* l, int B, int H, int Hkv, int NB1,
+           int bt, int D, int MB, int chunk, float scale, float cap,
+           int window, cudaStream_t st) {
   const int nsplit = (MB + chunk - 1) / chunk;
   const size_t smem = sizeof(float) * kWarps * G * D;
   const dim3 grid(nsplit, Hkv, B);
-  paged_chunk_kernel<T, G, VPL><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), slot_pos, pt, pos,
-      static_cast<const T*>(k_new), static_cast<const T*>(v_new), po, pm,
-      pl, H, Hkv, NB1, bt, D, MB, chunk, scale, cap, window);
+  if (sc.ks != nullptr)
+    paged_chunk_kernel<T, signed char, G, VPL><<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const signed char*>(k),
+        static_cast<const signed char*>(v), slot_pos, pt, pos,
+        static_cast<const signed char*>(k_new),
+        static_cast<const signed char*>(v_new), sc.ks, sc.vs, sc.ksn, sc.vsn,
+        po, pm, pl, H, Hkv, NB1, bt, D, MB, chunk, scale, cap, window);
+  else
+    paged_chunk_kernel<T, T, G, VPL><<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), slot_pos, pt, pos,
+        static_cast<const T*>(k_new), static_cast<const T*>(v_new), nullptr,
+        nullptr, nullptr, nullptr, po, pm, pl, H, Hkv, NB1, bt, D, MB, chunk,
+        scale, cap, window);
   paged_combine_kernel<<<B * H, kCombineThreads, 0, st>>>(po, pm, pl, o, m,
                                                           l, nsplit, D);
   return static_cast<int>(cudaGetLastError());
@@ -371,13 +430,14 @@ int launch(const void* q, const void* k, const void* v, const int* slot_pos,
 template <typename T, int G>
 int launch_vpl(int vpl, const void* q, const void* k, const void* v,
                const int* slot_pos, const int* pt, const int* pos,
-               const void* k_new, const void* v_new, float* po, float* pm,
+               const void* k_new, const void* v_new, Scales sc, float* po,
+               float* pm,
                float* pl, float* o, float* m, float* l, int B, int H,
                int Hkv, int NB1, int bt, int D, int MB, int chunk,
                float scale, float cap, int window, cudaStream_t st) {
 #define REPRO_PAGED_ARGS                                                   \
-  q, k, v, slot_pos, pt, pos, k_new, v_new, po, pm, pl, o, m, l, B, H, Hkv, \
-      NB1, bt, D, MB, chunk, scale, cap, window, st
+  q, k, v, slot_pos, pt, pos, k_new, v_new, sc, po, pm, pl, o, m, l, B, H, \
+      Hkv, NB1, bt, D, MB, chunk, scale, cap, window, st
   switch (vpl) {
     case 1: return launch<T, G, 1>(REPRO_PAGED_ARGS);
     case 2: return launch<T, G, 2>(REPRO_PAGED_ARGS);
@@ -389,7 +449,8 @@ int launch_vpl(int vpl, const void* q, const void* k, const void* v,
 template <typename T>
 int launch_g(int G, int vpl, const void* q, const void* k, const void* v,
              const int* slot_pos, const int* pt, const int* pos,
-             const void* k_new, const void* v_new, float* po, float* pm,
+             const void* k_new, const void* v_new, Scales sc, float* po,
+             float* pm,
              float* pl, float* o, float* m, float* l, int B, int H, int Hkv,
              int NB1, int bt, int D, int MB, int chunk, float scale,
              float cap, int window, cudaStream_t st) {
@@ -412,24 +473,31 @@ constexpr long long kUnmapped = -1;   // src_s: a position of no mapped block
 constexpr long long kFresh = -2;      // src_s: the fused token's position
 
 // DP: D rounded up to 32, 64, 128 or 256; the shared columns past D are
-// zero-filled by the copies.
-template <int DP>
+// zero-filled by the copies.  Q8: an int8 arena with its scales (sc),
+// else bf16.
+template <int DP, bool Q8>
 __global__ void __launch_bounds__(kTcThreads)
-    paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v,
+    paged_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ kp,
+                    const void* __restrict__ vp,
                     const int* __restrict__ slot_pos,
                     const int* __restrict__ pt,
                     const int* __restrict__ pos_arr,
-                    const bf16* __restrict__ k_new,
-                    const bf16* __restrict__ v_new, float* __restrict__ po,
-                    float* __restrict__ pm, float* __restrict__ pl, int H,
-                    int Hkv, int NB1, int bt, int D, int MB, float scale,
-                    float cap, int window) {
+                    const void* __restrict__ knp,
+                    const void* __restrict__ vnp, Scales sc,
+                    float* __restrict__ po, float* __restrict__ pm,
+                    float* __restrict__ pl, int H, int Hkv, int NB1, int bt,
+                    int D, int MB, float scale, float cap, int window) {
   using Tile = decode_tile::Tile<DP>;
+  using KV = typename std::conditional<Q8, signed char, bf16>::type;
+  const KV* __restrict__ k = static_cast<const KV*>(kp);
+  const KV* __restrict__ v = static_cast<const KV*>(vp);
+  const KV* __restrict__ k_new = static_cast<const KV*>(knp);
+  const KV* __restrict__ v_new = static_cast<const KV*>(vnp);
   constexpr int LD = Tile::LD, CH = Tile::CH;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ long long src_s[kSlots];  // a position's K/V row (elements)
   __shared__ unsigned char ok_s[kSlots];
+  __shared__ float ks_s[kSlots], vs_s[kSlots];  // Q8: the tile's scales
   const int G = H / Hkv, GP = (G + 15) / 16 * 16;
   const Tile tl(smem_raw, GP);
   const int hk = blockIdx.x % Hkv, b = blockIdx.x / Hkv, sp = blockIdx.y;
@@ -443,6 +511,7 @@ __global__ void __launch_bounds__(kTcThreads)
   // then its slot_pos (loaded now, used after the K copies are issued)
   bool mapped = false;
   int spos = -1;
+  float kscale = 0.f, vscale = 0.f;  // Q8: this position's scales
   if (tid < kSlots) {
     const int t = sp * kSlots + tid;
     long long src = kUnmapped;
@@ -454,13 +523,24 @@ __global__ void __launch_bounds__(kTcThreads)
         if (k_new != nullptr && t == p % ring) {
           src = kFresh;
           spos = p;
+          if (Q8) {
+            kscale = sc.ksn[static_cast<size_t>(b) * Hkv + hk];
+            vscale = sc.vsn[static_cast<size_t>(b) * Hkv + hk];
+          }
         } else {
-          src = ((static_cast<long long>(hk) * NB1 + pb) * bt + off) * D;
+          const long long row = (static_cast<long long>(hk) * NB1 + pb) * bt +
+                                off;
+          src = row * D;
           spos = slot_pos[static_cast<size_t>(pb) * bt + off];
+          if (Q8) {
+            kscale = sc.ks[row];
+            vscale = sc.vs[row];
+          }
         }
       }
     }
     src_s[tid] = src;
+    ks_s[tid] = kscale;
   }
   if (!__syncthreads_or(mapped)) {
     // no mapped position: the sentinel max and nothing else
@@ -483,8 +563,12 @@ __global__ void __launch_bounds__(kTcThreads)
     const int j = i / CH, c = i % CH;
     const long long s = src_s[j];
     const bool in = s != kUnmapped && c < dch;
-    const bf16* src = s == kFresh ? k_new + nrow : k + (s >= 0 ? s : 0);
-    cp_async16(tl.ks + j * LD + c * 8, src + (in ? c * 8 : 0), in, pol);
+    const KV* src = s == kFresh ? k_new + nrow : k + (s >= 0 ? s : 0);
+    if constexpr (Q8)  // int8 rows widened to bf16 on the way into the tile
+      decode_tile::stage_i8(tl.ks + j * LD + c * 8, src + (in ? c * 8 : 0),
+                            in);
+    else
+      cp_async16(tl.ks + j * LD + c * 8, src + (in ? c * 8 : 0), in, pol);
   }
   cp_async_commit();
   bool ok = false;
@@ -492,6 +576,7 @@ __global__ void __launch_bounds__(kTcThreads)
     ok = mapped && spos >= 0 && spos <= p &&
          (window <= 0 || spos > p - window);
     ok_s[tid] = ok;
+    vs_s[tid] = ok ? vscale : 0.f;
   }
   if (!__syncthreads_or(ok)) {
     cp_async_wait<0>();  // nothing valid: drain the K copies, then leave
@@ -503,35 +588,38 @@ __global__ void __launch_bounds__(kTcThreads)
     const int j = i / CH, c = i % CH;
     const long long s = src_s[j];
     const bool in = ok_s[j] && c < dch;
-    const bf16* src = s == kFresh ? v_new + nrow : v + (s >= 0 ? s : 0);
-    cp_async16(tl.vs + j * LD + c * 8, src + (in ? c * 8 : 0), in, pol);
+    const KV* src = s == kFresh ? v_new + nrow : v + (s >= 0 ? s : 0);
+    if constexpr (Q8)
+      decode_tile::stage_i8(tl.vs + j * LD + c * 8, src + (in ? c * 8 : 0),
+                            in);
+    else
+      cp_async16(tl.vs + j * LD + c * 8, src + (in ? c * 8 : 0), in, pol);
   }
   cp_async_commit();
   decode_tile::attend<DP>(tl, ok_s, G, D, scale, cap, po, pm, pl, row0,
-                          nsplit, sp);
+                          nsplit, sp, Q8 ? ks_s : nullptr,
+                          Q8 ? vs_s : nullptr);
 }
 
-template <int DP>
+template <int DP, bool Q8>
 int launch_tc(const void* q, const void* k, const void* v,
               const int* slot_pos, const int* pt, const int* pos,
-              const void* k_new, const void* v_new, float* po, float* pm,
-              float* pl, float* o, float* m, float* l, int B, int H, int Hkv,
-              int NB1, int bt, int D, int MB, int nsplit, float scale,
-              float cap, int window, cudaStream_t st) {
+              const void* k_new, const void* v_new, Scales sc, float* po,
+              float* pm, float* pl, float* o, float* m, float* l, int B,
+              int H, int Hkv, int NB1, int bt, int D, int MB, int nsplit,
+              float scale, float cap, int window, cudaStream_t st) {
   const int G = H / Hkv;
   const size_t smem = decode_tile::smem_bytes((G + 15) / 16 * 16, DP);
   const cudaError_t err = cudaFuncSetAttribute(
-      paged_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_tc_kernel<DP, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // the chunk is the slowest grid dimension: the low chunks, busy in every
   // row, are dispatched first and the empty ones after
   const dim3 grid(B * Hkv, nsplit);
-  paged_tc_kernel<DP><<<grid, kTcThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), slot_pos, pt, pos,
-      static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new), po,
-      pm, pl, H, Hkv, NB1, bt, D, MB, scale, cap, window);
+  paged_tc_kernel<DP, Q8><<<grid, kTcThreads, smem, st>>>(
+      static_cast<const bf16*>(q), k, v, slot_pos, pt, pos, k_new, v_new, sc,
+      po, pm, pl, H, Hkv, NB1, bt, D, MB, scale, cap, window);
   paged_combine_kernel<<<B * H, kCombineThreads, 0, st>>>(po, pm, pl, o, m,
                                                           l, nsplit, D);
   return static_cast<int>(cudaGetLastError());
@@ -549,36 +637,48 @@ extern "C" int paged_gqa_decode_splits(int dtype, int MB, int bt) {
 }
 
 // q (B,H,D); k, v (Hkv, NB1, bt, D) of one dtype (one layer's arena,
-// NB1 = NB + 1 with the trash block last); slot_pos (NB1, bt), pt (B, MB)
-// and pos (B,) int32; k_new, v_new (B, Hkv, D) in the arena dtype or null
-// (unfused); po (B,H,nsplit,D), pm/pl (B,H,nsplit) f32 scratch with
+// NB1 = NB + 1 with the trash block last), or int8 with their scales
+// ks, vs (Hkv, NB1, bt) f32 (null for an unquantized arena); slot_pos
+// (NB1, bt), pt (B, MB) and pos (B,) int32; k_new, v_new (B, Hkv, D) in
+// the arena dtype or null (unfused), with, for int8, ksn, vsn (B, Hkv)
+// f32; po (B,H,nsplit,D), pm/pl (B,H,nsplit) f32 scratch with
 // nsplit = paged_gqa_decode_splits(dtype, MB, bt); o (B,H,D), m/l (B,H)
 // f32 outputs.  cap <= 0 disables the softcap, window <= 0 the window.
 // bf16: any G = H / Hkv, D a multiple of 8 up to 256, 16-byte aligned
-// rows.  f32: G in {1, 2, 4, 8}, vpl = D columns per lane in {1, 2, 4}
-// with D <= 32 * vpl and D % vpl == 0.
+// rows (int8: 8-byte).  f32: G in {1, 2, 4, 8}, vpl = D columns per lane
+// in {1, 2, 4} with D <= 32 * vpl and D % vpl == 0.
 extern "C" int paged_gqa_decode_launch(
     int dtype, const void* q, const void* k, const void* v,
     const void* slot_pos, const void* pt, const void* pos, const void* k_new,
-    const void* v_new, float* po, float* pm, float* pl, float* o, float* m,
+    const void* v_new, const float* ks, const float* vs, const float* ksn,
+    const float* vsn, float* po, float* pm, float* pl, float* o, float* m,
     float* l, int B, int H, int Hkv, int NB1, int bt, int D, int MB, int vpl,
     float scale, float cap, int window, void* stream) {
   const int nsplit = paged_gqa_decode_splits(dtype, MB, bt);
   if (nsplit < 1 || Hkv < 1 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool q8 = ks != nullptr;
+  if (q8 != (vs != nullptr) ||
+      (q8 && k_new != nullptr && (ksn == nullptr || vsn == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Scales sc{ks, vs, ksn, vsn};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* sp = static_cast<const int*>(slot_pos);
   const auto* ptp = static_cast<const int*>(pt);
   const auto* ps = static_cast<const int*>(pos);
   if (dtype == DT_F32)
     return launch_g<float>(H / Hkv, vpl, q, k, v, sp, ptp, ps, k_new, v_new,
-                           po, pm, pl, o, m, l, B, H, Hkv, NB1, bt, D, MB,
-                           kChunk, scale, cap, window, st);
+                           sc, po, pm, pl, o, m, l, B, H, Hkv, NB1, bt, D,
+                           MB, kChunk, scale, cap, window, st);
   if (D % 8 || D > 256 || nsplit > 65535)  // nsplit: the grid's y dimension
     return static_cast<int>(cudaErrorInvalidValue);
-#define REPRO_PAGED_TC(DP)                                                   \
-  launch_tc<DP>(q, k, v, sp, ptp, ps, k_new, v_new, po, pm, pl, o, m, l, B, \
-                H, Hkv, NB1, bt, D, MB, nsplit, scale, cap, window, st)
+#define REPRO_PAGED_TC(DP)                                                  \
+  (q8 ? launch_tc<DP, true>(q, k, v, sp, ptp, ps, k_new, v_new, sc, po, pm, \
+                            pl, o, m, l, B, H, Hkv, NB1, bt, D, MB, nsplit, \
+                            scale, cap, window, st)                         \
+      : launch_tc<DP, false>(q, k, v, sp, ptp, ps, k_new, v_new, sc, po,   \
+                             pm, pl, o, m, l, B, H, Hkv, NB1, bt, D, MB,    \
+                             nsplit, scale, cap, window, st))
   if (D <= 32) return REPRO_PAGED_TC(32);
   if (D <= 64) return REPRO_PAGED_TC(64);
   if (D <= 128) return REPRO_PAGED_TC(128);

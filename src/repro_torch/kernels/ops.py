@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import expert_gather as _eg
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import gqa_decode as _gqa
@@ -55,14 +57,15 @@ def moe_ffn(xbuf, wi, wo, wi_scale=None, wo_scale=None, *, act: str = "silu",
 
 
 def gqa_decode(q, k, v, valid, *, scale: float, attn_softcap: float = 0.0,
-               impl: str = "auto"):
-    """Flash-decode GQA partials over a dense ring."""
+               k_scale=None, v_scale=None, impl: str = "auto"):
+    """Flash-decode GQA partials over a dense ring; an int8 ring passes its
+    k_scale/v_scale (B,W,Hkv) f32, folded into the tiles."""
     _check_impl(impl)
+    kw = dict(scale=scale, attn_softcap=attn_softcap, k_scale=k_scale,
+              v_scale=v_scale)
     if impl == "ref":
-        return _ref.gqa_decode_ref(q, k, v, valid, scale=scale,
-                                   attn_softcap=attn_softcap)
-    return _gqa.gqa_decode(q, k, v, valid, scale=scale,
-                           attn_softcap=attn_softcap)
+        return _ref.gqa_decode_ref(q, k, v, valid, **kw)
+    return _gqa.gqa_decode(q, k, v, valid, **kw)
 
 
 def paged_gqa_decode(q, layer_cache, pos, *, scale: float,
@@ -70,14 +73,16 @@ def paged_gqa_decode(q, layer_cache, pos, *, scale: float,
                      impl: str = "auto"):
     """Paged flash-decode GQA partials, straight through the page table.
     layer_cache: a paged layer-cache slice — head-major arena ``k``/``v``
-    (Hkv, NB+1, bt, D), ``slot_pos`` (NB+1, bt), ``page_table`` (B, MB)."""
+    (Hkv, NB+1, bt, D) (+ ``k_scale``/``v_scale`` (Hkv, NB+1, bt) for
+    int8), ``slot_pos`` (NB+1, bt), ``page_table`` (B, MB)."""
     _check_impl(impl)
     kw = dict(scale=scale, attn_softcap=attn_softcap, window=window)
     if impl == "ref":
         return _ref.paged_gqa_decode_ref(q, layer_cache, pos, **kw)
     return _paged.paged_gqa_decode(
         q, layer_cache["k"], layer_cache["v"], layer_cache["slot_pos"],
-        layer_cache["page_table"], pos, **kw)
+        layer_cache["page_table"], pos, k_scale=layer_cache.get("k_scale"),
+        v_scale=layer_cache.get("v_scale"), **kw)
 
 
 def paged_gqa_decode_fused(q, layer_cache, new, pos, *, scale: float,
@@ -85,19 +90,28 @@ def paged_gqa_decode_fused(q, layer_cache, new, pos, *, scale: float,
                            impl: str = "auto"):
     """Fused decode-write paged GQA: attends over the fresh token and
     scatters it into the arena (in place) in one step.  new: ``k``/``v``
-    (B,1,Hkv,D).  Returns the partials.
+    (B,1,Hkv,D) (+ ``k_scale``/``v_scale`` (B,1,Hkv) f32 for int8, the
+    values already int8).  Returns the partials.
 
     The kernel merges the fresh token, cast to the arena dtype as the
     scatter casts it, into its target block before any score math and
     then the scatter runs on the same stream, so attention over the
-    un-written arena equals write-then-attend bit for bit; ``ref``
-    scatters first and runs the plain version."""
+    un-written arena equals write-then-attend bit for bit, scales
+    included; ``ref`` scatters first and runs the plain version."""
     _check_impl(impl)
     kw = dict(scale=scale, attn_softcap=attn_softcap, window=window)
     if impl == "ref":
         _kvcache._decode_scatter(layer_cache, new, pos)
         return _ref.paged_gqa_decode_ref(q, layer_cache, pos, **kw)
     dt = layer_cache["k"].dtype
+    if "k_scale" in layer_cache:
+        if new["k"].dtype != torch.int8:
+            raise TypeError("an int8 arena takes quantized fresh rows "
+                            "(kvcache.quantize_kv)")
+        kw.update(k_scale=layer_cache["k_scale"],
+                  v_scale=layer_cache["v_scale"],
+                  k_scale_new=new["k_scale"][:, 0],
+                  v_scale_new=new["v_scale"][:, 0])
     part = _paged.paged_gqa_decode(
         q, layer_cache["k"], layer_cache["v"], layer_cache["slot_pos"],
         layer_cache["page_table"], pos, k_new=new["k"][:, 0].to(dt),

@@ -24,13 +24,16 @@ def moe_ffn_ref(xbuf, wi, wo, wi_scale=None, wo_scale=None, *,
     return torch.einsum("ecf,efd->ecd", y, wo).to(xbuf.dtype)
 
 
-def gqa_decode_ref(q, k, v, valid, *, scale: float, attn_softcap: float = 0.0):
+def gqa_decode_ref(q, k, v, valid, *, scale: float, attn_softcap: float = 0.0,
+                   k_scale=None, v_scale=None):
     """q: (B,H,D); k: (B,W,Hkv,D); v: (B,W,Hkv,Dv); valid: (B,W) bool.
     Returns (o_unnorm (B,H,Dv) f32, m (B,H) f32, l (B,H) f32) — the
-    ``models.attention.attention_partials`` contract."""
+    ``models.attention.attention_partials`` contract.  An int8 ring passes
+    k_scale/v_scale (B,W,Hkv) f32, folded into the contractions."""
     from repro_torch.models.attention import attention_partials
     return attention_partials(q, k, v, valid, scale=scale,
-                              attn_softcap=attn_softcap)
+                              attn_softcap=attn_softcap, k_scale=k_scale,
+                              v_scale=v_scale)
 
 
 def _merge_fresh(ring, page_table, pos, fresh):
@@ -52,26 +55,35 @@ def _merge_fresh(ring, page_table, pos, fresh):
 
 def paged_gqa_decode_ref(q, layer_cache, pos, *, scale: float,
                          attn_softcap: float = 0.0, window: int = 0,
-                         k_new=None, v_new=None):
+                         k_new=None, v_new=None, k_scale_new=None,
+                         v_scale_new=None):
     """The paged-decode plain version: gather a dense ring view of the
     mapped blocks (``kvcache.paged_view``) and run the partials over it.
     q: (B,H,D); layer_cache: head-major arena ``k``/``v`` (Hkv,NB+1,bt,D),
     ``slot_pos`` (NB+1,bt), ``page_table`` (B,MB); pos: (B,).
 
+    An int8 arena adds ``k_scale``/``v_scale`` (Hkv,NB+1,bt) f32, folded
+    into the contractions.
+
     The fused form passes the fresh token k_new/v_new (B,Hkv,D) in the
-    arena dtype: it is merged into the gathered view at ring position
-    pos % W where that block is mapped — what the view holds after
+    arena dtype (and, for int8, k_scale_new/v_scale_new (B,Hkv) f32): it
+    is merged into the gathered view at ring position pos % W where that
+    block is mapped — what the view holds after
     ``kvcache.write_decode_paged`` — and the arena is left unwritten."""
     from repro_torch.models import kvcache
     from repro_torch.models.attention import (attention_partials,
                                               decode_valid_mask)
     ring = kvcache.paged_view(layer_cache)
     if k_new is not None:
-        _merge_fresh(ring, layer_cache["page_table"], pos,
-                     {"k": k_new, "v": v_new})
+        fresh = {"k": k_new, "v": v_new}
+        if k_scale_new is not None:
+            fresh.update(k_scale=k_scale_new, v_scale=v_scale_new)
+        _merge_fresh(ring, layer_cache["page_table"], pos, fresh)
     valid = decode_valid_mask(ring["slot_pos"], pos, window)
     return attention_partials(q, ring["k"], ring["v"], valid, scale=scale,
-                              attn_softcap=attn_softcap)
+                              attn_softcap=attn_softcap,
+                              k_scale=ring.get("k_scale"),
+                              v_scale=ring.get("v_scale"))
 
 
 def paged_mla_decode_ref(qcat, layer_cache, pos, *, scale: float,

@@ -26,14 +26,21 @@ from repro_torch.models.common import NEG_INF, apply_rope, rmsnorm, softcap
 
 
 def attention_partials(q, k, v, valid, *, scale: float,
-                       attn_softcap: float = 0.0):
+                       attn_softcap: float = 0.0, k_scale=None, v_scale=None):
     """q: (B,H,D), k/v: (B,W,Hkv,Dv), valid: (B,W) bool.
-    Returns (o_unnorm (B,H,Dv) f32, m (B,H) f32, l (B,H) f32)."""
+    Returns (o_unnorm (B,H,Dv) f32, m (B,H) f32, l (B,H) f32).
+
+    int8 KV passes its per-(token, head) ``k_scale``/``v_scale`` planes
+    ((B,W,Hkv) f32) and the dequant folds into the contractions —
+    ``s = (q · k_int) · k_scale`` and ``o = (p · v_scale) @ v_int`` — as
+    the kernels fold them into their tiles."""
     B, H, D = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
     qf = (q.float() * scale).reshape(B, Hkv, g, D)
     s = torch.einsum("bhgd,bwhd->bhgw", qf, k.float())
+    if k_scale is not None:
+        s = s * torch.swapaxes(k_scale, 1, 2)[:, :, None, :]
     s = softcap(s, attn_softcap)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     m = s.amax(-1)
@@ -41,6 +48,8 @@ def attention_partials(q, k, v, valid, *, scale: float,
     m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
     p = torch.exp(s - m_safe[..., None]) * (s > NEG_INF / 2)
     l = p.sum(-1)
+    if v_scale is not None:
+        p = p * torch.swapaxes(v_scale, 1, 2)[:, :, None, :]
     o = torch.einsum("bhgw,bwhd->bhgd", p, v.float())
     Dv = v.shape[-1]
     return o.reshape(B, H, Dv), m_safe.reshape(B, H), l.reshape(B, H)
@@ -73,22 +82,29 @@ def chunk_valid_mask(slot_pos, q_positions, window: int):
 
 
 def chunk_attention_ring(q, k, v, valid, *, scale: float,
-                         attn_softcap: float = 0.0):
+                         attn_softcap: float = 0.0, k_scale=None,
+                         v_scale=None):
     """Chunked-prefill attention: S chunk queries against the full ring.
     q: (B,S,H,D); k/v: (B,W,Hkv,Dv); valid: (B,S,W) bool.  Returns
     (B,S,H,Dv) f32 — the multi-query form of attention_partials +
-    combine_partials."""
+    combine_partials.  An int8 ring passes ``k_scale``/``v_scale``
+    ((B,W,Hkv) f32), folded into the score and value contractions as in
+    ``attention_partials``: no dequantized ring is built."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     g = H // Hkv
     qf = (q.float() * scale).reshape(B, S, Hkv, g, D)
     s = torch.einsum("bshgd,bwhd->bshgw", qf, k.float())
+    if k_scale is not None:
+        s = s * torch.swapaxes(k_scale, 1, 2)[:, None, :, None, :]
     s = softcap(s, attn_softcap)
     s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
     m = s.amax(-1)
     m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
     p = torch.exp(s - m_safe[..., None]) * (s > NEG_INF / 2)
     l = p.sum(-1)
+    if v_scale is not None:
+        p = p * torch.swapaxes(v_scale, 1, 2)[:, None, :, None, :]
     o = torch.einsum("bshgw,bwhd->bshgd", p, v.float())
     o = o / torch.clamp(l[..., None], min=1e-30)
     return o.reshape(B, S, H, v.shape[-1])
@@ -121,22 +137,27 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
+    # int8 KV: the ring holds the quantized k, v and their scales; the
+    # kernels and the chunk attention fold the scales into their tiles
+    quantized = cfg.kv_dtype == "int8"
     if mode == "decode":
         if S != 1 or cache is None:
             raise ValueError("decode attends one token per row over a cache")
+        new = kvcache.quantize_kv(k, v) if quantized else {"k": k, "v": v}
         if kvcache.is_paged(cache):
             # block-paged pool: fused decode-write straight through the
             # page table (the kernel merges the fresh token into its
             # block, then the arena scatter runs)
             part = ops.paged_gqa_decode_fused(
-                q[:, 0], cache, {"k": k, "v": v}, pos, scale=scale,
+                q[:, 0], cache, new, pos, scale=scale,
                 attn_softcap=cfg.attn_softcap, window=window, impl=impl)
         else:
-            kvcache.write_decode(cache, {"k": k, "v": v}, pos)
+            kvcache.write_decode(cache, new, pos)
             valid = decode_valid_mask(cache["slot_pos"], pos, window)
             part = ops.gqa_decode(q[:, 0], cache["k"], cache["v"], valid,
                                   scale=scale, attn_softcap=cfg.attn_softcap,
-                                  impl=impl)
+                                  k_scale=cache.get("k_scale"),
+                                  v_scale=cache.get("v_scale"), impl=impl)
         o = combine_partials(*part)[:, None].to(x.dtype)     # (B,1,H,Dh)
     elif mode == "full":
         # full-sequence forward always begins at absolute position 0
@@ -146,7 +167,9 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
         if cache is not None:    # prefill: persist KV into the ring
             seq_pos = (positions if positions.ndim == 1
                        else positions[0]).to(torch.int32)
-            kvcache.write_prefill(cache, {"k": k, "v": v}, seq_pos)
+            new = kvcache.quantize_kv(k, v) if quantized else {"k": k,
+                                                               "v": v}
+            kvcache.write_prefill(cache, new, seq_pos)
     elif mode == "chunk":
         # chunked prefill at a row offset: write the chunk's KV into the
         # ring at its absolute positions, then attend its queries over the
@@ -154,12 +177,13 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
         # pool is written by the slot inserts, never by prefill
         if cache is None or kvcache.is_paged(cache):
             raise ValueError("chunk mode runs on a dense ring")
-        kvcache.write_prefill(cache, {"k": k, "v": v},
-                              positions[0].to(torch.int32))
+        new = kvcache.quantize_kv(k, v) if quantized else {"k": k, "v": v}
+        kvcache.write_prefill(cache, new, positions[0].to(torch.int32))
         valid = chunk_valid_mask(cache["slot_pos"], positions, window)
         o = chunk_attention_ring(q, cache["k"], cache["v"], valid,
-                                 scale=scale,
-                                 attn_softcap=cfg.attn_softcap).to(x.dtype)
+                                 scale=scale, attn_softcap=cfg.attn_softcap,
+                                 k_scale=cache.get("k_scale"),
+                                 v_scale=cache.get("v_scale")).to(x.dtype)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported")
     out = _proj(o.reshape(B, S, H * Dh), p["wo"])

@@ -31,8 +31,13 @@ and mla period positions can swap their per-slot dense rings for one shared
 ops below are paged-aware).  A paged layer cache is recognized by its
 ``page_table`` leaf.  The arena's last physical block is the **trash
 block**: the scatter target for rows/positions with no mapped block — its
-contents are never read.  The prologue's rings stay dense.  int8 KV and the
-SSM caches are later slices.
+contents are never read.  The prologue's rings stay dense.
+
+int8 KV (``cfg.kv_dtype == "int8"``): a kv ring or arena holds int8 ``k`` /
+``v`` and one f32 scale per (token, head) in ``k_scale`` / ``v_scale``
+((L,B,W,Hkv) in a ring, (L,Hkv,NB+1,bt) in an arena), written by
+``quantize_kv``; the decode kernels fold the scales into their tiles, so
+no dequantized ring exists.  The SSM caches are not ported.
 """
 from __future__ import annotations
 
@@ -63,7 +68,13 @@ def _spec_cache(cfg: ModelConfig, spec: LayerSpec, stack: int, batch: int,
         data = {name: (cfg.num_kv_heads, cfg.head_dim) for name in ("k", "v")}
     else:
         raise NotImplementedError(f"{kind} caches are not ported yet")
-    out = {name: torch.zeros((stack, batch, W) + tail, dtype=dtype,
+    dtypes = dict.fromkeys(data, dtype)
+    if kind == "kv" and cfg.kv_dtype == "int8":
+        # int8 values and one f32 dequant scale per (token, head)
+        dtypes = {"k": torch.int8, "v": torch.int8,
+                  "k_scale": torch.float32, "v_scale": torch.float32}
+        data.update(k_scale=(cfg.num_kv_heads,), v_scale=(cfg.num_kv_heads,))
+    out = {name: torch.zeros((stack, batch, W) + tail, dtype=dtypes[name],
                              device=device)
            for name, tail in data.items()}
     out["slot_pos"] = torch.full((stack, batch, W), -1, dtype=torch.int32,
@@ -78,8 +89,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
     allocates them as a shared block arena instead of per-slot rings)."""
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
-    if cfg.kv_dtype == "int8":
-        raise NotImplementedError("int8 KV is not ported yet")
     if cfg.encoder_layers:
         raise NotImplementedError("encoder caches are not ported")
     cache: Dict = {"pos": torch.zeros((batch,), dtype=torch.int32,
@@ -107,15 +116,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
 #
 # Arena layout, head-major with the block axis inside the head axis:
 #
-#   k / v      (Hkv, NB+1, bt, D)     [stacked: (L, Hkv, NB+1, bt, D)]
-#   slot_pos   (NB+1, bt)             [stacked: (L, NB+1, bt)]
+#   k / v              (Hkv, NB+1, bt, D)  [stacked: (L, Hkv, NB+1, bt, D)]
+#   k_scale / v_scale  (Hkv, NB+1, bt)     (int8 KV only)
+#   slot_pos           (NB+1, bt)          [stacked: (L, NB+1, bt)]
 #   ckv / kr   (NB+1, bt, lat|dr)     (MLA latents have no head axis)
 #
 # so one (head, block) tile is a contiguous (bt, D) slab at every bt, and
 # one MLA block is a contiguous (bt, lat) latent slab.
 # ---------------------------------------------------------------------------
 
-_HEAD_MAJOR = ("k", "v")
+_HEAD_MAJOR = ("k", "v", "k_scale", "v_scale")
 
 
 def arena_block_axis(name: str, *, stacked: bool = False) -> int:
@@ -143,11 +153,13 @@ def untile_arena_leaf(name: str, a, *, stacked: bool = False):
 
 
 def _to_arena_tile(name, blk):
-    """Dense-ring block tiles (…, bt, Hkv, D) → arena tiles (…, Hkv, bt, D)
-    for head-major leaves (identity otherwise)."""
+    """Dense-ring block tiles (…, bt, Hkv[, D]) → arena tiles
+    (…, Hkv, bt[, D]) for head-major leaves (identity otherwise); the
+    scale planes have no D axis."""
     if name not in _HEAD_MAJOR:
         return blk
-    return torch.swapaxes(blk, -3, -2)
+    ax = -3 if name in ("k", "v") else -2
+    return torch.swapaxes(blk, ax, ax + 1)
 
 
 def paged_period_keys(cfg: ModelConfig) -> tuple:
@@ -397,6 +409,33 @@ def split_slot_cache(cache: Dict, n: int):
     cache, views into it."""
     b = cache["pos"].shape[0] // n
     return [slot_rows(cache, i * b, b) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# int8 KV: per-(token, head) symmetric quantization.
+# ---------------------------------------------------------------------------
+
+def quantize_kv(k, v) -> Dict:
+    """k/v: (B, S, Hkv, D) -> int8 values and f32 scales (B, S, Hkv).
+    Rounds half to even, as ``jnp.round`` does, so values and scales are
+    the JAX package's bit for bit."""
+    def q(x):
+        xf = x.float()
+        scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+        qx = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+        return qx.to(torch.int8), scale
+    qk, sk = q(k)
+    qv, sv = q(v)
+    return {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+
+
+def dequantize_kv(layer_cache: Dict):
+    """(k, v) in f32 from an int8 layer cache or ring view: the plain
+    version's check value, never the served path (the kernels and the
+    chunk attention fold the scales into their tiles)."""
+    k = layer_cache["k"].float() * layer_cache["k_scale"][..., None]
+    v = layer_cache["v"].float() * layer_cache["v_scale"][..., None]
+    return k, v
 
 
 # ---------------------------------------------------------------------------

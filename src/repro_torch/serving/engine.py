@@ -118,10 +118,13 @@ prompt whose prompt + quota exceeds ``max_seq`` is rejected, or with
 
 Greedy transcripts, slot histories and every ``kv_traffic()`` and
 ``weight_traffic()`` counter equal the JAX engine's on the same weights
-(the parity tests hold the two against each other).  int8 KV and the
-fault plane (with the degradation ladder's window rung) are later slices:
-``EngineConfig`` keeps the JAX package's names for the fields it has, and
-has no others.
+(the parity tests hold the two against each other).  int8 KV
+(``kv_dtype="int8"``) and int8 experts (``expert_dtype="int8"``) are
+model-config fields: the rings or the arena and its host tier then hold
+int8 rows and their scale planes, and the expert stores and pool int8
+spans.  The fault plane (with the degradation ladder's window rung) is a
+later slice: ``EngineConfig`` keeps the JAX package's names for the fields
+it has, and has no others.
 """
 from __future__ import annotations
 

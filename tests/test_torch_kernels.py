@@ -319,19 +319,28 @@ CARD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", [c for c in MOE_CASES if c[7] != "int8"])
+@pytest.mark.parametrize("case", MOE_CASES)
 def test_moe_ffn_cuda_matches_plain(cuda_fp32, case, dtype):
     """The kernel against its plain version; the all-zero bucket rows
-    (which the bf16 body skips) give exact zeros."""
+    (which the bf16 body skips) give exact zeros.  int8 weights stay int8
+    (the activations take `dtype`)."""
     dt = getattr(torch, dtype)
     x, wi, wo, si, so = _moe_inputs(case, 3)
-    args = [_t(a, cuda_fp32).to(dt) for a in (x, wi, wo)]
+    args = [_t(x, cuda_fp32).to(dt)] + [
+        _t(w, cuda_fp32) if w.dtype == np.int8 else _t(w, cuda_fp32).to(dt)
+        for w in (wi, wo)]
     scales = [_t(s, cuda_fp32) for s in (si, so)]
     got = t_moe.moe_ffn(*args, *scales, act=case[6])
     want = ref.moe_ffn_ref(*args, *scales, act=case[6])
     torch.cuda.synchronize()
-    tol = CARD_TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    tol = atol = CARD_TOL[dtype]
+    if case[7] == "int8" and dtype == "bfloat16":
+        # int8 weights of |w| up to 127 give outputs of ~100: the bf16
+        # hidden and output (as the torch.bmm chain keeps them) are then
+        # off by a bf16 ulp of that scale, so the bound is on it
+        atol = tol * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=atol)
     zero = torch.from_numpy(~x.any(-1))
     assert bool((got.cpu()[zero] == 0).all())
 
@@ -409,6 +418,32 @@ def test_gqa_decode_cuda_wide_rows(cuda_fp32):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GQA_CASES + GQA_SERVED_CASES[:1])
+def test_gqa_decode_cuda_int8_matches_plain(cuda_fp32, case, dtype):
+    """An int8 ring (``kvcache.quantize_kv``) with queries of `dtype`: the
+    kernel reads the int8 rows and folds the scales in; against the plain
+    version on the same int8 ring, f32 partials within 1e-4."""
+    dt = getattr(torch, dtype)
+    q, k, v, valid = (_gqa_ring_inputs(case, 15) if case[5] >= 512
+                      else _gqa_inputs(case, 14))
+    ring = kvcache.quantize_kv(_t(k, cuda_fp32), _t(v, cuda_fp32))
+    assert ring["k"].dtype == torch.int8
+    q, valid = _t(q, cuda_fp32).to(dt), _t(valid, cuda_fp32)
+    kw = dict(scale=case[3] ** -0.5, attn_softcap=case[7],
+              k_scale=ring["k_scale"], v_scale=ring["v_scale"])
+    before = t_gqa.gqa_decode.launches
+    got = t_gqa.gqa_decode(q, ring["k"], ring["v"], valid, **kw)
+    want = ref.gqa_decode_ref(q, ring["k"], ring["v"], valid, **kw)
+    torch.cuda.synchronize()
+    assert t_gqa.gqa_decode.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    if case[8]:                            # a row with no valid slot
+        assert not any(bool(t[0].any()) for t in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_prefill_cuda_matches_plain(cuda_fp32, case, dtype):
     dt = getattr(torch, dtype)
@@ -468,24 +503,39 @@ def paged_served_inputs(full, seed, trash=0.0, B=4):
     return q, k, v, slot_pos, pt, pos, k_new, v_new
 
 
-def _paged_on(inputs, device, dt):
+def _paged_on(inputs, device, dt, int8=False):
+    """The inputs on the card; `int8`: the arena and the fresh token
+    quantized (``kvcache.quantize_kv``), the trash block's scales carried
+    over from its values (NaN stays NaN)."""
     q, k, v, sp, pt, pos, kn, vn = inputs
-    q, k, v, kn, vn = (_t(a, device).to(dt) for a in (q, k, v, kn, vn))
-    cache = {"k": k, "v": v, "slot_pos": _t(sp, device),
-             "page_table": _t(pt, device)}
-    return q, cache, _t(pos, device), {"k": kn[:, None], "v": vn[:, None]}
+    if int8:
+        trash = float(k[0, -1, 0, 0])
+        k, v = np.nan_to_num(k), np.nan_to_num(v)
+        cache = kvcache.quantize_kv(_t(k, device), _t(v, device))
+        for name in ("k_scale", "v_scale"):
+            cache[name][:, -1] = trash
+        new = kvcache.quantize_kv(_t(kn[:, None], device),
+                                  _t(vn[:, None], device))
+        q = _t(q, device).to(dt)
+    else:
+        q, k, v, kn, vn = (_t(a, device).to(dt) for a in (q, k, v, kn, vn))
+        cache = {"k": k, "v": v}
+        new = {"k": kn[:, None], "v": vn[:, None]}
+    cache.update(slot_pos=_t(sp, device), page_table=_t(pt, device))
+    return q, cache, _t(pos, device), new
 
 
-def _paged_card_check(device, dtype, make, kw):
-    """The kernel on an arena whose trash block is NaN against the plain
-    version on the same arena with a zero trash block (the plain version
-    reads the trash for unmapped blocks and masks it), unfused and fused;
-    then fused against write-then-attend, both through the kernel, bit for
-    bit, and the kernel's arena scatter against the plain one's.
-    make(trash) gives the numpy inputs.  Returns the fused partials."""
+def _paged_card_check(device, dtype, make, kw, int8=False):
+    """The kernel on an arena whose trash block is NaN (an int8 arena: its
+    trash scales) against the plain version on the same arena with a zero
+    trash block (the plain version reads the trash for unmapped blocks and
+    masks it), unfused and fused; then fused against write-then-attend,
+    both through the kernel, bit for bit, and the kernel's arena scatter
+    against the plain one's.  make(trash) gives the numpy inputs.  Returns
+    the fused partials."""
     dt = getattr(torch, dtype)
-    q, nan_c, pos, new = _paged_on(make(np.nan), device, dt)
-    _, zero_c, _, _ = _paged_on(make(0.0), device, dt)
+    q, nan_c, pos, new = _paged_on(make(np.nan), device, dt, int8)
+    _, zero_c, _, _ = _paged_on(make(0.0), device, dt, int8)
     got = ops.paged_gqa_decode(q, nan_c, pos, **kw)
     want = ops.paged_gqa_decode(q, zero_c, pos, impl="ref", **kw)
     for g, w in zip(got, want):
@@ -499,7 +549,7 @@ def _paged_card_check(device, dtype, make, kw):
     for g, w in zip(fused, after):
         assert torch.equal(g, w)
     nb = nan_c["slot_pos"].shape[0] - 1                  # trash excluded
-    for name in ("k", "v"):
+    for name in ("k", "v") + (("k_scale", "v_scale") if int8 else ()):
         assert torch.equal(nan_c[name][:, :nb], zero_c[name][:, :nb])
     assert torch.equal(nan_c["slot_pos"][:nb], zero_c["slot_pos"][:nb])
     assert t_paged.paged_gqa_decode.launches >= 3
@@ -551,6 +601,26 @@ def test_paged_gqa_decode_cuda_served_shape(cuda_fp32, full, dtype):
         cuda_fp32, dtype, lambda trash: paged_served_inputs(full, 12, trash),
         dict(scale=128 ** -0.5))
     assert full or not any(bool(t[0].any()) for t in fused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    (c, d) for c in PAGED_CASES + ["served"]
+    for d in ("float32", "bfloat16")
+    if d == "bfloat16" or c == "served" or c in F32_PAGED])
+def test_paged_gqa_decode_cuda_int8(cuda_fp32, case, dtype):
+    """The checks of ``_paged_card_check`` over an int8 arena (the fused
+    form's fresh int8 rows and scales included), and at mixtral's served
+    widths mid-serve."""
+    if case == "served":
+        def make(trash):
+            return paged_served_inputs(False, 12, trash)
+        kw = dict(scale=128 ** -0.5)
+    else:
+        def make(trash):
+            return paged_inputs(case, 16, trash)
+        kw = _paged_kw(case)
+    _paged_card_check(cuda_fp32, dtype, make, kw, int8=True)
 
 
 MLA_CASES = [
