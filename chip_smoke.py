@@ -101,6 +101,26 @@ Phases, each printing JSON lines:
                    tokens that overflow it, against a fresh KV-paged
                    engine: transcripts and the whole ``kv_traffic()``
                    equal, spills and expert misses required.
+                   ``chaos``: the fault plane on those weights and stores,
+                   8 requests of 896..960 prompt tokens x 32 in two
+                   regimes — (a) ``serve_paged``'s settings, (b) expert-
+                   paged at r_w 0.5 with prefetch, the gate predictor and
+                   windows of 2 of 4 groups over the same arena — each a
+                   fault-free run and two seeded schedules over all seven
+                   fault sites with the dispatch watchdog on the real
+                   clock; (b) also a p 0.9 ``expert_copy`` burst that walks
+                   the degradation ladder to ``admission_shed`` (the KV
+                   host tier demoted to pageable memory on the way) and a
+                   second, fault-free wave that walks it back to healthy
+                   (the tier pinned again); and an engine whose pinned
+                   tier is refused at construction, which starts pageable
+                   and re-pins.  Every run's transcripts must equal its
+                   regime's fault-free run's, with 0 preemptions and
+                   spills; prints each run's decode tok/s beside the
+                   fault-free one's, retries, aborts, stalls, slow
+                   dispatches and the ladder's events.  Every fault-free
+                   paged phase requires its KV host tier pinned and the
+                   ladder at level 0.
                    ``check_layer_paged``: 8 of ``serve``'s prompts through
                    a static engine with the weights packed whole-layer
                    into page-locked stores, and ``check_static_expert``
@@ -249,6 +269,28 @@ CHECK_KV_REQUESTS, CHECK_KV_PROMPT_LENS = 16, (448, 640)
 # under-reserves the long ones and enforce_budget preempts them
 SERVE_BUDGET = {**SERVE_PAGED, "reserve_mode": "ewma", "cache_tokens": 2048}
 BUDGET_NEW_TOKENS = (NEW_TOKENS // 8, 2 * NEW_TOKENS)
+# The fault plane (chaos): 8 prompts of 896..960 tokens x 32 through
+# serve_paged's arena (410 of 1024 blocks) hold ~480 blocks together, but
+# the rows one dispatch reads (a group of 4 in regime (a), a window of 2
+# groups of 2 in (b)) at most ~250: every tick spills and fetches, and
+# nothing is preempted (a preemption changes who shares the grouped
+# moe_ffn's capacity buckets, so tokens would move)
+CHAOS_REQUESTS, CHAOS_PROMPT_LENS, CHAOS_NEW_TOKENS = 8, (896, 960), 32
+CHAOS_KV = {**SERVE_PAGED, "watchdog": True}
+CHAOS_EXPERT = {**CHAOS_KV, "ubatch": 4, "num_ubs": 4, "module_batch": True,
+                "module_groups": 2, "expert_paged": True, "w_gpu_ratio": 0.5,
+                "prefetch": True, "predict": True}
+CHAOS_SEEDS = (0, 1)
+# the burst: p 0.9 expert_copy failures until 40 are spent (all during the
+# first wave's first admissions), each a rung down (down_after 1).  The
+# ladder moves only at a tick's start, and a tick of regime (b) books
+# 250..560 healthy KV and expert copies (~355 in the first; CPU rehearsal
+# at these settings), so a rung back up takes 512 of them: the descent
+# outlives the tick it happened in and is enacted at the next.  The way
+# back (5 x 512) takes the rest of the first wave and two more fault-free
+# waves (~1070 healthy copies each)
+CHAOS_BURST = dict(p=0.9, max_faults=40, down_after=1, up_after=512,
+                   waves=3)
 # Static mode (serve_static, serve_static_module, serve_static_paged):
 # Algorithm 2's micro-batches of 8, admitted as a unit, one token a tick
 SERVE_STATIC = {**SERVE, "mode": "static"}
@@ -1347,16 +1389,31 @@ def _mixtral():
     return get_config("mixtral-8x7b")
 
 
+def require_healthy(eng, phase: str) -> dict:
+    """A fault-free engine's fault plane: the ladder at level 0 and, over
+    the paged KV pool, its host tier pinned — so that a real demotion on
+    the card (a refused pinned allocation) cannot pass unseen."""
+    ft = eng.fault_traffic()
+    require(ft["level"] == 0 and not ft["degradation_events"],
+            f"{phase}: the degradation ladder moved: "
+            f"{ft['degradation_events']}")
+    if eng.ecfg.kv_paged:
+        require(ft["host_tier_pinned"],
+                f"{phase}: the KV host tier is not pinned")
+    return {"host_tier_pinned": ft["host_tier_pinned"],
+            "ladder_level": ft["level"]}
+
+
 def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
-              new_tokens=NEW_TOKENS):
+              new_tokens=NEW_TOKENS, healthy=True):
     """Submit `n_requests` seeded prompts and run the engine until idle,
     with every kernel's launch count set to 0 just before and read just
     after, and admission prefill (monolithic, or the staged chunks of
     overlapped admission) timed apart (synchronized).  `new_tokens` is
     every request's quota, or a tuple of quotas the requests take in
-    turn.  Checks that every request finished with in-range tokens.
-    Returns the prompts, the numbers and the transcripts in submission
-    order."""
+    turn.  Checks that every request finished with in-range tokens, and
+    (`healthy`, a fault-free engine) ``require_healthy``.  Returns the
+    prompts, the numbers and the transcripts in submission order."""
     prefill_s = [0.0]
     step_name = "_prefill_chunk" if eng.ecfg.overlap else "_prefill"
     inner = getattr(eng, step_name)
@@ -1397,6 +1454,8 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
                 f"request {r.rid}: token out of range")
     decode_s = wall - prefill_s[0]
     tokens = eng.tokens_out - tokens0
+    fault_plane = (require_healthy(eng, "serve_run") if healthy
+                   else None)
     return prompts, {
         "requests": n_requests, "prompt_tokens": int(lens.sum()),
         "new_tokens_each": new_tokens, "decode_tokens": tokens,
@@ -1404,7 +1463,8 @@ def serve_run(torch, np, eng, ops, prompt_lens, n_requests, seed,
         "prefill_s": prefill_s[0], "decode_s": decode_s,
         "decode_tok_per_s": tokens / decode_s,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": launches}, [out[r] for r in rids]
+        "launches": launches, "fault_plane": fault_plane}, \
+        [out[r] for r in rids]
 
 
 def phase_serve(torch, np, ops):
@@ -1809,6 +1869,7 @@ def phase_check_static(torch, np, ops, cfg, params, prompts):
                         "misses", "prefetches") if k in traffic}}
             emit(line)
             require(line["stores_pinned"], f"{phase}: a pageable store")
+            require_healthy(e, phase)
             require(got == want, f"{phase}: transcripts differ from the "
                                  "static resident engine's")
             if extra.get("paged"):
@@ -2385,13 +2446,25 @@ def phase_check(torch, np, cfg, params, prompts, eng, eng_paged,
     return engine_prompts, runs[0]
 
 
+def pack_expert_stores(torch, eng) -> dict:
+    """`eng`'s blocks packed into pinned expert-paged host stores."""
+    from repro_torch.core import paging
+    from repro_torch.serving.engine import EngineConfig
+
+    t0 = time.perf_counter()
+    pw = paging.pack_block_groups_split(
+        eng.params["blocks"], EngineConfig().page_elems, torch.device(DEVICE))
+    return {"pw": pw, "pack_s": time.perf_counter() - t0}
+
+
 def phase_check_expert(torch, np, eng, engine_prompts, want,
-                       phase="check_expert", extra=None):
+                       phase="check_expert", extra=None, stores=None):
     """The expert-paged engine on the dense engine's weights (4 layers,
-    packed into pinned host stores; a pool of r_w 0.25 of the 32 spans),
-    grouped moe_ffn: its greedy transcripts on the check phase's prompts
-    must equal `want` (the dense engine's) token for token.  Returns
-    them."""
+    packed into pinned host stores — `stores` from ``pack_expert_stores``,
+    kept, or packed here and released after; a pool of r_w 0.25 of the 32
+    spans), grouped moe_ffn: its greedy transcripts on the check phase's
+    prompts must equal `want` (the dense engine's) token for token.
+    Returns them."""
     from repro_torch.core import offload
     from repro_torch.models.model import ExecPolicy
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -2401,8 +2474,9 @@ def phase_check_expert(torch, np, eng, engine_prompts, want,
     t0 = time.perf_counter()
     e = Engine(eng.cfg, eng.params, ecfg,
                ExecPolicy(moe_impl="grouped", use_kernels=True),
-               device=DEVICE)
-    pack_s = time.perf_counter() - t0
+               device=DEVICE,
+               paged_weights=stores["pw"] if stores else None)
+    pack_s = (stores["pack_s"] if stores else time.perf_counter() - t0)
     try:
         rids = [e.submit(p, NEW_TOKENS // 4) for p in engine_prompts]
         out = e.run_until_idle()
@@ -2422,14 +2496,17 @@ def phase_check_expert(torch, np, eng, engine_prompts, want,
                   "evictions", "h2d_bytes")}})
         require(got == want, "expert-paged greedy transcripts differ from "
                              "the dense engine's")
+        require_healthy(e, phase)
     finally:
-        e.paged_blocks.release()
+        if stores is None:
+            e.paged_blocks.release()
     return got
 
 
-def phase_check_expert_kv(torch, np, ops, eng):
+def phase_check_expert_kv(torch, np, ops, eng, stores):
     """Both offload paths at once on the 4-layer ``serve`` weights: packed
-    into pinned host stores and served expert-paged (a pool of r_w 0.25)
+    into pinned host stores (``check_expert``'s `stores`, kept) and served
+    expert-paged (a pool of r_w 0.25)
     over ``serve_paged``'s block-paged arena (r_c 0.4), in lockstep, on
     ``CHECK_KV_REQUESTS`` prompts that overflow the arena.  A fresh engine
     with ``serve_paged``'s settings serves the same prompts first.  The
@@ -2450,7 +2527,8 @@ def phase_check_expert_kv(torch, np, ops, eng):
     for name, st in (("kv", SERVE_PAGED), ("expert_kv", settings)):
         e = Engine(eng.cfg, eng.params, EngineConfig(**st),
                    ExecPolicy(moe_impl="grouped", use_kernels=True),
-                   device=DEVICE)
+                   device=DEVICE, paged_weights=(
+                       stores["pw"] if st.get("expert_paged") else None))
         try:
             rids = [e.submit(p, NEW_TOKENS // 4) for p in prompts]
             torch.cuda.synchronize()
@@ -2466,10 +2544,9 @@ def phase_check_expert_kv(torch, np, ops, eng):
                 "preemptions": sum(e.scheduler.requests[r].preemptions
                                    for r in rids),
                 "kv_traffic": e.kv_traffic(),
-                "weight_traffic": e.weight_traffic()}
+                "weight_traffic": e.weight_traffic(),
+                "fault_plane": require_healthy(e, "check_expert_kv")}
         finally:
-            if e.paged_blocks is not None:
-                e.paged_blocks.release()
             del e
     kv, pair = runs["kv"], runs["expert_kv"]
     w = pair["weight_traffic"]
@@ -2486,6 +2563,7 @@ def phase_check_expert_kv(torch, np, ops, eng):
           "wall_s": [kv["wall_s"], pair["wall_s"]],
           "preemptions": [kv["preemptions"], pair["preemptions"]],
           "launches": pair["launches"],
+          "fault_plane": pair["fault_plane"],
           "kv_traffic": pair["kv_traffic"],
           "weight_traffic": {k: w[k] for k in (
               "hits", "misses", "prefetches", "evictions", "h2d_bytes")}})
@@ -2504,7 +2582,279 @@ def phase_check_expert_kv(torch, np, ops, eng):
     return launches
 
 
-# ----------------------------------------------------------- int8 phases
+# ------------------------------------------------------------ fault plane
+
+def chaos_plan(np, faults, seed: int, max_retries: int):
+    """One seeded schedule over all seven fault sites (``tests/
+    test_chaos.py``'s): probabilistic faults everywhere plus a scripted
+    burst drawn from the seed — a ``kv_pool`` burst cut to `max_retries`
+    refusals, so that it never falls through to a preemption."""
+    rng = np.random.default_rng(seed)
+    sites = ("kv_spill", "kv_fetch", "kv_pool", "expert_copy", "plan_drain",
+             "host_alloc", "dispatch")
+    site = sites[int(rng.integers(0, len(sites)))]
+    kind = ("fail", "stall", "partial", "exhaust")[int(rng.integers(0, 4))]
+    after, count = int(rng.integers(0, 10)), int(rng.integers(1, 6))
+    if site == "kv_pool":
+        count = min(count, max_retries)
+    return faults.FaultPlan(
+        seed=seed,
+        probs={"*": {"fail": 0.06, "stall": 0.04, "partial": 0.04,
+                     "exhaust": 0.03, "hostmem": 0.01}},
+        trace=[faults.FaultEvent(site, kind, after=after, count=count)],
+        stall_ms=float(rng.integers(50, 5000)),
+        max_faults=int(rng.integers(40, 200)))
+
+
+def tier_leaves(eng):
+    return [t for g in eng._kv_host.values() for t in g.values()]
+
+
+def watch_tier(eng, log: list) -> None:
+    """Record the KV host tier's state after every demotion and
+    re-promotion: the engine's flag and every leaf's ``is_pinned()``."""
+    demote, repromote = eng._demote_host_tier, eng._repromote_host_tier
+
+    def note(what, fn):
+        def wrapped():
+            fn()
+            leaves = tier_leaves(eng)
+            log.append({"after": what, "step": eng.steps,
+                        "host_tier_pinned":
+                            eng.fault_traffic()["host_tier_pinned"],
+                        "leaves_pinned": sum(t.is_pinned() for t in leaves),
+                        "leaves": len(leaves)})
+        return wrapped
+    eng._demote_host_tier = note("demote", demote)
+    eng._repromote_host_tier = note("repromote", repromote)
+
+
+def kv_fetch_cost(torch, e, n: int = 64) -> dict:
+    """Seconds a KV block fetch takes from the pinned host tier and, after
+    a demotion, from the pageable one (n blocks each, synchronized); then
+    the tier is re-promoted.  Each fetch copies host block i into arena
+    block i (the engine is idle: no block is live)."""
+    n = min(n, e._kv.device_blocks)
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            e._kv_fetch_op(i, i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    timed()                                   # warm
+    pinned = timed()
+    e._demote_host_tier()
+    demoted = all(not t.is_pinned() for t in tier_leaves(e))
+    pageable = timed()
+    e._repromote_host_tier()
+    repinned = all(t.is_pinned() for t in tier_leaves(e))
+    return {"blocks": n, "block_bytes": e._kv.block_bytes,
+            "pinned_ms": pinned * 1e3, "pageable_ms": pageable * 1e3,
+            "pageable_over_pinned": pageable / pinned,
+            "demoted_unpinned": demoted, "repromoted_pinned": repinned}
+
+
+def phase_chaos(torch, np, ops, eng, stores):
+    """The fault plane on the card, over the 4-layer ``serve`` weights and
+    ``check_expert``'s pinned stores: regimes (a) ``CHAOS_KV`` and (b)
+    ``CHAOS_EXPERT``, each a fault-free run and the seeded schedules of
+    ``CHAOS_SEEDS`` (the dispatch watchdog on the real clock in every
+    run); (b) also the p 0.9 ``expert_copy`` burst and a second wave;
+    then an engine whose pinned KV tier is refused at construction.  Every
+    faulted run must give its regime's fault-free transcripts bit for bit,
+    with 0 preemptions, spills, injected faults, the BlockPool's
+    invariants and residency within capacity; the burst must walk the
+    ladder to ``admission_shed`` and back to healthy, the KV tier unpinned
+    (flag and every leaf) while demoted and pinned again after.  Returns
+    the phase's launches (every run's, summed)."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.runtime import faults
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    pol = ExecPolicy(moe_impl="grouped", use_kernels=True)
+    total = {}
+
+    def make(settings, **kw):
+        return Engine(eng.cfg, eng.params, EngineConfig(**settings, **kw),
+                      pol, device=DEVICE, paged_weights=(
+                          stores["pw"] if settings.get("expert_paged")
+                          else None))
+
+    def run(e, seed, label):
+        _, res, outs = serve_run(torch, np, e, ops, CHAOS_PROMPT_LENS,
+                                 CHAOS_REQUESTS, seed,
+                                 new_tokens=CHAOS_NEW_TOKENS, healthy=False)
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+        kv = e.kv_traffic()
+        ft = e.fault_traffic()
+        e._kv.check_invariants()
+        preempted = sum(r.preemptions
+                        for r in e.scheduler.requests.values())
+        require(preempted == 0, f"chaos {label}: {preempted} preemptions")
+        require(kv["spills"] > 0, f"chaos {label}: the arena never spilled")
+        for r in e.residency.values():
+            require(r.occupancy() <= r.capacity,
+                    f"chaos {label}: residency over capacity")
+        require(ft["host_tier_pinned"] or any(
+            x["to"] == "pageable_host" for x in ft["degradation_events"]),
+            f"chaos {label}: the tier is pageable without a ladder event")
+        line = {"run": label, "decode_tok_per_s": res["decode_tok_per_s"],
+                "wall_s": res["wall_s"], "decode_tokens": res["decode_tokens"],
+                "spills": kv["spills"], "misses": kv["misses"],
+                "launches": res["launches"],
+                **{k: ft[k] for k in (
+                    "injected_total", "injected", "retries", "aborts",
+                    "stalls", "hostmem_faults", "dispatch_slow_steps",
+                    "shed_requests", "host_tier_pinned", "level_name",
+                    "module_groups_now", "predict_suspended")},
+                "ladder_events": [(x["tick"], x["direction"], x["to"],
+                                   x["reason"])
+                                  for x in ft["degradation_events"]]}
+        if e.residency:
+            w = e.weight_traffic()
+            line["expert_misses"] = w["misses"]
+            line["expert_prefetches"] = w["prefetches"]
+        return outs, line, ft
+
+    regimes = {}
+    for name, settings in (("kv_paged", CHAOS_KV),
+                           ("expert_module_kv", CHAOS_EXPERT)):
+        seed = SEED + 13
+        e = make(settings)
+        runs = []
+        if name == "kv_paged":
+            # the phase's first engine: one wave warms the shapes first
+            # (prefill ran 2x slower in it), and must serve the same
+            warm, line, _ = run(e, seed, "fault_free_warm")
+            runs.append(line)
+        base, base_line, ft = run(e, seed, "fault_free")
+        require(ft["injected_total"] == 0, "a fault-free run injected")
+        require(name != "kv_paged" or base == warm,
+                "the fault-free engine served one wave twice differently")
+        runs.append(base_line)
+        fetch_cost = None
+        if name == "kv_paged":
+            # after the run: what a demotion costs a block fetch
+            fetch_cost = kv_fetch_cost(torch, e)
+            require(fetch_cost["demoted_unpinned"]
+                    and fetch_cost["repromoted_pinned"],
+                    f"chaos: demotion / re-promotion: {fetch_cost}")
+        later = []
+        if name == "expert_module_kv":
+            # the burst's later waves, fault-free, from the same engine
+            for w in range(1, CHAOS_BURST["waves"]):
+                outs, line, _ = run(e, seed + w, f"fault_free_wave{w + 1}")
+                later.append(outs)
+                runs.append(line)
+        del e
+        for fseed in CHAOS_SEEDS:
+            e = make(settings, fault_plan=chaos_plan(
+                np, faults, fseed, EngineConfig().max_retries),
+                degrade_down_after=2, degrade_up_after=5)
+            outs, line, ft = run(e, seed, f"seed{fseed}")
+            line["fault_seed"] = fseed
+            runs.append(line)
+            require(outs == base, f"chaos {name} seed {fseed}: transcripts "
+                                  "differ from the fault-free run's")
+            require(ft["injected_total"] > 0,
+                    f"chaos {name} seed {fseed}: nothing was injected")
+            del e
+        burst = None
+        if name == "expert_module_kv":
+            b = CHAOS_BURST
+            e = make(settings, fault_plan=faults.FaultPlan(
+                seed=0, probs={"expert_copy": b["p"]},
+                max_faults=b["max_faults"]),
+                degrade_down_after=b["down_after"],
+                degrade_up_after=b["up_after"])
+            tier_log = []
+            watch_tier(e, tier_log)
+            outs, line, ft1 = run(e, seed, "burst")
+            runs.append(line)
+            require(outs == base, "chaos burst: transcripts differ from the "
+                                  "fault-free run's")
+            require(ft1["injected_total"] == b["max_faults"],
+                    f"chaos burst: {ft1['injected_total']} of "
+                    f"{b['max_faults']} faults spent in the first wave")
+            downs = {x["to"] for x in ft1["degradation_events"]
+                     if x["direction"] == "down"}
+            require(downs == set(faults.LADDER_LEVELS[1:]),
+                    f"chaos burst: the ladder reached only {sorted(downs)}")
+            require(ft1["shed_requests"] == 0, "chaos burst: shed work")
+            for w, want in enumerate(later, 1):
+                outs, line, ft = run(e, seed + w, f"burst_wave{w + 1}")
+                runs.append(line)
+                require(outs == want, f"chaos burst: wave {w + 1}'s "
+                                      "transcripts differ from the "
+                                      "fault-free engine's")
+            ups = [x for x in ft["degradation_events"]
+                   if x["direction"] == "up"]
+            downs = [x for x in ft["degradation_events"]
+                     if x["direction"] == "down"]
+            require(ft["level_name"] == "healthy" and len(ups) == len(downs),
+                    f"chaos burst: the ladder did not come back: "
+                    f"{ft['degradation_events']}")
+            require(e._mg == e._mg_base and not e._degraded_no_predict
+                    and e.scheduler.shed_priority is None
+                    and all(r.limit is None for r in e.residency.values()),
+                    "chaos burst: a degraded-mode flag stayed set")
+            demoted = [x for x in tier_log if x["after"] == "demote"]
+            repinned = [x for x in tier_log if x["after"] == "repromote"]
+            require(demoted and all(not x["host_tier_pinned"]
+                                    and x["leaves_pinned"] == 0
+                                    for x in demoted),
+                    f"chaos burst: the tier was not unpinned: {tier_log}")
+            require(repinned and repinned[-1]["host_tier_pinned"]
+                    and repinned[-1]["leaves_pinned"]
+                    == repinned[-1]["leaves"]
+                    and ft["host_tier_pinned"],
+                    f"chaos burst: the tier was not pinned again: {tier_log}")
+            burst = {"tier": tier_log, "ladder_events": line[
+                "ladder_events"]}
+            del e
+        gc.collect()
+        torch.cuda.empty_cache()
+        regimes[name] = base
+        emit({"phase": "chaos", "regime": name, "engine": settings,
+              "requests": CHAOS_REQUESTS, "prompt_lens": CHAOS_PROMPT_LENS,
+              "new_tokens_each": CHAOS_NEW_TOKENS, "runs": runs,
+              "burst": burst, "kv_fetch_cost": fetch_cost})
+
+    # the pinned tier refused at construction: pageable first, re-pinned
+    # once the ladder climbs back (up_after 4 healthy ops)
+    e = make(CHAOS_KV, fault_plan=faults.FaultPlan(trace=[
+        faults.FaultEvent("host_alloc", "hostmem", after=0, count=1)]),
+        degrade_up_after=4)
+    start = {"host_tier_pinned": e.fault_traffic()["host_tier_pinned"],
+             "leaves_pinned": sum(t.is_pinned() for t in tier_leaves(e))}
+    require(not start["host_tier_pinned"] and start["leaves_pinned"] == 0,
+            f"chaos host_alloc: the refused tier is pinned: {start}")
+    outs, line, ft = run(e, SEED + 13, "host_alloc_refused")
+    leaves = tier_leaves(e)
+    end = {"host_tier_pinned": ft["host_tier_pinned"],
+           "leaves_pinned": sum(t.is_pinned() for t in leaves),
+           "leaves": len(leaves)}
+    emit({"phase": "chaos", "regime": "host_alloc_refused",
+          "engine": CHAOS_KV, "start": start, "end": end, "run": line})
+    require(outs == regimes["kv_paged"], "chaos host_alloc: transcripts "
+                                         "differ from the fault-free run's")
+    require(ft["injected"] == {"host_alloc/hostmem": 1}
+            and ft["level_name"] == "healthy" and ft["promotions"] >= 1,
+            f"chaos host_alloc: the ladder did not climb back: {line}")
+    require(end["host_tier_pinned"] and end["leaves_pinned"] == len(leaves),
+            f"chaos host_alloc: the tier was not pinned again: {end}")
+    del e
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "chaos", "launches": total})
+    require(all(total.get(k, 0) > 0 for k in (
+        "moe_ffn", "paged_gqa_decode", "expert_gather")),
+        f"a kernel of the fault plane's paths never launched: {total}")
+    return total
 
 def _mixtral_int8(layers: int):
     """mixtral-8x7b with int8 expert weights and int8 KV (the model
@@ -3298,8 +3648,14 @@ def main() -> int:
     engine_prompts, dense_runs = phase_check(torch, np, eng.cfg, eng.params,
                                              serve_prompts[:2], eng,
                                              eng_paged)
-    phase_check_expert(torch, np, eng, engine_prompts, dense_runs)
-    launches_check_kv = phase_check_expert_kv(torch, np, ops, eng)
+    expert_stores = pack_expert_stores(torch, eng)
+    phase_check_expert(torch, np, eng, engine_prompts, dense_runs,
+                       stores=expert_stores)
+    launches_check_kv = phase_check_expert_kv(torch, np, ops, eng,
+                                              expert_stores)
+    launches_chaos = phase_chaos(torch, np, ops, eng, expert_stores)
+    expert_stores["pw"].release()
+    del expert_stores
     launches_check_static = phase_check_static(torch, np, ops, eng.cfg,
                                                eng.params, serve_prompts[:8])
     launches_sample = phase_sample(torch, np, ops, eng.cfg, eng.params,
@@ -3393,6 +3749,7 @@ def main() -> int:
                  "serve_expert_module": launches_expert_module,
                  "serve_budget": launches_budget,
                  "check_expert_kv": launches_check_kv,
+                 "chaos": launches_chaos,
                  "serve_expert_kv": launches_expert_kv,
                  **launches_static,
                  "serve_static_paged": launches_static_paged,

@@ -96,8 +96,7 @@ class BlockCounters:
 
 class BlockPool:
     """Page-table manager for one shared KV block arena (a copy of
-    ``repro/core/blockpool.py``'s, without the fault plane's injected
-    refusals).
+    ``repro/core/blockpool.py``'s).
 
     ``n_slots`` rows (the engine's ``num_ubs × ubatch`` slot pool, plus
     static-mode micro-batches mapped onto the same indices) of
@@ -108,12 +107,18 @@ class BlockPool:
     """
 
     def __init__(self, n_slots: int, blocks_per_slot: int,
-                 device_blocks: int, block_bytes: int):
+                 device_blocks: int, block_bytes: int, faults=None):
         assert device_blocks >= 1 and blocks_per_slot >= 1
         self.n_slots = n_slots
         self.blocks_per_slot = blocks_per_slot
         self.device_blocks = device_blocks
         self.block_bytes = block_bytes
+        # optional runtime.faults.FaultInjector: the "kv_pool" site models
+        # arena exhaustion — ensure_range refuses at entry as if no block
+        # could be acquired, and flags the refusal so the engine can retry
+        # (injected exhaustion is transient) instead of preempting
+        self.faults = faults
+        self.last_refusal_injected = False
         host_blocks = n_slots * blocks_per_slot   # worst case: all spilled
         self.dev = np.full((n_slots, blocks_per_slot), -1, np.int32)
         self.host = np.full((n_slots, blocks_per_slot), -1, np.int32)
@@ -207,6 +212,12 @@ class BlockPool:
         preempts a request and *resumes* from next_lb, so each needed
         block is booked exactly once per preparation regardless of
         retries."""
+        self.last_refusal_injected = False
+        if self.faults is not None:
+            ev = self.faults.fire("kv_pool")
+            if ev is not None and ev.kind in ("exhaust", "fail"):
+                self.last_refusal_injected = True
+                return [], False, lb_lo
         protect = frozenset(protect) | {slot}
         self._tick += 1
         self.last_touch[slot] = self._tick

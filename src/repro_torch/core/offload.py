@@ -33,6 +33,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.runtime.faults import HostMemoryError
+
 # cudaHostRegisterPortable | cudaHostRegisterMapped: visible to every
 # context and in the device's address space; page-locked, so the gather's
 # copies of missed spans run on the copy engine
@@ -40,20 +42,36 @@ _REGISTER_FLAGS = 1 | 2
 _registered: Dict[int, int] = {}          # data_ptr -> bytes page-locked
 
 
-def host_store(shape, dtype: torch.dtype, device: torch.device
-               ) -> torch.Tensor:
+def host_store(shape, dtype: torch.dtype, device: torch.device,
+               faults=None) -> torch.Tensor:
     """A zeroed host-side store for an engine on `device`: pinned for a
-    CUDA device (raising if the allocation is refused or comes back
-    unpinned), plain for the CPU."""
+    CUDA device, plain for the CPU.  ``faults`` is an optional
+    ``runtime.faults.FaultInjector``: its "host_alloc" site models a
+    refused pinned allocation, drawn first, as the reference's placement
+    probe draws it.  A refusal, injected or real (the allocation fails or
+    comes back unpinned), raises ``HostMemoryError``."""
+    if faults is not None:
+        faults.raise_for("host_alloc")
     if device.type == "cpu":
         return torch.zeros(shape, dtype=dtype)
     if device.type != "cuda":
         raise ValueError(f"no host tier for device {device}")
-    t = torch.empty(shape, dtype=dtype, pin_memory=True)
+    try:
+        t = torch.empty(shape, dtype=dtype, pin_memory=True)
+    except RuntimeError as e:
+        raise HostMemoryError(f"pinned host store of {tuple(shape)} {dtype} "
+                              f"refused: {e}", "host_alloc") from e
     if not t.is_pinned():
-        raise RuntimeError(f"host store of {tuple(shape)} {dtype} "
-                           "was not pinned")
+        raise HostMemoryError(f"host store of {tuple(shape)} {dtype} "
+                              "was not pinned", "host_alloc")
     return t.zero_()
+
+
+def pageable_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of host tensor `t` in pageable (not page-locked) memory."""
+    out = torch.empty(t.shape, dtype=t.dtype)
+    out.copy_(t)
+    return out
 
 
 _MADV_DONTNEED = 4

@@ -122,9 +122,27 @@ Greedy transcripts, slot histories and every ``kv_traffic()`` and
 (``kv_dtype="int8"``) and int8 experts (``expert_dtype="int8"``) are
 model-config fields: the rings or the arena and its host tier then hold
 int8 rows and their scale planes, and the expert stores and pool int8
-spans.  The fault plane (with the degradation ladder's window rung) is a
-later slice: ``EngineConfig`` keeps the JAX package's names for the fields
-it has, and has no others.
+spans.
+
+The fault plane (``runtime.faults`` / ``runtime.transfer`` /
+``runtime.watchdog``, wired at the reference's chokepoints): a seeded
+``fault_plan`` injects faults where bytes move — expert span copies
+(``expert_copy``), the prefetch drains (``plan_drain``), KV spills and
+fetches (``kv_spill`` / ``kv_fetch``), arena refusals (``kv_pool``), the
+pinned host tier's allocation (``host_alloc``) and the decode dispatch's
+deadline (``dispatch``).  Mandatory copies are retried (the fault fires
+before the copy is issued, so a retried copy is issued once); a refused
+pinned tier demotes the KV host tier to pageable memory; persistent faults
+step the degradation ladder down (pageable host tier, no gate-predicted
+prefetch, lockstep windows, a halved residency pool, shedding new work of
+``priority`` >= ``shed_priority``) and a healthy streak steps it back up,
+at the start of a tick.  Faults may cost throughput but never change
+tokens (nothing is shed at priority 0, and nothing is preempted unless an
+injected ``kv_pool`` burst outlasts ``max_retries``).  ``fault_traffic()``
+gives the JAX engine's dict.  ``EngineConfig`` keeps the JAX package's
+names and defaults, but for ``watchdog``, off by default here: it scores
+wall-clock time, so on a loaded host it could step the ladder down and
+change ``weight_traffic()`` away from a reference run's.
 """
 from __future__ import annotations
 
@@ -140,6 +158,9 @@ from repro_torch.core.batching import blocks_for_tokens
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import kvcache
 from repro_torch.models.model import ExecPolicy
+from repro_torch.runtime import faults as faults_mod
+from repro_torch.runtime.transfer import TransferEngine
+from repro_torch.runtime.watchdog import Watchdog
 from repro_torch.serving import steps as serve_steps
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.scheduler import Scheduler, ServeRequest, SlotState
@@ -206,6 +227,31 @@ class EngineConfig:
                                       # num_ubs; capped at num_ubs)
     module_stage_tokens: Optional[int] = None  # staging-buffer row budget:
     # when G·ubatch would exceed it the window shrinks toward lockstep
+    # ------------------------------------ fault plane / degradation ladder
+    # (runtime.faults / runtime.transfer).  Faults may cost throughput but
+    # never change tokens: every knob below only moves where bytes stream
+    # from and when, never what a decode dispatch computes
+    fault_plan: Optional[object] = None   # runtime.faults.FaultPlan — the
+    # injected fault schedule (None = nothing fires; the chokepoints stay
+    # wired through the same always-present injector)
+    degrade: bool = True                  # degradation ladder armed
+    degrade_down_after: int = 3           # consecutive faults per rung down
+    degrade_up_after: int = 16            # healthy-op streak per rung up
+                                          # (> down_after: hysteresis)
+    shed_priority: int = 1                # bottom rung sheds new admissions
+                                          # with priority >= this
+    max_retries: int = 4                  # bounded-retry budget per cycle
+    backoff_s: float = 0.0                # real backoff sleep base (0: none)
+    # per-dispatch EWMA deadline.  Off by default, unlike the reference: it
+    # scores wall-clock time, so on a loaded host it could step the ladder
+    # down (its no-predict, lockstep and residency rungs change
+    # weight_traffic() away from a reference run's)
+    watchdog: bool = False
+    watchdog_policy: str = "log"          # log | skip | abort — "skip" ≡
+    # "log" on the serving path (the chunk has already landed when the
+    # deadline is scored; the violation still feeds the ladder)
+    watchdog_factor: float = 8.0
+    watchdog_min_s: float = 0.25
 
 
 class _SlotGroup:
@@ -270,10 +316,30 @@ class Engine:
             raise ValueError(f"unknown mode {ecfg.mode!r}")
         if ecfg.overlap and ecfg.mode != "continuous":
             raise ValueError("overlap admission requires continuous mode")
+        if ecfg.watchdog_policy not in ("log", "skip", "abort"):
+            raise ValueError(f"unknown watchdog_policy "
+                             f"{ecfg.watchdog_policy!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
         self.policy = policy
+        # ---------------------------------------------------- fault plane
+        self.faults = faults_mod.FaultInjector(ecfg.fault_plan)
+        self._ladder = (faults_mod.DegradationLadder(
+            down_after=ecfg.degrade_down_after,
+            up_after=ecfg.degrade_up_after) if ecfg.degrade else None)
+        self._xfer = TransferEngine(
+            self.faults, max_retries=ecfg.max_retries,
+            backoff_s=ecfg.backoff_s, ladder=self._ladder)
+        self._watchdog = (Watchdog(
+            deadline_factor=ecfg.watchdog_factor,
+            min_deadline_s=ecfg.watchdog_min_s,
+            policy=ecfg.watchdog_policy) if ecfg.watchdog else None)
+        self._degraded_no_predict = False
+        self._kv_pinned = False
+        # a pinned KV tier was demoted (on a HostMemoryError) and not yet
+        # pinned again: only on the card, whose tier is pinned
+        self._kv_demoted = False
         resident = ({k: v for k, v in params.items() if k != "blocks"}
                     if ecfg.expert_paged or ecfg.paged else params)
         self.params = _to_device(resident, self.device)
@@ -317,7 +383,9 @@ class Engine:
             temperature=ecfg.temperature, generator=self.generator,
             eos_id=ecfg.eos_id, chunk=chunk)
         # module-based batching: windows of _mg rotation groups decode
-        # through one dispatch; a remainder window runs lockstep
+        # through one dispatch; a remainder window runs lockstep.  The
+        # window step is built once for the configured width, _mg_base: the
+        # ladder's lockstep rung sets _mg to 1 and rebuilds only _windows
         self._mg = 1
         if ecfg.module_batch:
             mg = max(1, min(ecfg.module_groups or ecfg.num_ubs,
@@ -333,6 +401,7 @@ class Engine:
             temperature=ecfg.temperature, generator=self.generator,
             eos_id=ecfg.eos_id, chunk=chunk, token_groups=self._mg)
             if self._mg > 1 else None)
+        self._mg_base = self._mg
         self._windows = [list(range(i, min(i + self._mg, ecfg.num_ubs)))
                          for i in range(0, ecfg.num_ubs, self._mg)]
         # the dense-equivalent slot pool: the baseline every kv_traffic()
@@ -446,15 +515,30 @@ class Engine:
             a.nbytes // a.shape[kvcache.arena_block_axis(name, stacked=True)]
             for g in self._kv_arena.values() for name, a in g.items())
         self._kv = blockpool.BlockPool(n_slots, mb, device_blocks,
-                                       block_bytes)
+                                       block_bytes, faults=self.faults)
         # host tier, big enough to hold every spillable block.  Block-major
         # (host block first), so that one block of a leaf is one contiguous
-        # run of host memory for its copy to and from the arena
-        self._kv_host = {
-            key: {name: offload.host_store(
-                (total,) + tuple(self._kv_block(a, name, 0).shape), a.dtype,
-                self.device) for name, a in g.items()}
+        # run of host memory for its copy to and from the arena.  Pinned on
+        # the card; a refusal (injected or real) starts the tier pageable
+        # and the ladder at pageable_host, whose re-promotion re-probes
+        self._kv_host_shapes = {
+            key: {name: ((total,) + tuple(self._kv_block(a, name, 0).shape),
+                         a.dtype) for name, a in g.items()}
             for key, g in self._kv_arena.items()}
+        try:
+            self._kv_host = self._new_host_tier(self.faults)
+            # the CPU tier is plain memory: not pinned, as the reference's
+            # without a pinned_host memory space
+            self._kv_pinned = self.device.type == "cuda"
+        except faults_mod.HostMemoryError:
+            self._kv_host = {
+                key: {name: torch.zeros(shape, dtype=dtype)
+                      for name, (shape, dtype) in g.items()}
+                for key, g in self._kv_host_shapes.items()}
+            self._kv_demoted = self.device.type == "cuda"
+            if self._ladder is not None:
+                self._ladder.force_at_least("pageable_host",
+                                            site="host_alloc")
         self._kv_pending: List[Tuple[int, int]] = []
         self._kv_pending_set: set = set()
         # decode-path gather accounting: the paged kernel reads each row's
@@ -473,9 +557,12 @@ class Engine:
                                  + int(self._kv.dev.nbytes))
 
     # ----------------------------------------------------------- public
-    def submit(self, prompt, max_new_tokens: int = 16) -> int:
+    def submit(self, prompt, max_new_tokens: int = 16,
+               priority: int = 0) -> int:
+        """Queue a request; `priority` 0 is never shed, higher values are
+        shed at admission while the ladder sits at admission_shed."""
         return self.scheduler.submit(np.asarray(prompt, np.int32),
-                                     max_new_tokens)
+                                     max_new_tokens, priority=priority)
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -488,6 +575,7 @@ class Engine:
         per active micro-batch (or window of them) and retires the
         micro-batches whose rows are all done.  Returns True if any work
         was done."""
+        self._ladder_tick()       # safe point: no dispatch in flight
         if self.ecfg.mode == "static":
             return self._step_static()
         if self.ecfg.overlap:
@@ -573,9 +661,8 @@ class Engine:
                 # book the prompt's blocks (alloc/fetch/spill-to-make-room)
                 # before the slot-insert scatters through the page table
                 idx = self._slot_of(slot)
-                ops, ok, _ = self._kv.ensure_tokens(
-                    idx, len(eff), self.ecfg.block_tokens, (idx,))
-                self._kv_exec(ops)
+                _, ok, _ = self._kv_ensure(lambda: self._kv.ensure_tokens(
+                    idx, len(eff), self.ecfg.block_tokens, (idx,)))
                 if not ok:
                     raise RuntimeError("admission exceeds the KV arena floor")
                 kvcache.insert_slot(
@@ -636,9 +723,8 @@ class Engine:
             # slot decodes (the chunk attends to the scratch, not the pool)
             idx = self._slot_of(slot)
             bt = self.ecfg.block_tokens
-            ops, ok, _ = self._kv.ensure_range(
-                idx, t // bt, blocks_for_tokens(t + width, bt), (idx,))
-            self._kv_exec(ops)
+            _, ok, _ = self._kv_ensure(lambda: self._kv.ensure_range(
+                idx, t // bt, blocks_for_tokens(t + width, bt), (idx,)))
             if not ok:
                 raise RuntimeError("a staged prefill chunk exceeds the KV "
                                    "arena floor")
@@ -718,13 +804,10 @@ class Engine:
                 torch.as_tensor(rem, device=dev))
         fn = self._decode_window if window else self._decode_chunk
         self._fwd_passes += chunk
-        if self.residency:
-            cache, tok, act2, toks, emitted = self._decode_expert(
-                fn, args, holders, gids)
-        else:
-            cache, tok, act2, _, toks, emitted = fn(*args)
+        cache, tok, act2, toks, emitted = self._dispatch(fn, args, holders,
+                                                         gids)
         pos.copy_(cache["pos"])
-        tok = tok[:, 0].cpu().numpy()                     # sync
+        tok = tok[:, 0].numpy()
         act2, toks, emitted = (act2.cpu().numpy(), toks.cpu().numpy(),
                                emitted.cpu().numpy())
         for j, (h, grp) in enumerate(zip(holders, slot_rows)):
@@ -783,9 +866,10 @@ class Engine:
                 # prompt, then scatter the rows through the page table
                 slots = list(range(gid * mu, (gid + 1) * mu))
                 for i, r in enumerate(group):
-                    ops, ok, _ = self._kv.ensure_tokens(
-                        slots[i], r.input_len, self.ecfg.block_tokens, slots)
-                    self._kv_exec(ops)
+                    _, ok, _ = self._kv_ensure(
+                        lambda i=i, r=r: self._kv.ensure_tokens(
+                            slots[i], r.input_len, self.ecfg.block_tokens,
+                            slots))
                     if not ok:
                         raise RuntimeError("a static micro-batch exceeds "
                                            "the KV arena")
@@ -818,10 +902,10 @@ class Engine:
             for i, r in enumerate(ab.requests):
                 if not active[i]:
                     continue
-                ops, ok, _ = self._kv.ensure_tokens(
-                    ab.gid * mu + i, r.footprint + 1, self.ecfg.block_tokens,
-                    protect)
-                self._kv_exec(ops)
+                _, ok, _ = self._kv_ensure(
+                    lambda ab=ab, i=i, r=r: self._kv.ensure_tokens(
+                        ab.gid * mu + i, r.footprint + 1,
+                        self.ecfg.block_tokens, protect))
                 if ok:
                     continue
                 if len(window) > 1:
@@ -869,18 +953,14 @@ class Engine:
                                 device=dev))
         fn = self._decode_window if len(abs_) > 1 else self._decode_chunk
         self._fwd_passes += 1
-        if self.residency:
-            cache, tok, act2, toks, emitted = self._decode_expert(
-                fn, args, abs_, gids)
-        else:
-            cache, tok, act2, _, toks, emitted = fn(*args)
+        cache, tok, act2, toks, emitted = self._dispatch(fn, args, abs_, gids)
         if view:
             pos.copy_(cache["pos"])
         else:
             for ab, part in zip(abs_, kvcache.split_slot_cache(
                     {k: cache[k] for k in dense}, len(abs_))):
                 _copy_into(ab.cache, part)
-        tok = tok[:, 0].cpu().numpy()                     # sync
+        tok = tok[:, 0].numpy()
         act2, toks, emitted = (act2.cpu().numpy(), toks.cpu().numpy(),
                                emitted.cpu().numpy())
         for j, (ab, (_, active, _)) in enumerate(zip(abs_, window)):
@@ -926,6 +1006,19 @@ class Engine:
         self.steps += 1
         return True
 
+    def _dispatch(self, fn, args, holders, gids: List[int]):
+        """One decode dispatch, bracketed by the watchdog's deadline
+        window (opened here, closed once the sampled tokens are on the
+        host); returns (cache, tok on the host, act2, toks, emitted)."""
+        if self._watchdog is not None:
+            self._watchdog.step_start()
+        if self.residency:
+            return self._decode_expert(fn, args, holders, gids)
+        cache, tok, act2, _, toks, emitted = fn(*args)
+        tok = tok.cpu()                                   # sync
+        self._watchdog_end()
+        return cache, tok, act2, toks, emitted
+
     # ---------------------------------- expert residency (data+control)
     def _decode_expert(self, fn, args, holders, gids: List[int]):
         """One dispatch (a group's chunk, or a window's; a static
@@ -952,6 +1045,7 @@ class Engine:
                 self._enqueue_gate_predictions(holders)
             self._drain_prefetch(gids, retry_refused=True)
         tok = tok.cpu()                                   # sync
+        self._watchdog_end()
         # spans that became resident between dispatch and landing: a miss
         # on them books as hidden, as the reference books it (on the card
         # their copies overlapped only the chunk's tail)
@@ -993,14 +1087,24 @@ class Engine:
 
     def _copy_span(self, key: str, l: int, e: int, slot: int) -> None:
         """Copy span (l, e) from the host store into pool slot `slot`, on
-        the copy stream (asynchronous DMA from pinned memory)."""
+        the copy stream (asynchronous DMA from pinned memory).  Mandatory
+        once residency assigned the slot (the next dispatch's map says the
+        span is resident), so it runs through the retrying transfer
+        engine; the fault fires before the closure, so a retried copy is
+        issued once on the copy stream."""
         src = self.paged_blocks.expert_pages[key][l, e]
         dst = self._expert_pool[key][slot]
-        if self._copy_stream is None:
-            dst.copy_(src)
-            return
-        with torch.cuda.stream(self._copy_stream):
-            dst.copy_(src, non_blocking=True)
+
+        def _fill():
+            if self._copy_stream is None:
+                dst.copy_(src)
+                return
+            with torch.cuda.stream(self._copy_stream):
+                dst.copy_(src, non_blocking=True)
+
+        self._xfer.run_mandatory("expert_copy", _fill,
+                                 nbytes=self.residency[key].span_bytes,
+                                 on_hostmem=self._demote_host_tier)
 
     def _resident_snap(self) -> Dict[str, np.ndarray]:
         """Residency mask at dispatch time — what the dispatched map says
@@ -1104,7 +1208,11 @@ class Engine:
         next chunk; the non-resident ones join the pending queue
         earliest-deadline-first (``paging.predicted_drain_order``), after
         the router-ahead entries and deduped against them.  Their priority
-        is the predicted probability times the predictor's accuracy."""
+        is the predicted probability times the predictor's accuracy.
+        Suspended while the degradation ladder sits at or below its
+        no_predict rung."""
+        if self._degraded_no_predict:
+            return
         for h in holders:
             for key, act in h.pred.items():
                 gp = self._predictors.get(key)
@@ -1130,11 +1238,31 @@ class Engine:
                     ) -> Tuple[List, List]:
         """The union of these rotation positions' ``paging.transfer_plan``
         slices of a pending transfer queue (``paging.window_plan``; one
-        position for a lockstep group); returns (chosen, keep)."""
+        position for a lockstep group); returns (chosen, keep).  Shared by
+        the expert and the KV prefetch drains.
+
+        Fault chokepoint ("plan_drain"): an injected *partial* completes
+        only a prefix of the slice (the rest re-queues), a *fail* (or
+        exhaust, hostmem) defers the whole slice, a *stall* books a
+        deadline violation — all only delay advisory prefetch work, so
+        tokens are untouched."""
         take = set(paging.window_plan(len(pending), self.ecfg.num_ubs,
                                       gids))
         chosen = [t for i, t in enumerate(pending) if i in take]
         keep = [t for i, t in enumerate(pending) if i not in take]
+        ev = self.faults.fire("plan_drain")
+        if ev is not None and chosen:
+            if ev.kind == "partial":
+                k = int(len(chosen) * ev.frac)
+                chosen, deferred = chosen[:k], chosen[k:]
+                keep = deferred + keep
+                self._xfer.book_retry("plan_drain")
+            elif ev.kind in ("fail", "exhaust", "hostmem"):
+                keep = chosen + keep
+                chosen = []
+                self._xfer.book_retry("plan_drain")
+            elif ev.kind == "stall":
+                self._xfer.book_stall("plan_drain")
         return chosen, keep
 
     def _drain_prefetch(self, gids: List[int], *,
@@ -1272,33 +1400,68 @@ class Engine:
         """Block `i` of a stacked arena leaf (a view)."""
         return a.select(kvcache.arena_block_axis(name, stacked=True), i)
 
+    def _kv_spill_op(self, pb: int, hb: int) -> None:
+        for key, g in self._kv_arena.items():
+            for name, a in g.items():
+                self._kv_host[key][name][hb].copy_(
+                    self._kv_block(a, name, pb), non_blocking=True)
+
+    def _kv_fetch_op(self, hb: int, pb: int) -> None:
+        for key, g in self._kv_arena.items():
+            for name, a in g.items():
+                self._kv_block(a, name, pb).copy_(
+                    self._kv_host[key][name][hb], non_blocking=True)
+
     def _kv_exec(self, ops) -> None:
         """Execute a BlockPool plan in order on the current stream:
         ``spill`` copies an arena block out to the host tier (D2H),
         ``fetch`` copies a host block back in (H2D), ``alloc`` marks a
         fresh block, whose slot_pos plane is cleared at the end — stale
         positions from the previous owner must never satisfy a validity
-        mask.  Stream order keeps a block's copy-out ahead of its reuse."""
+        mask.  Stream order keeps a block's copy-out ahead of its reuse.
+
+        Each spill or fetch op (every leaf of the block) runs through the
+        retrying transfer engine: the plan is already committed to the
+        pool's map, so its bytes must land.  The fault fires before the
+        copies are issued, so a retried op issues them once.  While the
+        tier is pinned the copies are asynchronous DMA; once demoted to
+        pageable memory the same ``non_blocking`` copies are staged by CUDA
+        (a D2H copy into pageable memory returns once it has
+        landed, an H2D copy once its source has been read), so they stay
+        safe and in stream order, only slower."""
         fresh = []
+        nb = self._kv.block_bytes
         for op in ops:
             if op[0] == "spill":
                 _, _s, _lb, pb, hb = op
-                for key, g in self._kv_arena.items():
-                    for name, a in g.items():
-                        self._kv_host[key][name][hb].copy_(
-                            self._kv_block(a, name, pb), non_blocking=True)
+                self._xfer.run_mandatory(
+                    "kv_spill", lambda pb=pb, hb=hb: self._kv_spill_op(pb, hb),
+                    nbytes=nb, on_hostmem=self._demote_host_tier)
             elif op[0] == "fetch":
                 _, _s, _lb, hb, pb = op
-                for key, g in self._kv_arena.items():
-                    for name, a in g.items():
-                        self._kv_block(a, name, pb).copy_(
-                            self._kv_host[key][name][hb], non_blocking=True)
+                self._xfer.run_mandatory(
+                    "kv_fetch", lambda hb=hb, pb=pb: self._kv_fetch_op(hb, pb),
+                    nbytes=nb, on_hostmem=self._demote_host_tier)
             else:                                       # ("alloc", s, lb, pb)
                 fresh.append(op[3])
         if fresh:
             idx = torch.tensor(fresh, device=self.device)
             for g in self._kv_arena.values():
                 g["slot_pos"][:, idx] = -1
+
+    def _kv_ensure(self, fn):
+        """Run a BlockPool ensure closure, and its plan, on a path whose
+        refusal is fatal or mode-changing (arena-floor errors and static
+        lockstep fall-backs follow the call): injected pool exhaustions
+        are retried until a genuine answer comes back, so a chaos
+        schedule can never trip a floor error or force a spurious
+        fall-back."""
+        while True:
+            ops, ok, nxt = fn()
+            self._kv_exec(ops)
+            if ok or not self._kv.last_refusal_injected:
+                return ops, ok, nxt
+            self._xfer.book_retry("kv_pool")
 
     def _kv_sweep(self) -> None:
         """Release the arena and host blocks of any slot that fell back to
@@ -1324,6 +1487,7 @@ class Engine:
         group never spills an earlier one's just-prepared blocks)."""
         slots = [s for g in gids for s in self.scheduler.slots[g]]
         booked: Dict[int, int] = {}          # slot idx -> blocks satisfied
+        inj_retries = 0
         while True:
             decoding = [s for s in slots if s.state == SlotState.DECODE]
             protect = [self._slot_of(s) for s in decoding]
@@ -1343,6 +1507,20 @@ class Engine:
                     break
             if ok:
                 return
+            if self._kv.last_refusal_injected:
+                # an injected pool-exhaustion refusal, not a real one: retry
+                # the draw before paying a preemption.  With a lone decoding
+                # slot retries are unbounded (there is no victim, and the
+                # plan's faults are transient by construction); otherwise an
+                # exhausted budget books an abort and falls through to a
+                # genuine recompute preemption — the one way a fault
+                # schedule can change who shares a batch
+                inj_retries += 1
+                self._xfer.book_retry("kv_pool")
+                if inj_retries <= self.ecfg.max_retries \
+                        or len(decoding) <= 1:
+                    continue
+                self._xfer.book_abort("kv_pool")
             if len(decoding) <= 1:
                 raise RuntimeError("a single request exceeds the KV arena "
                                    "(device_blocks floor)")
@@ -1350,6 +1528,7 @@ class Engine:
             self.scheduler.preempt(victim)
             self._kv.free_slot(self._slot_of(victim))
             booked.pop(self._slot_of(victim), None)
+            inj_retries = 0
 
     def _kv_enqueue_prefetch(self, gids: List[int]) -> None:
         """Queue the next window's spilled blocks (the KV analogue of
@@ -1426,4 +1605,157 @@ class Engine:
             gather_reduction_vs_view=(self._kv_view_blocks
                                       / max(1, self._kv_gathered_blocks)),
         )
+        return out
+
+    # -------------------- fault plane: host tier / ladder / watchdog
+    def _new_host_tier(self, faults=None) -> Dict[str, Dict]:
+        """A fresh, zeroed KV host tier (``offload.host_store``): pinned on
+        the card.  One "host_alloc" draw for the whole tier, as the
+        reference probes its pinned memory space once."""
+        tier: Dict[str, Dict] = {}
+        for key, g in self._kv_host_shapes.items():
+            tier[key] = {}
+            for name, (shape, dtype) in g.items():
+                tier[key][name] = offload.host_store(shape, dtype,
+                                                     self.device, faults)
+                faults = None
+        return tier
+
+    def _demote_host_tier(self) -> None:
+        """Reversible fall-back of the KV host tier from pinned to pageable
+        memory — the HostMemoryError handler and the ladder's
+        pageable_host rung.  Idempotent; block bytes are kept, so spilled
+        histories survive the demotion.  A no-op on the CPU, whose tier is
+        never pinned."""
+        if self._ladder is not None:
+            self._ladder.force_at_least("pageable_host", site="host_alloc")
+        if self._kv is None or not self._kv_pinned:
+            return
+        # spills are non_blocking D2H copies into the pinned tier on the
+        # current stream: wait for them to land before the tier is read,
+        # else the pageable copy takes blocks that have not arrived
+        torch.cuda.current_stream(self.device).synchronize()
+        self._kv_host = {
+            key: {name: offload.pageable_copy(t) for name, t in g.items()}
+            for key, g in self._kv_host.items()}
+        self._kv_pinned = False
+        self._kv_demoted = True
+
+    def _repromote_host_tier(self) -> None:
+        """Ladder re-promotion out of pageable_host: draw a new pinned tier
+        (the "host_alloc" probe again), copy the pageable tier's bytes
+        into it, and only then drop the pageable tier.  Stays pageable when
+        the allocation is refused (the rung still flips back to healthy;
+        bytes keep flowing either way).  Copies into and out of pageable
+        memory have landed (D2H) or read their source (H2D) by the time
+        they return, so the pageable tier is whole here."""
+        if self._kv is None or self._kv_pinned:
+            return
+        try:
+            if self.device.type != "cuda":
+                # the CPU tier is plain memory, as the reference's without
+                # a pinned_host space: the probe is drawn, nothing moves
+                self.faults.raise_for("host_alloc")
+                return
+            tier = self._new_host_tier(self.faults)
+        except faults_mod.HostMemoryError:
+            return                        # still refused: stay pageable
+        _copy_into(tier, self._kv_host)
+        self._kv_host = tier
+        self._kv_pinned = True
+        self._kv_demoted = False
+
+    def _set_module_groups(self, mg: int) -> None:
+        """Clamp/restore the module-batch window width (the ladder's
+        lockstep rung).  Windows equal lockstep bit for bit (row-wise work
+        runs group by group, ``models.common.by_group``), which is what
+        makes this rung token-safe; the window step stays built for
+        ``_mg_base``, the only width above 1 that ``_mg`` takes."""
+        mg = max(1, min(int(mg), self._mg_base))
+        if mg == self._mg:
+            return
+        self._mg = mg
+        self._windows = [
+            list(range(i, min(i + mg, self.ecfg.num_ubs)))
+            for i in range(0, self.ecfg.num_ubs, mg)]
+
+    def _ladder_tick(self) -> None:
+        if self._ladder is None:
+            return
+        if self._kv_demoted and self._ladder.level == 0:
+            # a demotion forces the pageable_host rung, but a healthy
+            # streak can lower the ladder's target again before this safe
+            # point: the rung would then never be crossed, the demotion
+            # never be an event, and the tier never re-pinned (the way
+            # back up re-promotes it).  Force it again, so that it is.
+            # Only the card's pinned tier is ever demoted: on the CPU this
+            # never fires, as in the reference
+            self._ladder.force_at_least("pageable_host", site="host_alloc")
+        if self._ladder.pending():
+            self._ladder.apply(self._enact_rung, tick=self.steps)
+
+    def _enact_rung(self, old: int, new: int, direction: str) -> None:
+        """Apply ONE ladder rung's side effect (from apply() at the step()
+        safe point — no dispatch in flight).  Every rung is reversible, and
+        none changes sampled tokens: each only moves where bytes stream
+        from and when — except admission_shed, which by design drops work
+        the submitter marked sheddable."""
+        rung = faults_mod.LADDER_LEVELS[max(old, new)]
+        down = direction == "down"
+        if rung == "pageable_host":
+            if down:
+                self._demote_host_tier()
+            else:
+                self._repromote_host_tier()
+        elif rung == "no_predict":
+            self._degraded_no_predict = down
+        elif rung == "lockstep":
+            self._set_module_groups(1 if down else self._mg_base)
+        elif rung == "residency_shrunk":
+            for r in self.residency.values():
+                if down:
+                    r.drop_replicas()
+                    r.set_limit(max(1, r.capacity // 2))
+                else:
+                    r.set_limit(None)
+        elif rung == "admission_shed":
+            self.scheduler.shed_priority = (
+                self.ecfg.shed_priority if down else None)
+
+    def _watchdog_end(self) -> None:
+        """Close one dispatch's deadline window: injected "dispatch" stalls
+        charge virtual seconds (deterministic chaos, no real sleeps); a
+        violation feeds the ladder like any other fault."""
+        if self._watchdog is None:
+            return
+        virt = self.faults.stall_s("dispatch")
+        ok = self._watchdog.step_end(extra_s=virt)
+        if not ok and self._ladder is not None:
+            self._ladder.note_fault("dispatch")
+
+    def fault_traffic(self) -> Dict[str, object]:
+        """Fault-plane counters, the JAX engine's dict: injected fault
+        counts, transfer retries / aborts / stalls, dispatch deadline
+        violations, shed admissions, whether the KV host tier is pinned,
+        and the degradation ladder's level and transitions."""
+        out: Dict[str, object] = {
+            "injected": dict(self.faults.counts),
+            "injected_total": self.faults.total(),
+            "shed_requests": self.scheduler.shed_count,
+            "host_tier_pinned": self._kv_pinned,
+            "module_groups_now": self._mg,
+            "predict_suspended": self._degraded_no_predict,
+            "dispatch_slow_steps": (self._watchdog.slow_steps
+                                    if self._watchdog is not None else 0),
+        }
+        out.update(self._xfer.stats())
+        if self._ladder is not None:
+            out.update(level=self._ladder.level,
+                       level_name=self._ladder.level_name,
+                       demotions=self._ladder.demotions,
+                       promotions=self._ladder.promotions,
+                       degradation_events=list(self._ladder.events))
+        else:
+            out.update(level=0, level_name="healthy", demotions=0,
+                       promotions=0, degradation_events=[])
         return out

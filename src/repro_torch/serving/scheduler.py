@@ -1,8 +1,7 @@
 """Request scheduler of the slot-pool engine: a FCFS queue, admission via
 the paper's Algorithm 2, and per-slot lifecycle tracking.
 
-``repro/serving/scheduler.py`` without degraded-mode shedding.  Two
-admission modes:
+A copy of ``repro/serving/scheduler.py``.  Two admission modes:
 
   * batch (``admit``): Algorithm 2 over the whole queue — μ-sized
     micro-batches with balanced token counts under the KV budget, each
@@ -34,6 +33,12 @@ re-queued at its FCFS position with its transcript intact; re-admission
 prefills prompt + generated-so-far (recompute preemption), so greedy output
 is unchanged.
 
+Degraded-mode shedding (the degradation ladder's bottom rung,
+``runtime.faults``): while ``shed_priority`` is set, new work whose
+``priority`` is at least it is rejected at submit and at admission (marked
+``shed``, aborted, never generated); a preempted request, which has a
+transcript, is never shed.
+
 Slot lifecycle: FREE → PREFILL → DECODE → FREE.  A slot is one batch row
 of one rotation group's pooled KV cache; `Slot.history` records every
 request id the slot has served (slot recycling is observable).
@@ -63,6 +68,8 @@ class ServeRequest:
     done: bool = False
     aborted: bool = False
     preemptions: int = 0             # times evicted + re-queued
+    priority: int = 0                # 0 = most important; higher = shed first
+    shed: bool = False               # aborted by degraded-mode backpressure
 
     @property
     def input_len(self) -> int:
@@ -125,6 +132,12 @@ class Scheduler:
         self.on_long_prompt = on_long_prompt
         assert reserve_mode in ("worst", "ewma")
         self.reserve_mode = reserve_mode
+        # degraded-mode backpressure (the ladder's admission_shed rung):
+        # when set, NEW work with priority >= shed_priority is rejected at
+        # admission — load already admitted keeps its slots, so shedding
+        # never perturbs in-flight transcripts
+        self.shed_priority: Optional[int] = None
+        self.shed_count = 0
         self.gen_ewma = GenLenEWMA(ewma_alpha)
         self._rid = itertools.count()
         self.queue: List[ServeRequest] = []
@@ -132,11 +145,25 @@ class Scheduler:
         self.slots: List[List[Slot]] = [
             [Slot(g, r) for r in range(ubatch)] for g in range(num_ubs)]
 
-    def submit(self, prompt: np.ndarray, max_new_tokens: int) -> int:
+    def _shed(self, req: ServeRequest) -> bool:
+        """Degraded-mode backpressure: reject the lowest-priority new
+        work while the ladder sits at admission_shed."""
+        if self.shed_priority is None or req.priority < self.shed_priority:
+            return False
+        req.aborted = True
+        req.done = True
+        req.shed = True
+        self.shed_count += 1
+        return True
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int,
+               priority: int = 0) -> int:
         rid = next(self._rid)
         prompt = np.asarray(prompt, np.int32)
-        req = ServeRequest(rid, prompt, max_new_tokens)
+        req = ServeRequest(rid, prompt, max_new_tokens, priority=priority)
         self.requests[rid] = req
+        if self._shed(req):
+            return rid
         if self.max_input_len is not None and \
                 len(prompt) + max_new_tokens > self.max_input_len:
             # prompt + generation must fit the per-slot ring width: a longer
@@ -163,6 +190,11 @@ class Scheduler:
             else min(max_groups, self.num_ubs)
         if not self.queue or cap <= 0:
             return []
+        if self.shed_priority is not None:
+            # degraded-mode shed (same rule as admit_to_slots): only new
+            # work that has not generated anything is sheddable
+            self.queue = [r for r in self.queue
+                          if r.generated or not self._shed(r)]
         algo_reqs = [Request(r.rid, r.input_len, r.max_new_tokens)
                      for r in self.queue]
         mbs, aborted = batch_requests(algo_reqs, self.num_ubs, self.ubatch,
@@ -230,6 +262,13 @@ class Scheduler:
         assigned: List[Slot] = []
         while self.queue:
             req = self.queue[0]
+            # degraded-mode shed: reject queued low-priority work that has
+            # not started (never a preempted request — its partial
+            # transcript must survive re-admission untouched)
+            if self.shed_priority is not None and not req.generated \
+                    and self._shed(req):
+                self.queue.pop(0)
+                continue
             worst = req.footprint + req.remaining
             if self._charge(worst) > self.cache_tokens or \
                     (self.max_input_len is not None

@@ -15,8 +15,8 @@ package's.
     driver (staged prefill, ``enforce_budget`` before every group's chunk,
     EOS, recompute preemption) runs both packages' ``Scheduler`` and
     checks the lifecycle invariants after every tick; served, aborted,
-    preemptions, ticks and the peak group footprint are equal.  No shed:
-    the port has no fault plane yet.
+    preemptions, ticks and the peak group footprint are equal.  Shedding
+    is held in ``tests/test_torch_faults.py``.
 """
 import dataclasses
 from dataclasses import dataclass, field
