@@ -33,7 +33,15 @@ Phases, each printing JSON lines:
                    filled row, the fused paged decode over the int8 arena
                    (fused equal to write-then-attend bit for bit); their
                    library yardsticks run on weights or rings dequantized
-                   to bf16 beforehand.
+                   to bf16 beforehand.  The families' shapes: the D-256
+                   flash_prefill body at gemma2's prefill (S 4608, window
+                   4096 and global, softcap 50; its own record, whose
+                   yardstick is SDPA with the window mask and no
+                   softcap), moe_ffn at moonshot's decode (E 64, full
+                   and as 8 routed rows fill it), gqa_decode at glm4's
+                   group of 16 and gemma2's D 256 with softcap 50, and
+                   the fused paged decode at gemma2's D 256 (sub-records
+                   "families").
   3. serve       — the port's Engine at the full width of mixtral-8x7b with
                    the depth cut from 32 to 4 layers and every weight on
                    the card, random weights from a seed, the dense KV
@@ -166,7 +174,8 @@ Phases, each printing JSON lines:
                    host holds (all 32 are ~93 GB of bf16 weights, more
                    than the card holds): the host must hold the stores
                    plus 20 % and 20 GiB (never below 8 layers; printed as
-                   layers / of_layers), drawn on the card layer by layer
+                   layers / of_layers), and at most 8 layers for the
+                   script's time, drawn on the card layer by layer
                    from a seed into pinned host stores, served
                    expert-paged with a device pool of r_w 0.5 of the
                    (layer, expert) spans: 8 requests of 32..256 prompt
@@ -195,6 +204,33 @@ Phases, each printing JSON lines:
                    the hand-set r_w 0.5, HRM's modelled link bytes beside
                    ``serve_expert``'s measured and booked ones, and a timed
                    probe of the host's copy rate and f32 matmul rate.
+     check_moonshot — moonshot-v1-16b-a3b (64 experts top-6, d_ff 1408)
+                   at full width, 4 of its 48 layers on the card, then
+                   packed into pinned stores and served expert-paged at
+                   r_w 0.25: transcripts equal to the resident engine's.
+     serve_moonshot_expert — moonshot at full width, all 48 layers where
+                   the host rule holds their 53.2 GB of stores (the rule's
+                   arithmetic and any cut printed), drawn on the card
+                   layer by layer into page-locked stores, served
+                   expert-paged at r_w 0.5 in lockstep (+ a trace window)
+                   and then in windows (``_module``, transcripts equal):
+                   decode tok/s, the gather's link bytes against
+                   ``weight_traffic()``'s booked bytes and ``h2d_copy``,
+                   hits and misses, its launches, its host copies (one a
+                   missed leaf) a layer and its host ms a call.
+     check_gemma2 — gemma2-2b at full width, 2 layers (one window, one
+                   global), float32, the window cut to 64 under a
+                   200-token prompt: 8 decode steps' logits within 1e-3
+                   of a teacher-forced forward, through the kernels.
+     serve_gemma2 / serve_glm4 / serve_olmo — each at full width and
+                   depth, every weight on the card: 8 requests over the
+                   dense ring, then over the block-paged arena at r_c 0.5
+                   (``_paged``; gemma2 pages its global layers only),
+                   greedy transcripts equal, no preemption.  gemma2's 8
+                   prompts of 4200..4600 tokens x 32 cross its 4096
+                   window (max_seq 5120), through the D-256 flash_prefill
+                   body (+ a trace window); glm4 and olmo take
+                   ``serve``'s prompts, 32 new tokens each.
      launch      — the port's ``launch/serve.py --smoke --hw h100`` on the
                    card, and with ``--paged``: every request done.
   8. serve_mla   — deepseek-v3-671b at full width with the depth cut from
@@ -254,6 +290,12 @@ SERVE_EXPERT = dict(ubatch=8, num_ubs=2, max_seq=512, decode_chunk=8,
                     expert_paged=True, w_gpu_ratio=0.5)
 EXPERT_REQUESTS, EXPERT_PROMPT_LENS, EXPERT_NEW_TOKENS = 8, (32, 256), 32
 MIN_EXPERT_LAYERS = 8         # the deepest cut serve_expert accepts
+# serve_expert's depth is also cut to this many layers for the script's
+# time (the host holds ~25 of 32): the families' phases take its place
+SERVE_EXPERT_MAX_LAYERS = 8
+# requests in the profiled windows of the expert-paged engines: the
+# profiler takes ~10x a window's wall to process its gathers and copies
+EXPERT_TRACE_REQUESTS = 2
 # Both offload ratios at once (serve_expert_kv): windows, and an arena of
 # 0.15 of the 512 blocks (77), below the ~90 the 8 requests' rows need
 # together, so that it spills, fetches and preempts.
@@ -311,6 +353,26 @@ LAYER_REQUESTS, LAYER_PROMPT_LENS, LAYER_NEW_TOKENS = 64, (32, 256), 32
 # row of 64 entries drawn 200 000 times, whose frequencies' standard error
 # is at most 0.0011: the bound is over 4 of them
 SAMPLE_TEMPERATURE, SAMPLE_ROWS, SAMPLE_FREQ_TOL = 0.8, 200_000, 0.005
+# The attention families at full width and depth, every weight on the card
+# (serve_gemma2, serve_glm4, serve_olmo): 8 requests over the dense ring,
+# then over the block-paged arena (r_c 0.5; only full-attention layers are
+# paged); no run may preempt, so the two transcripts must be equal.
+# gemma2's prompts of 4200..4600 cross its 4096 window, so prefill writes
+# its window rings past their width and decode wraps them
+FAMILY_REQUESTS = 8
+GEMMA2_SERVE = dict(ubatch=8, num_ubs=2, max_seq=5120, decode_chunk=8)
+GEMMA2_PAGED = {**GEMMA2_SERVE, "kv_paged": True, "block_tokens": 16,
+                "kv_gpu_ratio": 0.5, "kv_prefetch": True}
+GEMMA2_PROMPT_LENS, GEMMA2_NEW_TOKENS = (4200, 4600), 32
+GEMMA2_KERNEL_S = 4608        # flash_prefill's kernel record: 36 x 128 rows
+FAMILY_PAGED = {**SERVE, "kv_paged": True, "block_tokens": 16,
+                "kv_gpu_ratio": 0.5, "kv_prefetch": True}
+FAMILY_NEW_TOKENS = 32
+# check_gemma2: 2 layers (one window, one global) in f32, a window of 64
+# under a 200-token prompt and 8 decode steps
+CHECK_GEMMA2_WINDOW, CHECK_GEMMA2_PROMPT, CHECK_GEMMA2_STEPS = 64, 200, 8
+CHECK_GEMMA2_TOL = 1e-3
+CHECK_MOONSHOT_LAYERS = 4     # of moonshot's 48: resident vs expert-paged
 HOST_MARGIN = 1.2             # MemAvailable must hold the stores + 20 %
 HOST_RESERVE = 20 << 30       # ... and leave 20 GiB beside them
 # bf16 tolerances.  A kernel and its plain version both compute in f32 from
@@ -413,6 +475,94 @@ def close(a, b, tol: float) -> bool:
     return bool(((a - b).abs() <= tol + tol * b.abs()).all())
 
 
+def gqa_case(torch, F, timer, q, k, v, valid, kw):
+    """bf16 gqa_decode over one ring and validity mask against its plain
+    version (f32 partials within ``F32_TOL``), timed beside its bound and
+    SDPA over the same mask (without the softcap, where `kw` has one)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gqa_decode import gqa_decode
+    B, H, D = q.shape
+    W, Hkv = k.shape[1], k.shape[2]
+    got, want = gqa_decode(q, k, v, valid, **kw), \
+        ref.gqa_decode_ref(q, k, v, valid, **kw)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    nvalid = int(valid.sum())
+    require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
+            f"gqa_decode bf16 (H {H} / {Hkv}, D {D}, {nvalid} valid): "
+            f"{err}")
+    # q, the K and V rows of the valid slots only (the rest are never
+    # needed), the mask, and the f32 (o_unnorm, m, l) outputs
+    nbytes = 2 * B * H * D + 2 * nvalid * Hkv * 2 * D + B * W \
+        + 4 * B * H * (D + 2)
+    bms, by = bound(nbytes, 2 * nvalid * H * 2 * D)
+    cap = kw.get("attn_softcap", 0.0)
+    return {
+        "shape": {"B": B, "H": H, "Hkv": Hkv, "D": D, "W": W,
+                  "valid": nvalid, "dtype": "bf16",
+                  **({"softcap": cap} if cap else {})},
+        "max_abs_err": err,
+        "ms": timer(lambda: gqa_decode(q, k, v, valid, **kw)),
+        "plain_ms": timer(lambda: ref.gqa_decode_ref(q, k, v, valid, **kw)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": timer(sdpa_gqa(
+            F, q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            H // Hkv, attn_mask=valid[:, None, None, :], scale=kw["scale"])),
+        "library_call": "scaled_dot_product_attention, masked"
+        + (", without the softcap" if cap else "")}
+
+
+def paged_case(torch, F, timer, q, cache, pos, new, kw):
+    """The fused bf16 paged_gqa_decode on one arena against its plain
+    version (on the arena with a zero trash block; f32 partials within
+    ``F32_TOL``), timed beside its bound and SDPA over the dense view
+    already gathered (without the softcap, where `kw` has one).  Returns
+    the record and the plain version's arena."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_decode import paged_gqa_decode
+    from repro_torch.models import kvcache
+    from repro_torch.models.attention import decode_valid_mask
+    B, H, D = q.shape
+    Hkv, bt = cache["k"].shape[0], cache["k"].shape[2]
+    MB = cache["page_table"].shape[1]
+    plain = zero_trash(cache)
+    kn, vn = new["k"][:, 0], new["v"][:, 0]
+    args = (q, cache["k"], cache["v"], cache["slot_pos"],
+            cache["page_table"], pos)
+    got = paged_gqa_decode(*args, k_new=kn, v_new=vn, **kw)
+    want = ref.paged_gqa_decode_ref(q, plain, pos, k_new=kn, v_new=vn, **kw)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
+            f"paged_gqa_decode bf16 (H {H} / {Hkv}, D {D}): {err}")
+    mapped = int((cache["page_table"] >= 0).sum())
+    valid = int(pos.sum()) + B                  # written + the fresh token
+    nbytes = (mapped * (Hkv * bt * 2 * D * 2 + bt * 4) + 2 * B * H * D
+              + 2 * 2 * B * Hkv * D + 4 * B * (MB + 1)
+              + 4 * B * H * (D + 2))
+    bms, by = bound(nbytes, 2 * valid * H * 2 * D)
+    view = kvcache.paged_view(plain)
+    kt, vt = view["k"].transpose(1, 2), view["v"].transpose(1, 2)
+    vmask = decode_valid_mask(view["slot_pos"], pos, 0)
+    cap = kw.get("attn_softcap", 0.0)
+    rec = {"shape": {"B": B, "H": H, "Hkv": Hkv, "D": D, "bt": bt, "MB": MB,
+                     "arena_blocks": cache["k"].shape[1] - 1,
+                     "mapped_blocks": mapped, "valid": valid,
+                     "dtype": "bf16", "fused": True,
+                     **({"softcap": cap} if cap else {})},
+           "max_abs_err": err,
+           "ms": timer(lambda: paged_gqa_decode(*args, k_new=kn, v_new=vn,
+                                                **kw)),
+           "plain_ms": timer(lambda: ref.paged_gqa_decode_ref(
+               q, plain, pos, k_new=kn, v_new=vn, **kw)),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(sdpa_gqa(
+               F, q[:, :, None], kt, vt, H // Hkv,
+               attn_mask=vmask[:, None, None, :], scale=kw["scale"])),
+           "library_call": "scaled_dot_product_attention over the dense "
+                           "view already gathered (gather not included)"
+                           + (", without the softcap" if cap else "")}
+    return rec, plain
+
+
 def phase_kernels(torch, F):
     """Returns the per-kernel records of the kernels line (launches are
     filled in by the serve phase)."""
@@ -513,34 +663,12 @@ def phase_kernels(torch, F):
     q, k, v = rn(B, H, Dh), rn(B, W, Hkv, Dh), rn(B, W, Hkv, Dh)
     lens = torch.randint(PROMPT_LENS[0], PROMPT_LENS[1] + NEW_TOKENS,
                          (B,), generator=g, device=DEVICE)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    kw = dict(scale=Dh ** -0.5)
-    cases = []
-    for valid in (torch.arange(W, device=DEVICE)[None, :] < lens[:, None],
-                  torch.ones((B, W), dtype=torch.bool, device=DEVICE)):
-        got, want = gqa_decode(q, k, v, valid, **kw), \
-            ref.gqa_decode_ref(q, k, v, valid, **kw)
-        err = max(max_err(a, b) for a, b in zip(got, want))
-        nvalid = int(valid.sum())
-        require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
-                f"gqa_decode bf16 ({nvalid} valid): {err}")
-        # q, the K and V rows of the valid slots only (the rest are never
-        # needed), the mask, and the f32 (o_unnorm, m, l) outputs
-        nbytes = 2 * B * H * Dh + 2 * nvalid * Hkv * 2 * Dh + B * W \
-            + 4 * B * H * (Dh + 2)
-        bms, by = bound(nbytes, 2 * nvalid * H * 2 * Dh)
-        cases.append({
-            "shape": {"B": B, "H": H, "Hkv": Hkv, "D": Dh, "W": W,
-                      "valid": nvalid, "dtype": "bf16"},
-            "max_abs_err": err,
-            "ms": timer(lambda: gqa_decode(q, k, v, valid, **kw)),
-            "plain_ms": timer(lambda: ref.gqa_decode_ref(q, k, v, valid,
-                                                         **kw)),
-            "bound_ms": bms, "bound_by": by,
-            "library_ms": timer(sdpa_gqa(
-                F, q[:, :, None], kt, vt, H // Hkv,
-                attn_mask=valid[:, None, None, :])),
-            "library_call": "scaled_dot_product_attention, masked"})
+    cases = [gqa_case(torch, F, timer, q, k, v, valid,
+                      dict(scale=Dh ** -0.5))
+             for valid in (torch.arange(W, device=DEVICE)[None, :]
+                           < lens[:, None],
+                           torch.ones((B, W), dtype=torch.bool,
+                                      device=DEVICE))]
     rec = {"name": "gqa_decode", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
            "replaces": "src/repro/kernels/gqa_decode.py:85", **cases[0],
@@ -578,8 +706,185 @@ def phase_kernels(torch, F):
     records.append(kernel_paged(torch, F, timer, rn))
     kernel_deepseek(torch, F, timer, rn, records)
     records.append(kernel_mla(torch, timer, rn))
+    records.append(kernel_families(torch, F, timer, rn, records))
+    torch.cuda.empty_cache()
     records.append(kernel_expert_gather(torch, timer, rn))
     return records
+
+
+def _family(arch):
+    from repro_torch.configs import get_config
+    return get_config(arch)
+
+
+def window_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal prompt of S tokens computes under a
+    sliding window (0: none)."""
+    return sum(min(i + 1, window or i + 1) for i in range(S))
+
+
+def kernel_families(torch, F, timer, rn, records):
+    """The shapes gemma2, glm4 and moonshot give the kernels, each held
+    against its plain version and timed beside its bound and one library
+    call: flash_prefill's wide body at gemma2's prefill (D = Dv = 256, a
+    window layer and a global one, softcap 50; its own record, returned),
+    moe_ffn at moonshot's decode bucket (E 64, D 2048, F 1408) with every
+    bucket full and as 8 routed rows fill it, gqa_decode at glm4's group
+    of 16 and at gemma2's D 256 with softcap 50 over its global ring, and
+    the fused paged_gqa_decode at gemma2's D 256 with softcap 50 over its
+    arena.  The others join their kernel's record as "families"."""
+    import numpy as np
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.moe_ffn import moe_ffn
+    by_name = {r["name"]: r for r in records}
+    fam = {name: by_name[name].setdefault("families", {}) for name in
+           ("moe_ffn", "gqa_decode", "paged_gqa_decode")}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
+
+    # flash_prefill at gemma2's prefill: a window layer (the record's
+    # main case) and a global layer.  q is drawn with std 32, so that at
+    # gemma2's query scale of 1/16 the scores spread with std 32 and 12 %
+    # of them pass the cap of 50: the softcap's saturating region is
+    # checked, and the same inputs without the softcap must give outputs
+    # far outside the tolerance ("softcap_effect").  No single library
+    # call computes the softcap: the yardstick is SDPA without it, the
+    # window given as a boolean mask, the global layer as is_causal
+    gem = _family("gemma2-2b")
+    S, H, Hkv, D = GEMMA2_KERNEL_S, gem.num_heads, gem.num_kv_heads, \
+        gem.head_dim
+    q, k, v = rn(1, S, H, D, std=32.0), rn(1, S, Hkv, D), rn(1, S, Hkv, D)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    pos = torch.arange(S, device=DEVICE)
+    cases = []
+    for window in (gem.window_size, 0):
+        kw = dict(window=window, attn_softcap=gem.attn_softcap,
+                  scale=gem.query_scale)
+        got, want = flash_prefill(q, k, v, **kw), \
+            ref.flash_prefill_ref(q, k, v, **kw)
+        err = max_err(got, want)
+        require(close(got, want, BF16_OUT_TOL),
+                f"flash_prefill bf16 D 256 window {window}: {err}")
+        del want
+        kw0 = {**kw, "attn_softcap": 0.0}
+        got0, want0 = flash_prefill(q, k, v, **kw0), \
+            ref.flash_prefill_ref(q, k, v, **kw0)
+        err0 = max_err(got0, want0)
+        require(close(got0, want0, BF16_OUT_TOL),
+                f"flash_prefill bf16 D 256 window {window}, no softcap: "
+                f"{err0}")
+        effect = max_err(got, got0)
+        require(effect > 50 * BF16_OUT_TOL,
+                f"flash_prefill bf16 D 256 window {window}: the softcap "
+                f"moves the output by only {effect}")
+        del got, got0, want0
+        if window:
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib = dict(attn_mask=mask)
+        else:
+            lib = dict(is_causal=True)
+        pairs = window_pairs(S, window)
+        bms, by = bound(2 * (2 * S * H * D + 2 * S * Hkv * D),
+                        2 * pairs * H * 2 * D)
+        cases.append({
+            "shape": {"B": 1, "S": S, "H": H, "Hkv": Hkv, "D": D, "Dv": D,
+                      "window": window, "softcap": gem.attn_softcap,
+                      "pairs": pairs, "dtype": "bf16", "q_std": 32.0},
+            "max_abs_err": err, "max_abs_err_no_softcap": err0,
+            "softcap_effect": effect,
+            "ms": timer(lambda: flash_prefill(q, k, v, **kw)),
+            "plain_ms": timer(lambda: ref.flash_prefill_ref(q, k, v, **kw),
+                              3, 1),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": timer(sdpa_gqa(F, qt, kt, vt, H // Hkv,
+                                         scale=gem.query_scale, **lib)),
+            "library_call": "scaled_dot_product_attention, "
+                            + ("the causal window as a boolean mask"
+                               if window else "causal")
+                            + ", without the softcap (no single call "
+                            "computes it)"})
+    wide = {"name": "flash_prefill_d256", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+            "replaces": "src/repro/kernels/flash_prefill.py:73",
+            "model": gem.name, **cases[0], "global_layer": cases[1]}
+    emit({"phase": "kernel_bf16", **wide})
+    del q, k, v, qt, kt, vt
+
+    # moe_ffn at moonshot's decode bucket (C 1): every bucket full, then
+    # as 8 routed rows fill it (top-6 of 64)
+    moon = _family("moonshot-v1-16b-a3b")
+    E, D, Fd = moon.num_experts, moon.d_model, moon.d_ff
+    B = SERVE_EXPERT["ubatch"]
+    C = max(1, int(B * moon.top_k * moon.capacity_factor / E + 0.999))
+    wi = rn(E, D, 2, Fd, std=D ** -0.5)
+    wo = rn(E, Fd, D, std=Fd ** -0.5)
+    wi3 = wi.view(E, D, 2 * Fd)
+    x = rn(E, C, D)
+    got, want = moe_ffn(x, wi, wo), ref.moe_ffn_ref(x, wi, wo)
+    err = max_err(got, want)
+    require(close(got, want, BF16_OUT_TOL), f"moe_ffn bf16 moonshot: {err}")
+    del got, want
+
+    def library():
+        h = torch.bmm(x, wi3)
+        return torch.bmm(F.silu(h[..., :Fd]) * h[..., Fd:], wo)
+    bms, by = bound(2 * (2 * E * C * D + 3 * E * D * Fd), 6 * E * C * D * Fd)
+    rec = {"shape": {"E": E, "C": C, "D": D, "F": Fd, "dtype": "bf16",
+                     "at": "decode", "top_k": moon.top_k},
+           "max_abs_err": err,
+           "ms": timer(lambda: moe_ffn(x, wi, wo)),
+           "plain_ms": timer(lambda: ref.moe_ffn_ref(x, wi, wo), 3, 1),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(library),
+           "library_call": "torch.bmm chain (up, silu * up, down)"}
+    emit({"phase": "kernel_bf16", "name": "moe_ffn", "model": moon.name,
+          **rec})
+    rec["served_occupancy"] = moe_occupancy_case(torch, F, timer, rn, wi, wo,
+                                                 moon, B, C)
+    fam["moe_ffn"][moon.name] = rec
+    del wi, wo, wi3, x
+
+    # gqa_decode: glm4's group of 16 over serve's half-filled 512 ring,
+    # and gemma2's D 256 with softcap 50 over its 5120 global ring as
+    # serve_gemma2 fills it
+    glm = _family("glm4-9b")
+    for cfg, W, lo, hi in (
+            (glm, SERVE["max_seq"], PROMPT_LENS[0],
+             PROMPT_LENS[1] + NEW_TOKENS),
+            (gem, GEMMA2_SERVE["max_seq"], GEMMA2_PROMPT_LENS[0],
+             GEMMA2_PROMPT_LENS[1] + GEMMA2_NEW_TOKENS)):
+        H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q, k, v = rn(B, H, D), rn(B, W, Hkv, D), rn(B, W, Hkv, D)
+        lens = torch.randint(lo, hi, (B,), generator=g, device=DEVICE)
+        valid = torch.arange(W, device=DEVICE)[None, :] < lens[:, None]
+        rec = gqa_case(torch, F, timer, q, k, v, valid,
+                       dict(scale=cfg.query_scale or D ** -0.5,
+                            attn_softcap=cfg.attn_softcap))
+        emit({"phase": "kernel_bf16", "name": "gqa_decode",
+              "model": cfg.name, **rec})
+        fam["gqa_decode"][cfg.name] = rec
+        del q, k, v
+
+    # the fused paged decode at gemma2's global layers over serve_gemma2's
+    # arena (r_c 0.5 of 16 slots x 320 blocks of 16)
+    rng = np.random.default_rng(SEED + 25)
+    H, Hkv, D = gem.num_heads, gem.num_kv_heads, gem.head_dim
+    bt = GEMMA2_PAGED["block_tokens"]
+    MB = GEMMA2_PAGED["max_seq"] // bt
+    NB = round(GEMMA2_PAGED["kv_gpu_ratio"] * GEMMA2_PAGED["ubatch"]
+               * GEMMA2_PAGED["num_ubs"] * MB)
+    lens = [int(n) for n in rng.integers(
+        GEMMA2_PROMPT_LENS[0], GEMMA2_PROMPT_LENS[1] + GEMMA2_NEW_TOKENS, B)]
+    q, cache, pos, new = paged_inputs(torch, rng, lens, H, Hkv, D, bt, MB,
+                                      NB, 0.0, torch.bfloat16, rn)
+    rec, _ = paged_case(torch, F, timer, q, cache, pos, new,
+                        dict(scale=gem.query_scale,
+                             attn_softcap=gem.attn_softcap))
+    emit({"phase": "kernel_bf16", "name": "paged_gqa_decode",
+          "model": gem.name, **rec})
+    fam["paged_gqa_decode"][gem.name] = rec
+    return wide
 
 
 def kernel_expert_gather(torch, timer, rn):
@@ -786,7 +1091,7 @@ def kernel_paged(torch, F, timer, rn):
     unmapped entries, a row with no block, window, softcap; unfused and
     fused), then bf16 at the served shapes with its timings."""
     import numpy as np
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.kernels.gqa_decode import gqa_decode
     from repro_torch.kernels.paged_decode import paged_gqa_decode
     from repro_torch.models import kvcache
@@ -837,44 +1142,17 @@ def kernel_paged(torch, F, timer, rn):
         SERVE_PAGED["ubatch"])]
     q, cache, pos, new = paged_inputs(torch, rng, lens, H, Hkv, D, bt, MB,
                                       NB, 0.0, torch.bfloat16, rn)
-    plain = zero_trash(cache)
-    kn, vn = new["k"][:, 0], new["v"][:, 0]
     kw = dict(scale=D ** -0.5)
-    args = (q, cache["k"], cache["v"], cache["slot_pos"],
-            cache["page_table"], pos)
-    got = paged_gqa_decode(*args, k_new=kn, v_new=vn, **kw)
-    want = ref.paged_gqa_decode_ref(q, plain, pos, k_new=kn, v_new=vn, **kw)
-    err = max(max_err(a, b) for a, b in zip(got, want))
-    require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
-            f"paged_gqa_decode bf16: {err}")
-    mapped = int((cache["page_table"] >= 0).sum())
-    valid = sum(lens) + len(lens)                # written + the fresh token
-    B = len(lens)
-    nbytes = (mapped * (Hkv * bt * 2 * D * 2 + bt * 4) + 2 * B * H * D
-              + 2 * 2 * B * Hkv * D + 4 * B * (MB + 1)
-              + 4 * B * H * (D + 2))
-    bms, by = bound(nbytes, 2 * valid * H * 2 * D)
+    case, plain = paged_case(torch, F, timer, q, cache, pos, new, kw)
     view = kvcache.paged_view(plain)
     vk, vv = view["k"].contiguous(), view["v"].contiguous()
     vmask = decode_valid_mask(view["slot_pos"], pos, 0)
-    kt, vt = vk.transpose(1, 2), vv.transpose(1, 2)
+    args = (q, cache["k"], cache["v"], cache["slot_pos"],
+            cache["page_table"], pos)
+    kn, vn = new["k"][:, 0], new["v"][:, 0]
     rec = {"name": "paged_gqa_decode", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-           "replaces": "src/repro/kernels/paged_decode.py:167",
-           "shape": {"B": B, "H": H, "Hkv": Hkv, "D": D, "bt": bt, "MB": MB,
-                     "arena_blocks": NB, "mapped_blocks": mapped,
-                     "valid": valid, "dtype": "bf16", "fused": True},
-           "max_abs_err": err,
-           "ms": timer(lambda: paged_gqa_decode(*args, k_new=kn, v_new=vn,
-                                                **kw)),
-           "plain_ms": timer(lambda: ref.paged_gqa_decode_ref(
-               q, plain, pos, k_new=kn, v_new=vn, **kw)),
-           "bound_ms": bms, "bound_by": by,
-           "library_ms": timer(sdpa_gqa(
-               F, q[:, :, None], kt, vt, H // Hkv,
-               attn_mask=vmask[:, None, None, :])),
-           "library_call": "scaled_dot_product_attention over the dense "
-                           "view already gathered (gather not included)",
+           "replaces": "src/repro/kernels/paged_decode.py:167", **case,
            "warm_ms": timer(lambda: paged_gqa_decode(
                *args, k_new=kn, v_new=vn, **kw), cold=False),
            "gather_ms": timer(lambda: kvcache.paged_view(plain)),
@@ -3169,8 +3447,12 @@ def phase_serve_expert(torch, np, ops):
         one, kv_blocks, kv["block_tokens"], device="meta").values()
         for a in g.values())
     avail = host_mem_available()
-    layers = min(full.num_layers,
-                 int(host_room(avail) // (per_layer + kv_host)))
+    fit = int(host_room(avail) // (per_layer + kv_host))
+    layers = min(full.num_layers, fit, SERVE_EXPERT_MAX_LAYERS)
+    emit({"phase": "host_rule", "for": "serve_expert",
+          "host_available": avail, "layers_that_fit": fit,
+          "layers": layers, "of_layers": full.num_layers,
+          "cut_for_time_to": SERVE_EXPERT_MAX_LAYERS})
     require(layers >= MIN_EXPERT_LAYERS,
             f"MemAvailable {avail} holds {layers} layers of {per_layer} "
             f"+ {kv_host} bytes with 20 % and 20 GiB to spare; "
@@ -3258,23 +3540,29 @@ def serve_expert_engine(torch, np, ops, stores, settings, phase):
                  ExecPolicy(moe_impl="grouped", use_kernels=True),
                  device=DEVICE, paged_weights=pw)
     # the spans the gather read over the link: counted on the card, per
-    # call, from the same map, sel and n_act the kernel reads; and its time
-    # on the stream (its kernel to its last copy), by a pair of CUDA
-    # events around each call
+    # call, from the same map, sel and n_act the kernel reads (the most in
+    # one call kept too); its time on the stream (its kernel to its last
+    # copy), by a pair of CUDA events around each call; and the host's
+    # seconds in the call (the wait for the plan, then one
+    # cudaMemcpyAsync a missed leaf)
     host_spans = torch.zeros((), dtype=torch.int64, device=DEVICE)
-    spans_timed = []
+    max_spans = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    spans_timed, host_wall = [], [0.0]
     inner = ops.expert_gather
 
     def counted(store, pool, rmap, layer, sel, n_act, manifest, **kw):
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record()
+        t = time.perf_counter()
         out = inner(store, pool, rmap, layer, sel, n_act, manifest, **kw)
+        host_wall[0] += time.perf_counter() - t
         ev[1].record()
         spans_timed.append(ev)
         real = torch.arange(sel.shape[0], device=DEVICE) < n_act
-        host_spans.add_(((rmap[layer].index_select(0, sel.long()) < 0)
-                         & real).sum())
+        n = ((rmap[layer].index_select(0, sel.long()) < 0) & real).sum()
+        host_spans.add_(n)
+        torch.maximum(max_spans, n, out=max_spans)
         return out
     ops.expert_gather = counted
     try:
@@ -3284,14 +3572,17 @@ def serve_expert_engine(torch, np, ops, stores, settings, phase):
     finally:
         ops.expert_gather = inner
     traffic = eng.weight_traffic()
-    span = next(iter(pw.expert_manifests.values())).span_bytes
-    gather_host_bytes = int(host_spans) * span
+    manifest = next(iter(pw.expert_manifests.values()))
+    gather_host_bytes = int(host_spans) * manifest.span_bytes
     gather_s = sum(a.elapsed_time(b) for a, b in spans_timed) / 1e3
+    leaves = len(manifest.leaves)
     res.update(gather_host_bytes=gather_host_bytes,
                gather_calls=len(spans_timed), gather_s=gather_s,
                gather_host_GBps=gather_host_bytes / gather_s / 1e9,
-               transcripts=outs)
-    emit({"phase": phase, "model": "mixtral-8x7b",
+               gather_host_copies=int(host_spans) * leaves,
+               gather_max_host_copies=int(max_spans) * leaves,
+               gather_host_wall_s=host_wall[0], transcripts=outs)
+    emit({"phase": phase, "model": stores["cfg"].name,
           "layers": stores["layers"],
           "of_layers": stores["of_layers"],
           "params": stores["params_count"],
@@ -3609,6 +3900,276 @@ def phase_check_mla(torch, np, cfg, params, prompts):
             f"MLA kernel path logits differ from the plain path: {worst}")
 
 
+def phase_serve_family(torch, np, ops, arch, phase, ring, arena,
+                       prompt_lens, new_tokens, trace_lens=None):
+    """`arch` at full width and depth, random weights from ``SEED``, every
+    weight on the card: ``FAMILY_REQUESTS`` seeded requests over the dense
+    ring (`ring`), then the same requests over the block-paged arena
+    (`arena`; only the full-attention layers are paged, sliding-window
+    rings stay in each group's dense remainder), whose greedy transcripts
+    must equal the ring's.  Neither run may preempt (a preemption
+    re-prefills a request, whose bf16 KV then differs from decode's).
+    With `trace_lens`, a profiled window of the ring engine first.
+    Returns each run's launches."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = _family(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.nbytes for t in _leaves(params))
+    launches, outs = {}, {}
+    for label, settings in (("ring", ring), ("arena", arena)):
+        eng = Engine(cfg, params, EngineConfig(**settings),
+                     ExecPolicy(moe_impl="grouped", use_kernels=True),
+                     device=DEVICE)
+        _, res, outs[label] = serve_run(torch, np, eng, ops, prompt_lens,
+                                        FAMILY_REQUESTS, SEED + 9,
+                                        new_tokens)
+        kv = eng.kv_traffic()
+        preempted = sum(r.preemptions
+                        for r in eng.scheduler.requests.values())
+        name = phase if label == "ring" else phase + "_paged"
+        emit({"phase": name, "model": arch, "layers": cfg.num_layers,
+              "of_layers": cfg.num_layers, "params": count_params(cfg),
+              "weight_bytes": weight_bytes, "init_s": init_s,
+              "engine": settings, **res, "preemptions": preempted,
+              "paged_keys": list(kvcache.paged_period_keys(cfg))
+              if label == "arena" else [],
+              "kv_traffic": kv})
+        decode = "paged_gqa_decode" if label == "arena" else "gqa_decode"
+        require(all(res["launches"][k] > 0 for k in (decode,
+                                                      "flash_prefill")),
+                f"{name}: a kernel of the path never launched: "
+                f"{res['launches']}")
+        require(preempted == 0, f"{name}: {preempted} preemptions")
+        if label == "arena":
+            require(set(eng._kv_arena) == set(
+                kvcache.paged_period_keys(cfg)) and eng._kv_arena,
+                f"{name}: paged {sorted(eng._kv_arena)}")
+        elif trace_lens:
+            phase_trace(torch, np, eng, arch, trace_lens, 2, 8)
+        launches[name] = res["launches"]
+        del eng
+        gc.collect()
+    emit({"phase": phase + "_ring_vs_arena",
+          "identical_requests": sum(a == b for a, b in
+                                    zip(outs["ring"], outs["arena"])),
+          "requests_total": len(outs["ring"])})
+    require(outs["ring"] == outs["arena"],
+            f"{phase}: the arena's transcripts differ from the ring's")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_check_gemma2(torch, np, ops):
+    """gemma2's window ring under a sequence longer than it, on the card
+    through the kernels: full width, 2 layers (one window, one global),
+    float32, the window cut to ``CHECK_GEMMA2_WINDOW``; a prompt of
+    ``CHECK_GEMMA2_PROMPT`` tokens prefilled, then decode steps whose
+    logits must equal a teacher-forced forward over the whole sequence
+    within ``CHECK_GEMMA2_TOL`` (``test_serve_consistency.py::
+    test_window_ring_overflow_consistency``'s check, with the ring
+    wrapping three times).  Returns the launches."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import ExecPolicy, forward, unembed
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(_family("gemma2-2b"), num_layers=2,
+                              dtype="float32",
+                              window_size=CHECK_GEMMA2_WINDOW)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 10), device=DEVICE)
+    pol = ExecPolicy(use_kernels=True)
+    S, n = CHECK_GEMMA2_PROMPT, CHECK_GEMMA2_STEPS
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    toks = torch.randint(2, cfg.vocab_size, (1, S + n), generator=g,
+                         device=DEVICE, dtype=torch.int32)
+    ops.reset_launch_counts()
+    full = unembed(cfg, params, forward(cfg, params, toks,
+                                        policy=pol)["hidden"])
+    cache = kvcache.init_cache(cfg, 1, S + n + 1, device=DEVICE)
+    forward(cfg, params, toks[:, :S], cache=cache, mode="prefill",
+            policy=pol)
+    errs = []
+    for t in range(n):
+        fwd = forward(cfg, params, toks[:, S + t:S + t + 1], cache=cache,
+                      mode="decode", policy=pol)
+        got = unembed(cfg, params, fwd["hidden"][:, -1])
+        want = full[:, S + t]
+        require(bool(torch.isfinite(got).all()), "check_gemma2: not finite")
+        errs.append(max_err(got, want))
+        require(close(got, want, CHECK_GEMMA2_TOL),
+                f"check_gemma2 step {t}: {errs[-1]}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    emit({"phase": "check_gemma2", "layers": cfg.num_layers,
+          "window": cfg.window_size,
+          "ring_width": int(cache["p0"]["k"].shape[2]),
+          "global_ring_width": int(cache["p1"]["k"].shape[2]),
+          "prompt": S, "decode_steps": n, "dtype": "float32",
+          "max_abs_logit_diff": max(errs), "per_step": errs,
+          "tol": CHECK_GEMMA2_TOL, "launches": launches})
+    require(launches["flash_prefill"] > 0 and launches["gqa_decode"] > 0,
+            f"check_gemma2: the kernels never launched: {launches}")
+    del params, full, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_check_moonshot(torch, np, ops):
+    """moonshot at full width and 4 of its 48 layers, every weight on the
+    card: 8 prompts through the resident engine, then ``check_expert`` on
+    the same weights packed into pinned expert-paged stores (64 spans a
+    layer, a pool of r_w 0.25): transcripts equal.  Returns the launches
+    of the expert-paged run."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = dataclasses.replace(_family("moonshot-v1-16b-a3b"),
+                              num_layers=CHECK_MOONSHOT_LAYERS)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 11), device=DEVICE)
+    eng = Engine(cfg, params, EngineConfig(**SERVE),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(2, cfg.vocab_size, n) for n in
+               rng.integers(EXPERT_PROMPT_LENS[0], EXPERT_PROMPT_LENS[1] + 1,
+                            8)]
+    rids = [eng.submit(p, NEW_TOKENS // 4) for p in prompts]
+    out = eng.run_until_idle()
+    want = [out[r] for r in rids]
+    stores = pack_expert_stores(torch, eng)
+    ops.reset_launch_counts()
+    try:
+        phase_check_expert(torch, np, eng, prompts, want,
+                           phase="check_moonshot", stores=stores)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        stores["pw"].release()
+    require(launches["expert_gather"] > 0 and launches["moe_ffn"] > 0,
+            f"check_moonshot: the expert path never launched: {launches}")
+    del eng, params, stores
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_moonshot_expert(torch, np, ops, records):
+    """moonshot-v1-16b-a3b at full width through the expert-paged path:
+    every layer's 64 experts (17.3 MB spans) drawn on the card layer by
+    layer into page-locked host stores, at all 48 layers where the host
+    rule holds them (the rule's arithmetic and any cut printed), served
+    with a pool of r_w 0.5 in lockstep and then in windows of both groups
+    over the same stores (transcripts equal); a trace window of the
+    lockstep engine.  Beside each serve: the gather's link bytes against
+    ``weight_traffic()``'s booked bytes and against ``h2d_copy``, its
+    host copies (one ``cudaMemcpyAsync`` a missed leaf) a layer, and its
+    host seconds a call.  Returns the launches of both runs and the
+    lockstep numbers."""
+    from repro_torch.core import offload
+    from repro_torch.models.params import count_params
+
+    full = _family("moonshot-v1-16b-a3b")
+    per_layer = store_bytes_per_layer(torch, split=True, cfg=full)
+    avail = host_mem_available()
+    room = host_room(avail)
+    layers = min(full.num_layers, int(room // per_layer))
+    emit({"phase": "host_rule", "for": "serve_moonshot_expert",
+          "host_available": avail, "mem_available": mem_available(),
+          "room": room, "rule": "min(available / 1.2, available - 20 GiB)",
+          "store_bytes_per_layer": per_layer,
+          "layers_that_fit": int(room // per_layer), "layers": layers,
+          "of_layers": full.num_layers,
+          "cut": layers < full.num_layers})
+    require(layers >= MIN_EXPERT_LAYERS,
+            f"the host holds {layers} moonshot layers of {per_layer} "
+            f"bytes; serve_moonshot_expert needs {MIN_EXPERT_LAYERS}")
+    cfg = dataclasses.replace(full, num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, pw, pin_s, build_s = draw_stores(torch, cfg, split=True)
+    stores = {"cfg": cfg, "params": params, "pw": pw, "layers": layers,
+              "of_layers": full.num_layers, "params_count": count_params(cfg),
+              "store_bytes_per_layer": per_layer,
+              "kv_host_bytes_per_layer": 0, "mem_available": avail,
+              "pinned_bytes": offload.pinned_bytes(), "pin_s": pin_s,
+              "build_s": build_s}
+    h2d = next(r for r in records if r["name"] == "expert_gather")[
+        "bound_rates"]["h2d_GBps_measured"]
+    launches, runs = {}, {}
+    try:
+        for name, settings in (
+                ("serve_moonshot_expert", SERVE_EXPERT),
+                ("serve_moonshot_expert_module",
+                 {**SERVE_EXPERT, "module_batch": True})):
+            torch.cuda.empty_cache()
+            eng, launches[name], res = serve_expert_engine(
+                torch, np, ops, stores, settings, name)
+            tr = res["weight_traffic"]
+            emit({"phase": name + "_link", "layers": layers,
+                  "decode_tok_per_s": res["decode_tok_per_s"],
+                  "gather_host_bytes": res["gather_host_bytes"],
+                  "booked_expert_bytes": tr["expert_bytes"],
+                  "moved_over_booked": res["gather_host_bytes"]
+                  / max(tr["expert_bytes"], 1),
+                  "hits": tr["hits"], "misses": tr["misses"],
+                  "gather_host_GBps": res["gather_host_GBps"],
+                  "h2d_copy_GBps": h2d,
+                  "gather_over_h2d_copy": res["gather_host_GBps"] / h2d,
+                  "expert_gather_launches":
+                      launches[name]["expert_gather"],
+                  "host_copies": res["gather_host_copies"],
+                  "host_copies_per_layer": res["gather_host_copies"]
+                  / res["gather_calls"],
+                  "max_host_copies_per_layer":
+                      res["gather_max_host_copies"],
+                  "gather_host_ms_per_call": 1e3 * res["gather_host_wall_s"]
+                  / res["gather_calls"],
+                  "gather_stream_ms_per_call": 1e3 * res["gather_s"]
+                  / res["gather_calls"]})
+            runs[name] = res
+            if name == "serve_moonshot_expert":
+                # one request: the profiler takes ~13x the window's wall
+                # to process 48 layers of gathers and host copies
+                phase_trace(torch, np, eng, "moonshot_expert",
+                            EXPERT_PROMPT_LENS, 1, EXPERT_NEW_TOKENS // 4)
+            del eng
+            gc.collect()
+    finally:
+        pw.release()
+    base, mod = runs["serve_moonshot_expert"], \
+        runs["serve_moonshot_expert_module"]
+    emit({"phase": "serve_moonshot_expert_module_vs_lockstep",
+          "identical_requests": sum(a == b for a, b in
+                                    zip(mod["transcripts"],
+                                        base["transcripts"])),
+          "requests_total": len(base["transcripts"]),
+          "gather_host_bytes": [base["gather_host_bytes"],
+                                mod["gather_host_bytes"]],
+          "decode_tok_per_s": [base["decode_tok_per_s"],
+                               mod["decode_tok_per_s"]]})
+    require(mod["transcripts"] == base["transcripts"],
+            "moonshot: the windows' transcripts differ from lockstep's")
+    del params, stores
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_memory("after serve_moonshot_expert (stores released)")
+    return launches, base
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3680,8 +4241,8 @@ def main() -> int:
     host_memory("before serve_expert_int8")
     eng_int8, launches_expert_int8, stores8, int8_res = \
         phase_serve_expert_int8(torch, np, ops, records)
-    phase_trace(torch, np, eng_int8, "expert_int8", EXPERT_PROMPT_LENS, 4,
-                EXPERT_NEW_TOKENS // 4)
+    phase_trace(torch, np, eng_int8, "expert_int8", EXPERT_PROMPT_LENS,
+                EXPERT_TRACE_REQUESTS, EXPERT_NEW_TOKENS // 4)
     del eng_int8
     stores8["pw"].release()
     expert_int8_layers = stores8["layers"]
@@ -3695,8 +4256,8 @@ def main() -> int:
     host_memory("after serve_layer_paged (stores released)")
     eng_expert, launches_expert, stores, expert_res = phase_serve_expert(
         torch, np, ops)
-    phase_trace(torch, np, eng_expert, "expert", EXPERT_PROMPT_LENS, 4,
-                EXPERT_NEW_TOKENS // 4)
+    phase_trace(torch, np, eng_expert, "expert", EXPERT_PROMPT_LENS,
+                EXPERT_TRACE_REQUESTS, EXPERT_NEW_TOKENS // 4)
     # the stores stay pinned for the module-batched engine; the first
     # engine's device pool goes first
     del eng_expert
@@ -3704,7 +4265,7 @@ def main() -> int:
     eng_expert, launches_expert_module, module_res = \
         phase_serve_expert_module(torch, np, ops, stores, expert_res)
     phase_trace(torch, np, eng_expert, "expert_module", EXPERT_PROMPT_LENS,
-                4, EXPERT_NEW_TOKENS // 4)
+                EXPERT_TRACE_REQUESTS, EXPERT_NEW_TOKENS // 4)
     del eng_expert
     gc.collect()
     # both offload ratios at once, over the same stores
@@ -3734,6 +4295,24 @@ def main() -> int:
               "gather_bytes_per_token_layer"],
           "tokens": [layer_res["tokens"], expert_tokens, int8_res["tokens"]],
           "layers": [LAYER_PAGED_LAYERS, expert_layers, expert_int8_layers]})
+    # the families of this slice: moonshot's 64-expert MoE through the
+    # expert-paged path (4 layers resident against expert-paged, then the
+    # whole stack from host stores), then gemma2, glm4 and olmo at full
+    # width and depth with every weight on the card
+    launches_check_moonshot = phase_check_moonshot(torch, np, ops)
+    launches_moonshot, _ = phase_serve_moonshot_expert(torch, np, ops,
+                                                       records)
+    launches_check_gemma2 = phase_check_gemma2(torch, np, ops)
+    launches_gemma2 = phase_serve_family(
+        torch, np, ops, "gemma2-2b", "serve_gemma2", GEMMA2_SERVE,
+        GEMMA2_PAGED, GEMMA2_PROMPT_LENS, GEMMA2_NEW_TOKENS,
+        trace_lens=GEMMA2_PROMPT_LENS)
+    launches_glm4 = phase_serve_family(
+        torch, np, ops, "glm4-9b", "serve_glm4", SERVE, FAMILY_PAGED,
+        PROMPT_LENS, FAMILY_NEW_TOKENS)
+    launches_olmo = phase_serve_family(
+        torch, np, ops, "olmo-1b", "serve_olmo", SERVE, FAMILY_PAGED,
+        PROMPT_LENS, FAMILY_NEW_TOKENS)
     launches_launch = phase_launch(torch, ops)
     eng_mla, mla_prompts, launches_mla = phase_serve_mla(torch, np, ops)
     phase_trace(torch, np, eng_mla, "mla", PAGED_PROMPT_LENS, 16)
@@ -3741,7 +4320,8 @@ def main() -> int:
 
     by_path = {"paged_gqa_decode": launches_paged,
                "paged_mla_decode": launches_mla,
-               "expert_gather": launches_expert}
+               "expert_gather": launches_expert,
+               "flash_prefill_d256": launches_gemma2["serve_gemma2"]}
     # the launches of the later slices' paths, beside each kernel's main
     # path
     new_paths = {"serve_module": launches_module,
@@ -3759,11 +4339,35 @@ def main() -> int:
                  **launches_launch,
                  "serve_int8": launches_int8,
                  "serve_paged_int8": launches_paged_int8,
-                 "serve_expert_int8": launches_expert_int8}
+                 "serve_expert_int8": launches_expert_int8,
+                 "check_moonshot": launches_check_moonshot,
+                 **launches_moonshot,
+                 "check_gemma2": launches_check_gemma2,
+                 **launches_gemma2, **launches_glm4, **launches_olmo}
+    # each family shape's main path
+    family_paths = {
+        ("moe_ffn", "moonshot-v1-16b-a3b"):
+            launches_moonshot["serve_moonshot_expert"],
+        ("gqa_decode", "glm4-9b"): launches_glm4["serve_glm4"],
+        ("gqa_decode", "gemma2-2b"): launches_gemma2["serve_gemma2"],
+        ("paged_gqa_decode", "gemma2-2b"):
+            launches_gemma2["serve_gemma2_paged"]}
     for rec in records:
-        rec["launches"] = by_path.get(rec["name"], launches)[rec["name"]]
-        rec["launches_by_path"] = {k: v[rec["name"]]
+        # the wide flash_prefill body counts under its wrapper's name
+        counter = rec["name"].removesuffix("_d256")
+        rec["launches"] = by_path.get(rec["name"], launches)[counter]
+        rec["launches_by_path"] = {k: v[counter]
                                    for k, v in new_paths.items()}
+        if rec["name"] == "flash_prefill_d256":
+            # only gemma2's bf16 paths run the wide body (check_gemma2 is
+            # f32: the CUDA-core body)
+            rec["launches_by_path"] = {
+                k: new_paths[k][counter]
+                for k in ("serve_gemma2", "serve_gemma2_paged")}
+        for model, sub in rec.get("families", {}).items():
+            sub["launches"] = family_paths[rec["name"], model][counter]
+            require(sub["launches"] > 0,
+                    f"{rec['name']} at {model}'s shape never launched")
         if "deepseek" in rec:
             rec["deepseek"]["launches"] = launches_mla[rec["name"]]
         if "int8" in rec:       # the launches of the int8 paths
@@ -3771,12 +4375,17 @@ def main() -> int:
                 p[rec["name"]] for p in (launches_int8, launches_paged_int8,
                                          launches_expert_int8)),
                 **rec["int8"]}
+    require(by_path["flash_prefill_d256"]["flash_prefill"] > 0,
+            "the D-256 flash_prefill never launched in serve_gemma2")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "shape", "launches_by_path")
     emit({"kernels": [{**{k: r[k] for k in keys},
-                       **{k: r[k] for k in ("served_occupancy", "deepseek",
-                                            "full_ring", "int8")
+                       **{k: r[k] for k in ("model", "served_occupancy",
+                                            "deepseek", "full_ring", "int8",
+                                            "families", "global_layer",
+                                            "max_abs_err_no_softcap",
+                                            "softcap_effect")
                           if k in r}} for r in records]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,11 @@
 """Architecture registry of the PyTorch port: ``get_config("mixtral-8x7b")``.
 
 The port carries the configs its slices run: the paper's own model
-(mixtral-8x7b), the dense qwen2.5-3b and the MLA model deepseek-v3-671b.
+(mixtral-8x7b), the dense qwen2.5-3b, the MLA model deepseek-v3-671b,
+gemma2-2b (window/global alternation, attention and final-logit softcaps,
+head_dim 256), glm4-9b (QKV bias, 16 query heads a KV head), olmo-1b
+(non-parametric LayerNorm, MHA) and the 64-expert MoE
+moonshot-v1-16b-a3b.
 ``get_config(arch).smoke()`` is the reduced same-family config the CPU tests
 use.
 """
@@ -17,6 +21,10 @@ _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "mixtral-8x7b": "mixtral_8x7b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "gemma2-2b": "gemma2_2b",
+    "glm4-9b": "glm4_9b",
+    "olmo-1b": "olmo_1b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)

@@ -34,10 +34,22 @@
 // applied in the fragment, after the softcap; tiles wholly outside the
 // causal/window range are never loaded, and a warp whose 16 rows all lie
 // outside a loaded tile skips its products.  The heaviest causal query
-// tiles are launched first.  Takes D % 8 == 0, D <= 192, Dv % 8 == 0,
-// Dv <= 128 (the wrapper raises otherwise); at D 192 / Dv 128 ptxas
+// tiles are launched first.  Takes D % 8 == 0, D <= 256, Dv % 8 == 0,
+// Dv <= 256 (the wrapper raises otherwise).  At D 192 / Dv 128 ptxas
 // (-Xptxas -v) gives 241 registers a thread and no spills, 221 at D 128,
 // so two blocks fit an SM.
+//
+// Wide heads (D > 192 or Dv > 128: gemma2's D = Dv = 256) take a second
+// form of the same body.  Held in registers, the 16 x 256 Q fragments (64
+// registers) and the 16 x 256 f32 accumulator (128) would leave too few
+// for the 16 x 64 score tile and spill.  So the Q tile stays in shared
+// memory and each k16 step of Q.K^T reloads its A fragment by ldmatrix
+// (4 registers), at the cost of one shared read of Q per key tile.  The
+// block has 8 warps (128 query rows): Q (66 KB) and the double-buffered
+// K and V tiles (2 x 2 x 33 KB) take 198 KB of shared memory, one block
+// an SM, and 8 warps hide more of the ldmatrix and mma latency than 4.
+// Every shape in this range runs the 256 x 256 instance, the contraction
+// and the output columns past D and Dv zero padded.
 //
 // f32: the first design, on CUDA cores, kept so that f32 checks hold to
 // 1e-4.  One block of 128 threads takes one (16-query tile, batch*head)
@@ -203,26 +215,27 @@ int launch_f32(const void* q, const void* k, const void* v, const int* kv_len,
 // ----------------------------------------------------- bf16 body (tensor cores)
 
 using bf16 = __nv_bfloat16;
-constexpr int kTcThreads = 128;  // 4 warps
-constexpr int kTcBQ = 64;        // query rows per block, 16 per warp
 constexpr int kTcBK = 64;        // keys per tile
 constexpr int kPad = 8;          // bf16 elements of padding per shared row
 
-template <int DP, int DVP>
+// NW warps take 16 * NW query rows
+template <int DP, int DVP, int NW>
 constexpr size_t smem_bytes_tc() {
-  return sizeof(bf16) * (static_cast<size_t>(kTcBQ + 2 * kTcBK) * (DP + kPad) +
-                         2 * static_cast<size_t>(kTcBK) * (DVP + kPad));
+  return sizeof(bf16) *
+         (static_cast<size_t>(16 * NW + 2 * kTcBK) * (DP + kPad) +
+          2 * static_cast<size_t>(kTcBK) * (DVP + kPad));
 }
 
 // `rows` rows of `nch` 16-byte chunks from src (row r at src + r * str)
-// into shared dst (row stride ld) by cp.async; rows from `nvalid` on are
-// zero-filled, chunks from nch to CH (the padding) are left alone.
-template <int CH, int rows>
+// into shared dst (row stride ld) by cp.async, NT threads; rows from
+// `nvalid` on are zero-filled, chunks from nch to CH (the padding) are left
+// alone.
+template <int CH, int rows, int NT>
 __device__ __forceinline__ void stage_rows(bf16* dst, int ld,
                                            const bf16* src, size_t str,
                                            int nvalid, int nch) {
 #pragma unroll
-  for (int i = threadIdx.x; i < rows * CH; i += kTcThreads) {
+  for (int i = threadIdx.x; i < rows * CH; i += NT) {
     const int r = i / CH, c = i % CH;
     if (c < nch) {
       const bool in = r < nvalid;
@@ -232,9 +245,12 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ld,
 }
 
 // DP / DVP: D / Dv rounded up to the template's width (multiples of 16);
-// the shared columns past D / Dv hold zeros.
-template <int DP, int DVP>
-__global__ void __launch_bounds__(kTcThreads)
+// the shared columns past D / Dv hold zeros.  NW warps of 16 query rows
+// each: 4 for D <= 192 and Dv <= 128, which keep the warp's Q fragments
+// in registers for the whole key loop, 8 for the wide form, which reloads
+// them from shared memory at every k16 step.
+template <int DP, int DVP, int NW>
+__global__ void __launch_bounds__(NW * 32)
     flash_prefill_tc_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
@@ -246,16 +262,20 @@ __global__ void __launch_bounds__(kTcThreads)
   constexpr int LDV = DVP + kPad;  // row stride of V
   constexpr int KD = DP / 16;      // k16 steps of Q.K^T
   constexpr int NV = DVP / 8;      // n8 tiles of the output
+  constexpr int NT = NW * 32;      // threads
+  constexpr int BQ = 16 * NW;      // query rows of the block
+  constexpr bool QREG = NW == 4;   // Q fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTcBQ][LDQ]
-  bf16* ks = qs + kTcBQ * LDQ;                   // [2][kTcBK][LDQ]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDQ]
+  bf16* ks = qs + BQ * LDQ;                      // [2][kTcBK][LDQ]
   bf16* vs = ks + 2 * kTcBK * LDQ;               // [2][kTcBK][LDV]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;  // heaviest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
-  const int nq = min(kTcBQ, S - q0);
+  const int nq = min(BQ, S - q0);
+  const float cap2 = cap > 0.f ? 2.f / cap : 0.f;  // the softcap's 2 / cap
   const int len = min(kv_len[b], Skv);
   int kend = len;
   if (causal) kend = min(kend, q0 + nq);
@@ -272,7 +292,7 @@ __global__ void __launch_bounds__(kTcThreads)
   bf16* ob = o + (static_cast<size_t>(b) * S * H + h) * Dv;
 
   if (kend <= kbeg) {  // no row of the tile has a valid key: zeros
-    for (int i = tid; i < nq * vch; i += kTcThreads)
+    for (int i = tid; i < nq * vch; i += NT)
       *reinterpret_cast<uint4*>(ob + (q0 + i / vch) * ostr + i % vch * 8) =
           make_uint4(0u, 0u, 0u, 0u);
     return;
@@ -280,28 +300,33 @@ __global__ void __launch_bounds__(kTcThreads)
   // zero the contraction padding (columns D..DP of Q and K, Dv..DVP of
   // V); the copies never write there
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < (kTcBQ + 2 * kTcBK) * (DP / 8); i += kTcThreads)
+  for (int i = tid; i < (BQ + 2 * kTcBK) * (DP / 8); i += NT)
     if (i % (DP / 8) >= dch)
       *reinterpret_cast<uint4*>(qs + i / (DP / 8) * LDQ + i % (DP / 8) * 8) =
           zero;
-  for (int i = tid; i < 2 * kTcBK * (DVP / 8); i += kTcThreads)
+  for (int i = tid; i < 2 * kTcBK * (DVP / 8); i += NT)
     if (i % (DVP / 8) >= vch)
       *reinterpret_cast<uint4*>(vs + i / (DVP / 8) * LDV + i % (DVP / 8) * 8) =
           zero;
 
-  stage_rows<DP / 8, kTcBQ>(qs, LDQ, qb + q0 * qstr, qstr, nq, dch);
+  stage_rows<DP / 8, BQ, NT>(qs, LDQ, qb + q0 * qstr, qstr, nq, dch);
   cp_async_commit();
-  stage_rows<DP / 8, kTcBK>(ks, LDQ, kb + kbeg * kstr, kstr, Skv - kbeg, dch);
-  stage_rows<DVP / 8, kTcBK>(vs, LDV, vb + kbeg * vstr, vstr, Skv - kbeg, vch);
+  stage_rows<DP / 8, kTcBK, NT>(ks, LDQ, kb + kbeg * kstr, kstr, Skv - kbeg,
+                                dch);
+  stage_rows<DVP / 8, kTcBK, NT>(vs, LDV, vb + kbeg * vstr, vstr, Skv - kbeg,
+                                 vch);
   cp_async_commit();
   cp_async_wait<1>();  // Q has landed
   __syncthreads();
 
-  uint32_t qf[KD][4];  // this warp's 16 query rows, as A fragments
+  // this warp's 16 query rows as A fragments: lane l addresses shared
+  // row l % 16 from column (l / 16) * 8 of each k16 step
+  const bf16* qrow = qs + (warp * 16 + (lane & 15)) * LDQ + (lane >> 4) * 8;
+  uint32_t qf[QREG ? KD : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * LDQ + kk * 16 +
-                            (lane >> 4) * 8);
+    for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], qrow + kk * 16);
+  }
   float oacc[NV][4];
 #pragma unroll
   for (int n = 0; n < NV; ++n)
@@ -316,10 +341,10 @@ __global__ void __launch_bounds__(kTcThreads)
     const int buf = it & 1;
     if (it + 1 < ntiles) {  // the next tile loads while this one computes
       const int k1 = k0 + kTcBK;
-      stage_rows<DP / 8, kTcBK>(ks + (buf ^ 1) * kTcBK * LDQ, LDQ,
-                                kb + k1 * kstr, kstr, Skv - k1, dch);
-      stage_rows<DVP / 8, kTcBK>(vs + (buf ^ 1) * kTcBK * LDV, LDV,
-                                 vb + k1 * vstr, vstr, Skv - k1, vch);
+      stage_rows<DP / 8, kTcBK, NT>(ks + (buf ^ 1) * kTcBK * LDQ, LDQ,
+                                    kb + k1 * kstr, kstr, Skv - k1, dch);
+      stage_rows<DVP / 8, kTcBK, NT>(vs + (buf ^ 1) * kTcBK * LDV, LDV,
+                                     vb + k1 * vstr, vstr, Skv - k1, vch);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -339,14 +364,21 @@ __global__ void __launch_bounds__(kTcThreads)
         sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+        } else {
+          ldmatrix_x4(a, qrow + kk * 16);
+        }
 #pragma unroll
         for (int np = 0; np < 4; ++np) {  // pairs of 8-key tiles
           uint32_t kf[4];
           const int mi = lane >> 3;
           ldmatrix_x4(kf, kt + (np * 16 + (mi >> 1) * 8 + (lane & 7)) * LDQ +
                               kk * 16 + (mi & 1) * 8);
-          mma_bf16(sacc[2 * np], qf[kk], kf[0], kf[1]);
-          mma_bf16(sacc[2 * np + 1], qf[kk], kf[2], kf[3]);
+          mma_bf16(sacc[2 * np], a, kf[0], kf[1]);
+          mma_bf16(sacc[2 * np + 1], a, kf[2], kf[3]);
         }
       }
       // scale, softcap, then mask, in the fragment
@@ -357,7 +389,11 @@ __global__ void __launch_bounds__(kTcThreads)
           const int qp = wq + g + (e >> 1) * 8;
           const int kp = k0 + j * 8 + 2 * t + (e & 1);
           float s = sacc[j][e] * scale;
-          if (cap > 0.f) s = cap * tanhf(s / cap);
+          // cap * tanh(s / cap) as cap - 2 cap / (exp(2 s / cap) + 1), by
+          // the fast exponential and division (a few f32 ulps of cap, far
+          // below the bf16 rounding of P) in place of tanhf's polynomial
+          if (cap > 0.f)
+            s = cap - __fdividef(2.f * cap, __expf(s * cap2) + 1.f);
           bool ok = kp < len;
           if (causal) {
             ok = ok && kp <= qp;
@@ -423,7 +459,8 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 
   // normalize once, stage the warp's 16 rows in shared memory (over the V
-  // buffers, free now), store 16 bytes at a time
+  // buffers, free now: their 2 x 64 rows hold the 16 * NW <= 128), store
+  // 16 bytes at a time
   bf16* os = vs + warp * 16 * LDV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -442,37 +479,39 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
-template <int DP, int DVP>
+template <int DP, int DVP, int NW>
 int launch_tc(const void* q, const void* k, const void* v, const int* kv_len,
               void* o, int B, int S, int Skv, int H, int Hkv, int D, int Dv,
               int causal, int window, float scale, float cap,
               cudaStream_t st) {
-  constexpr size_t smem = smem_bytes_tc<DP, DVP>();
+  static_assert(16 * NW <= 2 * kTcBK, "output staging over the V buffers");
+  constexpr size_t smem = smem_bytes_tc<DP, DVP, NW>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_tc_kernel<DP, DVP>,
+      flash_prefill_tc_kernel<DP, DVP, NW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kTcBQ - 1) / kTcBQ, B * H);
-  flash_prefill_tc_kernel<DP, DVP><<<grid, kTcThreads, smem, st>>>(
+  const dim3 grid((S + 16 * NW - 1) / (16 * NW), B * H);
+  flash_prefill_tc_kernel<DP, DVP, NW><<<grid, NW * 32, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), kv_len, static_cast<bf16*>(o), S, Skv, H,
       Hkv, D, Dv, causal, window, scale, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
+// D <= 192 and Dv <= 128: 4 warps, the Q fragments in registers
 template <int DP>
 int launch_tc_dv(const void* q, const void* k, const void* v,
                  const int* kv_len, void* o, int B, int S, int Skv, int H,
                  int Hkv, int D, int Dv, int causal, int window, float scale,
                  float cap, cudaStream_t st) {
   if (Dv <= 32)
-    return launch_tc<DP, 32>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv,
-                             causal, window, scale, cap, st);
+    return launch_tc<DP, 32, 4>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D,
+                                Dv, causal, window, scale, cap, st);
   if (Dv <= 64)
-    return launch_tc<DP, 64>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv,
-                             causal, window, scale, cap, st);
-  return launch_tc<DP, 128>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv,
-                            causal, window, scale, cap, st);
+    return launch_tc<DP, 64, 4>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D,
+                                Dv, causal, window, scale, cap, st);
+  return launch_tc<DP, 128, 4>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv,
+                               causal, window, scale, cap, st);
 }
 
 }  // namespace
@@ -480,7 +519,8 @@ int launch_tc_dv(const void* q, const void* k, const void* v,
 // q (B,S,H,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv), o (B,S,H,Dv) of one
 // dtype; kv_len (B,) int32.  window <= 0: no window; cap <= 0: no softcap.
 // f32 takes the CUDA-core body, bf16 the tensor-core body (D % 8 == 0,
-// D <= 192, Dv % 8 == 0, Dv <= 128, 16-byte aligned rows).
+// D <= 256, Dv % 8 == 0, Dv <= 256, 16-byte aligned rows; its wide form
+// where D > 192 or Dv > 128).
 extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
                                     const void* v, const int* kv_len,
                                     void* o, int B, int S, int Skv, int H,
@@ -491,8 +531,11 @@ extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
   if (dtype == DT_F32)
     return launch_f32(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv, causal,
                       window, scale, cap, st);
-  if (dtype != DT_BF16 || D % 8 || Dv % 8 || D > 192 || Dv > 128)
+  if (dtype != DT_BF16 || D % 8 || Dv % 8 || D > 256 || Dv > 256)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (D > 192 || Dv > 128)  // wide heads: Q reloaded from shared memory
+    return launch_tc<256, 256, 8>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D,
+                                  Dv, causal, window, scale, cap, st);
   if (D <= 32)
     return launch_tc_dv<32>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv,
                             causal, window, scale, cap, st);

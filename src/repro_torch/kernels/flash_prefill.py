@@ -4,8 +4,9 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_prefill.py::
 flash_prefill``.  On the H100 it is bound by operations (about
 4·B·H·S²·D/2 for a causal prompt); see the source for the design.  bf16
-takes the tensor-core body (D and Dv multiples of 8, D <= 192, Dv <= 128;
-the wrapper raises on others), float32 the CUDA-core body.  A CPU tensor
+takes the tensor-core body (D and Dv multiples of 8 up to 256, its wide
+form, Q reloaded from shared memory, where D > 192 or Dv > 128; the
+wrapper raises on others), float32 the CUDA-core body.  A CPU tensor
 takes the plain version (``ref.flash_prefill_ref``); a CUDA tensor launches
 the kernel or raises.
 """
@@ -40,11 +41,11 @@ def flash_prefill(q, k, v, kv_len=None, *, causal: bool = True,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     build.require_operands("flash_prefill", q.dtype, q.device, q=q, k=k, v=v)
     if q.dtype == torch.bfloat16 and (
-            D % 8 or Dv % 8 or D > 192 or Dv > 128
+            D % 8 or Dv % 8 or D > 256 or Dv > 256
             or any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError(f"flash_prefill bf16 kernel takes D, Dv multiples "
-                         f"of 8 with D <= 192, Dv <= 128 and 16-byte "
-                         f"aligned q, k, v; got D {D}, Dv {Dv}")
+                         f"of 8 up to 256 and 16-byte aligned q, k, v; got "
+                         f"D {D}, Dv {Dv}")
     if kv_len is None:
         kv_len = torch.full((B,), Skv, dtype=torch.int32, device=q.device)
     elif kv_len.shape != (B,) or kv_len.device != q.device:

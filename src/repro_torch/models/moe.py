@@ -147,6 +147,22 @@ def moe_dense(cfg: ModelConfig, p: Dict, x) -> Tuple[torch.Tensor, torch.Tensor]
 # Grouped path
 # ---------------------------------------------------------------------------
 
+def combine_routed(x, y, K: int):
+    """Each token's K weighted expert outputs summed: y (T*K, D) in (token,
+    k) order -> (T, D), added k by k, each partial sum rounded to x's
+    dtype: the reference's ``.at[flat_t].add`` gives these bits in bf16
+    too, where ``index_add_`` on the CPU and a ``sum`` over k (which
+    accumulate in f32 and round once) do not.  ``index_add_`` on the card
+    adds through atomics in any order, so past K = 2 its bits would change
+    from call to call (moonshot's top-6, DeepSeek-V3's top-8).  K - 1
+    adds."""
+    y = y.reshape(x.shape[0], K, -1)
+    out = y[:, 0]
+    for k in range(1, K):
+        out = out + y[:, k]
+    return out
+
+
 def moe_grouped(cfg: ModelConfig, p: Dict, x, *, capacity_factor=None,
                 use_kernel: bool = False, impl: str = "auto",
                 token_groups: Optional[int] = None
@@ -181,7 +197,7 @@ def moe_grouped(cfg: ModelConfig, p: Dict, x, *, capacity_factor=None,
                        p.get("wi_scale"), p.get("wo_scale"), impl=impl)
     y = ybuf[e_safe, s_safe]                                     # (T*K, D)
     y = torch.where(keep[:, None], y, 0) * flat_w[:, None].to(x.dtype)
-    out = torch.zeros_like(x).index_add_(0, flat_t, y)
+    out = combine_routed(x, y, K)
     if cfg.num_shared_experts:
         out = out + _shared(cfg, p, x, token_groups)
     return out, aux
@@ -259,7 +275,7 @@ def _grouped_subset(cfg: ModelConfig, ep: Dict, x, w, idx, index_map,
                        ep.get("wi_scale"), ep.get("wo_scale"), impl=impl)
     y = ybuf[e_safe, s_safe]
     y = torch.where(keep[:, None], y, 0) * flat_w[:, None].to(x.dtype)
-    return torch.zeros_like(x).index_add_(0, flat_t, y)
+    return combine_routed(x, y, K)
 
 
 def moe_paged(cfg: ModelConfig, p: Dict, x, *, fetch_experts, policy=None,

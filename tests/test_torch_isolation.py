@@ -52,6 +52,30 @@ def test_port_imports_without_jax_or_the_jax_package():
             "repro_torch.core.cgopipe", "repro_torch.launch.serve"} <= names
 
 
+@pytest.mark.parametrize("arch", ["gemma2-2b", "glm4-9b", "olmo-1b",
+                                  "moonshot-v1-16b-a3b"])
+def test_family_configs_import_without_jax(arch):
+    """Each config module of the four families of the attention slice
+    imports, and resolves through ``get_config``, where jax cannot be
+    imported, and pulls in no module of the JAX package."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "from repro_torch.configs import _ARCH_MODULES, get_config\n"
+        f"mod = importlib.import_module('repro_torch.configs.' "
+        f"+ _ARCH_MODULES[{arch!r}])\n"
+        f"cfg = get_config({arch!r})\n"
+        "assert cfg is mod.CONFIG and cfg.param_count() > 0\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'repro' or m.startswith('repro.')\n"
+        "       or m.startswith('jax.') or m.startswith('jaxlib')]\n"
+        "assert not bad, bad\n"
+        "print(cfg.name)\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == arch
+
+
 _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
                         r"from\s+(jax|repro)(\s|\.)(?!_))", re.M)
 

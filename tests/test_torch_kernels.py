@@ -462,6 +462,68 @@ def test_flash_prefill_cuda_matches_plain(cuda_fp32, case, dtype):
                                want.float().cpu()[rows], rtol=tol, atol=tol)
 
 
+FLASH_WIDE_CASES = [
+    # (B, S, Skv, H, Hkv, D, Dv, causal, window, softcap): the wide body
+    (1, 300, 300, 8, 4, 256, 256, True, 100, 50.0),   # gemma2's heads
+    (2, 130, 130, 2, 1, 256, 256, True, 0, 0.0),      # ragged, kv_len
+    (1, 96, 96, 4, 2, 200, 136, True, 40, 30.0),      # padded to 256
+    (1, 64, 80, 2, 2, 128, 256, False, 0, 0.0),       # Dv > 128, cross
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_WIDE_CASES)
+def test_flash_prefill_cuda_wide_heads_match_plain(cuda_fp32, case):
+    """bf16 flash_prefill at D or Dv past 192 / 128 (gemma2's D = Dv =
+    256): the wide tensor-core body, Q reloaded from shared memory,
+    against the plain version with window and softcap, within 1e-2."""
+    q, k, v, lens = _flash_inputs(case, 7)
+    causal, win, cap = case[7:10]
+    args = [_t(a, cuda_fp32).to(torch.bfloat16) for a in (q, k, v)]
+    kl = _t(lens, cuda_fp32)
+    before = t_flash.flash_prefill.launches
+    got = t_flash.flash_prefill(*args, kl, causal=causal, window=win,
+                                attn_softcap=cap)
+    want = ref.flash_prefill_ref(*args, kl, causal=causal, window=win,
+                                 attn_softcap=cap)
+    torch.cuda.synchronize()
+    assert t_flash.flash_prefill.launches == before + 1
+    rows = torch.from_numpy(np.ascontiguousarray(_has_context(case, lens)))
+    tol = CARD_TOL["bfloat16"]
+    torch.testing.assert_close(got.float().cpu()[rows],
+                               want.float().cpu()[rows], rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [100, 0])
+def test_flash_prefill_cuda_wide_softcap_saturated(cuda_fp32, window):
+    """The wide body's softcap where it saturates: gemma2's heads and cap,
+    q drawn with std 32 so that at the scale 1/16 the scores spread with
+    std 32 and about 12 % of them pass the cap of 50.  With and without
+    the softcap the kernel holds to the plain version within 1e-2, and the
+    two outputs differ by far more than that, so the check sees the
+    softcap."""
+    case = (1, 300, 300, 8, 4, 256, 256, True, window, 50.0)
+    q, k, v, lens = _flash_inputs(case, 11)
+    args = [_t(a, cuda_fp32).to(torch.bfloat16)
+            for a in (q * 32, k, v)]
+    kl = _t(lens, cuda_fp32)
+    rows = torch.from_numpy(np.ascontiguousarray(_has_context(case, lens)))
+    tol = CARD_TOL["bfloat16"]
+    outs = []
+    for cap in (50.0, 0.0):
+        kw = dict(causal=True, window=window, attn_softcap=cap,
+                  scale=1 / 16)
+        got = t_flash.flash_prefill(*args, kl, **kw)
+        want = ref.flash_prefill_ref(*args, kl, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float().cpu()[rows],
+                                   want.float().cpu()[rows], rtol=tol,
+                                   atol=tol)
+        outs.append(got.float().cpu()[rows])
+    assert (outs[0] - outs[1]).abs().max() > 50 * tol
+
+
 def unmap_fresh_block(inputs, row):
     """Unmap the logical block that `row`'s fresh token falls in: the
     scatter sends the token to the trash block, and attention masks it."""
