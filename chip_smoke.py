@@ -231,6 +231,37 @@ Phases, each printing JSON lines:
                    window (max_seq 5120), through the D-256 flash_prefill
                    body (+ a trace window); glm4 and olmo take
                    ``serve``'s prompts, 32 new tokens each.
+     check_mamba2 — mamba2-1.3b (the Mamba-2 mixer, plain PyTorch in
+                   both packages) at full width, 4 of its 48 layers, f32:
+                   a 300-token prompt (past one SSD chunk of 256, 12 past
+                   a multiple of 16) prefilled by the engine's prefill
+                   step at the engine's bucket of 304 with its true
+                   length, then 8 decode steps: logits within 1e-3 of a
+                   teacher-forced forward; the same prompt prefilled at
+                   its exact width: SSM states and conv tails within 1e-5
+                   of the bucketed prefill's (and how far the padding
+                   moves them without the true length, printed).
+     serve_mamba2 — mamba2-1.3b at full width and all 48 layers on the
+                   card: 8 prompts of 32..384 tokens x 32 in lockstep,
+                   windows (``_module``, transcripts equal) and static
+                   mode (``_static``); decode tok/s, prefill s, peak
+                   device memory; a trace window of the lockstep engine.
+     serve_jamba_expert — jamba-1.5-large at full width, one period (8 of
+                   its 72 layers: 7 Mamba-2 mixers, one attention layer,
+                   4 MoE of 16 experts) with int8 experts: a resident
+                   engine (~52 GB on the card, ``serve_jamba``) serves 4
+                   requests of 64..256 tokens x 16; its blocks are packed
+                   into page-locked stores (49.5 GB), it is freed, and an
+                   expert-paged engine at r_w 0.5 over the block arena at
+                   r_c 0.5 serves the same requests: transcripts equal;
+                   decode tok/s, the gather's and the shared spans' link
+                   bytes a token a layer, ``weight_traffic()`` beside the
+                   gather's bytes, host copies a MoE layer.  The kernel
+                   phase holds moe_ffn (int8, E 16, D 8192, F 24576; C 1,
+                   2, 3 and a prefill bucket, against the plain version on
+                   the 2-4 occupied experts), flash_prefill (H 64 / Hkv 8,
+                   D 128, S 384), gqa_decode and paged_gqa_decode (G 8) at
+                   jamba's shapes (sub-records "families").
      launch      — the port's ``launch/serve.py --smoke --hw h100`` on the
                    card, and with ``--paged``: every request done.
   8. serve_mla   — deepseek-v3-671b at full width with the depth cut from
@@ -295,7 +326,7 @@ MIN_EXPERT_LAYERS = 8         # the deepest cut serve_expert accepts
 SERVE_EXPERT_MAX_LAYERS = 8
 # requests in the profiled windows of the expert-paged engines: the
 # profiler takes ~10x a window's wall to process its gathers and copies
-EXPERT_TRACE_REQUESTS = 2
+EXPERT_TRACE_REQUESTS = 1
 # Both offload ratios at once (serve_expert_kv): windows, and an arena of
 # 0.15 of the 512 blocks (77), below the ~90 the 8 requests' rows need
 # together, so that it spills, fetches and preempts.
@@ -373,6 +404,29 @@ FAMILY_NEW_TOKENS = 32
 CHECK_GEMMA2_WINDOW, CHECK_GEMMA2_PROMPT, CHECK_GEMMA2_STEPS = 64, 200, 8
 CHECK_GEMMA2_TOL = 1e-3
 CHECK_MOONSHOT_LAYERS = 4     # of moonshot's 48: resident vs expert-paged
+# The SSM slice.  check_mamba2: mamba2-1.3b at full width, 4 of 48
+# layers, f32; one prompt of 300 tokens (past one SSD chunk of 256, and
+# 12 past a multiple of 16, so the engine's bucket of 304 pads it)
+MAMBA2_ARCH, JAMBA_ARCH = "mamba2-1.3b", "jamba-1.5-large-398b"
+CHECK_MAMBA2_LAYERS, CHECK_MAMBA2_PROMPT, CHECK_MAMBA2_STEPS = 4, 300, 8
+CHECK_MAMBA2_TOL, CHECK_MAMBA2_STATE_TOL = 1e-3, 1e-5
+# ... and static admission's case: one prefill of rows of these true
+# lengths in the same bucket (the last a padding row, length 0)
+CHECK_MAMBA2_ROWS = (CHECK_MAMBA2_PROMPT, 173, 45, 0)
+# serve_mamba2: all 48 layers on the card, serve's settings, 8 prompts of
+# 32..384 tokens x 32
+MAMBA2_REQUESTS, MAMBA2_NEW_TOKENS = 8, 32
+# serve_jamba_expert: one period (8 of 72 layers) of jamba-1.5-large at
+# full width with int8 experts, first resident (~52 GB on the card), then
+# expert-paged at r_w 0.5 over the block arena at r_c 0.5: 4 requests of
+# 64..256 tokens x 16, in two rotation groups of 2
+JAMBA_LAYERS = 8
+JAMBA_SERVE = dict(ubatch=2, num_ubs=2, max_seq=512, decode_chunk=8)
+JAMBA_EXPERT = {**JAMBA_SERVE, "expert_paged": True, "w_gpu_ratio": 0.5,
+                "kv_paged": True, "block_tokens": 16, "kv_gpu_ratio": 0.5,
+                "kv_prefetch": True}
+JAMBA_REQUESTS, JAMBA_PROMPT_LENS, JAMBA_NEW_TOKENS = 4, (64, 256), 16
+JAMBA_KERNEL_S = 384          # flash_prefill's jamba record
 HOST_MARGIN = 1.2             # MemAvailable must hold the stores + 20 %
 HOST_RESERVE = 20 << 30       # ... and leave 20 GiB beside them
 # bf16 tolerances.  A kernel and its plain version both compute in f32 from
@@ -707,6 +761,7 @@ def phase_kernels(torch, F):
     kernel_deepseek(torch, F, timer, rn, records)
     records.append(kernel_mla(torch, timer, rn))
     records.append(kernel_families(torch, F, timer, rn, records))
+    kernel_jamba(torch, F, timer, rn, records)
     torch.cuda.empty_cache()
     records.append(kernel_expert_gather(torch, timer, rn))
     return records
@@ -885,6 +940,184 @@ def kernel_families(torch, F, timer, rn, records):
           "model": gem.name, **rec})
     fam["paged_gqa_decode"][gem.name] = rec
     return wide
+
+
+def int8_experts(torch, cfg, g):
+    """One MoE layer of `cfg` with int8 experts, drawn on the card from
+    `g`: wi (E, D, 2, F) and wo (E, F, D) by ``init_params``, and f32
+    scales per expert around its std / 48, drawn at random so that a
+    scale applied to the wrong expert shows."""
+    from repro_torch.models.params import init_params, param_defs
+    one = dataclasses.replace(cfg, num_layers=len(cfg.period),
+                              expert_dtype="int8")
+    key = next(f"p{i}" for i, s in enumerate(one.period) if s.moe)
+    defs = param_defs(one)["blocks"][key]["moe"]
+    w = init_params(one, g, DEVICE, defs={n: defs[n] for n in ("wi", "wo")})
+    si, so = ((torch.rand(cfg.num_experts, generator=g, device=DEVICE) * 0.5
+               + 0.75) * fan_in ** -0.5 / 48.0
+              for fan_in in (cfg.d_model, cfg.d_ff))
+    return w["wi"][0], w["wo"][0], si, so
+
+
+def moe_subset_case(torch, F, timer, x, occ, held, wi, wo, si, so, label):
+    """int8 moe_ffn over the whole (E, C, D) bucket buffer `x`, whose rows
+    are nonzero in the experts `occ` only, held against its plain version
+    on the experts `held` (a subset of `occ`) alone: the f32 plain version
+    of all 16 of jamba's experts would take 38 GB, and each expert's
+    output depends on its own rows and weights only, so the subset's
+    check is exact.  The held experts' outputs within ``BF16_OUT_TOL``,
+    every empty expert's exactly zero.  The bound counts the occupied
+    experts' int8 weights and scales; the plain version (over the occupied
+    experts, ``len(held)`` at a time) and the library call (the torch.bmm
+    chain on the occupied experts' weights dequantized to bf16
+    beforehand) compute the occupied experts only, which is all the
+    function needs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn
+    E, C, D = x.shape
+    Fd = wo.shape[1]
+    sub = torch.tensor(held, device=DEVICE)
+    got = moe_ffn(x, wi, wo, si, so)
+    want = ref.moe_ffn_ref(*(t.index_select(0, sub)
+                             for t in (x, wi, wo, si, so)))
+    err = max_err(got.index_select(0, sub), want)
+    require(close(got.index_select(0, sub), want, BF16_OUT_TOL),
+            f"moe_ffn int8 jamba {label}: {err}")
+    empty = torch.ones(E, dtype=torch.bool, device=DEVICE)
+    empty[torch.tensor(occ, device=DEVICE)] = False
+    require(bool((got[empty] == 0).all()),
+            f"moe_ffn int8 jamba {label}: an empty expert gave output")
+    del got, want
+    sub = torch.tensor(occ, device=DEVICE)
+    xs, wis, wos, sis, sos = (t.index_select(0, sub)
+                              for t in (x, wi, wo, si, so))
+    lwi = (wis.to(torch.bfloat16)
+           * sis.to(torch.bfloat16)[:, None, None, None]).view(
+               len(occ), D, 2 * Fd)
+    lwo = wos.to(torch.bfloat16) * sos.to(torch.bfloat16)[:, None, None]
+    parts = [slice(i, i + len(held)) for i in range(0, len(occ), len(held))]
+
+    def plain():
+        return [ref.moe_ffn_ref(xs[p], wis[p], wos[p], sis[p], sos[p])
+                for p in parts]
+
+    def library():
+        h = torch.bmm(xs, lwi)
+        return torch.bmm(F.silu(h[..., :Fd]) * h[..., Fd:], lwo)
+    n = len(occ)
+    bms, by = bound(2 * 2 * E * C * D + 3 * n * D * Fd + 8 * n,
+                    6 * n * C * D * Fd)
+    rec = {"shape": {"E": E, "C": C, "D": D, "F": Fd, "dtype": "bf16",
+                     "weights": "int8", "at": label,
+                     "occupied_experts": n},
+           "max_abs_err": err, "held_experts": len(held),
+           "empty_experts_exact_zero": bool(empty.any()),
+           "ms": timer(lambda: moe_ffn(x, wi, wo, si, so), 5, 1),
+           "plain_ms": timer(plain, 3, 1),
+           "plain_on": f"the occupied experts, {len(held)} a call",
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(library, 5, 1),
+           "library_call": "torch.bmm chain (up, silu * up, down) on the "
+                           "occupied experts' weights dequantized to bf16 "
+                           "beforehand"}
+    emit({"phase": "kernel_int8", "name": "moe_ffn", "model": JAMBA_ARCH,
+          **rec})
+    return rec
+
+
+def kernel_jamba(torch, F, timer, rn, records):
+    """The shapes jamba-1.5-large gives four of the kernels, each held
+    against its plain version and timed beside its bound and one library
+    call, as sub-records "families" of their kernel's record: moe_ffn with
+    int8 experts at E 16, D 8192, F 24576 (decode buckets of C 1, 2 and 3,
+    2 to 4 experts occupied, held on all of them; and the prefill bucket
+    of a 256-token prompt, whose 512 routed rows occupy all 16 experts,
+    held on 4), flash_prefill at H 64 / Hkv 8, D 128 over a 384-token
+    prompt, gqa_decode at its group of 8 over ``JAMBA_SERVE``'s ring, and
+    the fused paged_gqa_decode at G 8 over an arena of r_c 0.5."""
+    import numpy as np
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    by_name = {r["name"]: r for r in records}
+    fam = {name: by_name[name].setdefault("families", {}) for name in
+           ("moe_ffn", "flash_prefill", "gqa_decode", "paged_gqa_decode")}
+    cfg = _family(JAMBA_ARCH)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 26)
+    E, D = cfg.num_experts, cfg.d_model
+    wi, wo, si, so = int8_experts(torch, cfg, g)
+    cases = []
+    prefill_c = max(1, int(JAMBA_PROMPT_LENS[1] * cfg.top_k
+                           * cfg.capacity_factor / E + 0.999))
+    for C, label, n_occ, n_held in ((1, "decode", 2, 2), (2, "decode", 4, 4),
+                                    (3, "decode", 4, 4),
+                                    (prefill_c, "prefill", E, 4)):
+        perm = torch.randperm(E, generator=g, device=DEVICE).tolist()
+        occ = sorted(perm[:n_occ])
+        x = torch.zeros((E, C, D), dtype=torch.bfloat16, device=DEVICE)
+        x[occ] = rn(n_occ, C, D)
+        cases.append(moe_subset_case(torch, F, timer, x, occ,
+                                     sorted(perm[:n_held]), wi, wo, si, so,
+                                     label))
+    fam["moe_ffn"][JAMBA_ARCH] = {**cases[0], "cases": cases[1:]}
+    del wi, wo, x
+    torch.cuda.empty_cache()
+
+    # flash_prefill at jamba's attention layer (no positional encoding,
+    # full causal), the largest serve_jamba prompt bucket rounded up
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S = JAMBA_KERNEL_S
+    q, k, v = rn(1, S, H, Dh), rn(1, S, Hkv, Dh), rn(1, S, Hkv, Dh)
+    got, want = flash_prefill(q, k, v), ref.flash_prefill_ref(q, k, v)
+    err = max_err(got, want)
+    require(close(got, want, BF16_OUT_TOL),
+            f"flash_prefill bf16 jamba: {err}")
+    del got, want
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    pairs = S * (S + 1) // 2
+    bms, by = bound(2 * (2 * S * H * Dh + 2 * S * Hkv * Dh),
+                    2 * pairs * H * 2 * Dh)
+    rec = {"shape": {"B": 1, "S": S, "H": H, "Hkv": Hkv, "D": Dh,
+                     "dtype": "bf16"},
+           "max_abs_err": err,
+           "ms": timer(lambda: flash_prefill(q, k, v)),
+           "plain_ms": timer(lambda: ref.flash_prefill_ref(q, k, v)),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(sdpa_gqa(F, qt, kt, vt, H // Hkv,
+                                        is_causal=True)),
+           "library_call": "scaled_dot_product_attention, causal"}
+    emit({"phase": "kernel_bf16", "name": "flash_prefill",
+          "model": JAMBA_ARCH, **rec})
+    fam["flash_prefill"][JAMBA_ARCH] = rec
+    del q, k, v, qt, kt, vt
+
+    # gqa_decode at G 8 over the ring as serve_jamba fills it
+    B, W = JAMBA_SERVE["ubatch"], JAMBA_SERVE["max_seq"]
+    q, k, v = rn(B, H, Dh), rn(B, W, Hkv, Dh), rn(B, W, Hkv, Dh)
+    lens = torch.randint(JAMBA_PROMPT_LENS[0],
+                         JAMBA_PROMPT_LENS[1] + JAMBA_NEW_TOKENS, (B,),
+                         generator=g, device=DEVICE)
+    valid = torch.arange(W, device=DEVICE)[None, :] < lens[:, None]
+    rec = gqa_case(torch, F, timer, q, k, v, valid, dict(scale=Dh ** -0.5))
+    emit({"phase": "kernel_bf16", "name": "gqa_decode", "model": JAMBA_ARCH,
+          **rec})
+    fam["gqa_decode"][JAMBA_ARCH] = rec
+    del q, k, v
+
+    # the fused paged decode at G 8 over serve_jamba_expert's arena
+    rng = np.random.default_rng(SEED + 26)
+    bt = JAMBA_EXPERT["block_tokens"]
+    MB = JAMBA_EXPERT["max_seq"] // bt
+    NB = round(JAMBA_EXPERT["kv_gpu_ratio"] * JAMBA_EXPERT["ubatch"]
+               * JAMBA_EXPERT["num_ubs"] * MB)
+    lens = [int(n) for n in rng.integers(
+        JAMBA_PROMPT_LENS[0], JAMBA_PROMPT_LENS[1] + JAMBA_NEW_TOKENS, B)]
+    q, cache, pos, new = paged_inputs(torch, rng, lens, H, Hkv, Dh, bt, MB,
+                                      NB, 0.0, torch.bfloat16, rn)
+    rec, _ = paged_case(torch, F, timer, q, cache, pos, new,
+                        dict(scale=Dh ** -0.5))
+    emit({"phase": "kernel_bf16", "name": "paged_gqa_decode",
+          "model": JAMBA_ARCH, **rec})
+    fam["paged_gqa_decode"][JAMBA_ARCH] = rec
 
 
 def kernel_expert_gather(torch, timer, rn):
@@ -1268,8 +1501,8 @@ def moe_occupancy_case(torch, F, timer, rn, wi, wo, cfg, rows, C,
 
 
 def moe_int8_cases(torch, F, timer, rn, cfg, B, g):
-    """moe_ffn with int8 expert weights (drawn as ``init_params`` draws
-    them, per-expert f32 scales around std / 48) and bf16 activations at
+    """moe_ffn with int8 expert weights (``int8_experts``) and bf16
+    activations at
     mixtral's decode bucket (C 3, every row full), at the occupancy `B`
     routed rows give it, and at the largest prefill bucket, each against
     its plain version.  The bound counts the int8 weight bytes plus the
@@ -1278,17 +1511,7 @@ def moe_int8_cases(torch, F, timer, rn, cfg, B, g):
     from repro_torch.kernels import ref
     from repro_torch.kernels.moe_ffn import moe_ffn
     E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
-
-    def q8(*shape):
-        w = torch.randn(shape, generator=g, device=DEVICE)
-        return torch.clamp(torch.round(w * 48.0), -127, 127).to(torch.int8)
-
-    def scales(fan_in):
-        return ((torch.rand(E, generator=g, device=DEVICE) * 0.5 + 0.75)
-                * fan_in ** -0.5 / 48.0)
-
-    wi, wo = q8(E, D, 2, Fd), q8(E, Fd, D)
-    si, so = scales(D), scales(Fd)
+    wi, wo, si, so = int8_experts(torch, cfg, g)
     lwi = (wi.to(torch.bfloat16) * si.to(torch.bfloat16)[:, None, None, None])
     lwo = (wo.to(torch.bfloat16) * so.to(torch.bfloat16)[:, None, None])
     lwi3 = lwi.view(E, D, 2 * Fd)
@@ -2237,7 +2460,7 @@ def phase_serve_layer_paged(torch, np, ops, records):
     from repro_torch.serving.engine import Engine, EngineConfig
 
     cfg = dataclasses.replace(_mixtral(), num_layers=LAYER_PAGED_LAYERS)
-    need = LAYER_PAGED_LAYERS * store_bytes_per_layer(torch, split=False)
+    need = LAYER_PAGED_LAYERS * store_bytes_per_period(torch, split=False)
     avail = host_mem_available()
     require(need <= host_room(avail),
             f"MemAvailable {avail} does not hold {LAYER_PAGED_LAYERS} "
@@ -2567,7 +2790,10 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests,
     and the device's busy share of the window's wall time, profiler on.
     The serve phases' numbers are taken with the profiler off.  The
     windows are short (two decode chunks a group; one on the expert-paged
-    paths): the profiler's processing takes several times the window."""
+    paths): the profiler's processing takes several times the window.
+    It records the device's activity only: every number here is read from
+    it, and recording the host's operators too multiplied the processing
+    and lengthened the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2575,8 +2801,7 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests,
     for n in rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests):
         eng.submit(rng.integers(2, eng.cfg.vocab_size, n), new_tokens)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run_until_idle()
         torch.cuda.synchronize()
@@ -2647,28 +2872,46 @@ def phase_check(torch, np, cfg, params, prompts, eng, eng_paged,
     """Prefill, decode and paged-decode logits of `prompts` through the
     kernels against the plain path (within ``LOGIT_TOL``), their greedy
     transcripts, and the paged engine's transcripts against the dense
-    engine's on 8 more prompts (printed).  Returns those prompts and the
-    dense engine's transcripts."""
+    engine's on 8 more prompts (printed).  The prefill is held as
+    ``check_static_logits`` holds it: the plain path also runs with the
+    kernel path's routing replayed and must then be within ``LOGIT_TOL``;
+    under its own routing a prompt past ``LOGIT_TOL`` must show the
+    cause, a real token routed or dropped otherwise in some layer (a bf16
+    rounding flips a near tie of the router; printed with its counts).
+    Returns those prompts and the dense engine's transcripts."""
     from repro_torch.models import kvcache
     from repro_torch.models.model import ExecPolicy, forward, unembed
     from repro_torch.serving import steps
 
     worst = {"prefill": 0.0, "decode": 0.0, "decode_paged": 0.0}
+    replayed_worst, over = 0.0, []
     agree, total = 0, 0
     rng = np.random.default_rng(SEED)
     for prompt in prompts:
-        outs = {}
-        for impl in ("auto", "ref"):
+        outs, tapes = {}, {}
+        tok = torch.as_tensor(prompt[None].astype("int32"), device=DEVICE)
+        lens = torch.tensor([len(prompt)], dtype=torch.int32, device=DEVICE)
+        for impl, replay in (("auto", None), ("ref", None), ("ref", "auto")):
             pol = ExecPolicy(moe_impl="grouped", use_kernels=True, impl=impl)
             cache = kvcache.init_cache(cfg, 1, SERVE["max_seq"],
                                        device=DEVICE)
-            tok = torch.as_tensor(prompt[None].astype("int32"),
-                                  device=DEVICE)
-            lens = torch.tensor([len(prompt)], dtype=torch.int32,
-                                device=DEVICE)
-            logits, cache = steps.make_prefill_fill_step(cfg, pol)(
-                params, tok, cache, lens)
-            outs[impl] = {"prefill": logits, "cache": cache, "pol": pol}
+            with RoutingTape(replay=tapes.get(replay)) as tape:
+                logits, cache = steps.make_prefill_fill_step(cfg, pol)(
+                    params, tok, cache, lens)
+            if replay:
+                replayed = max_err(outs["auto"]["prefill"], logits)
+            else:
+                tapes[impl] = tape
+                outs[impl] = {"prefill": logits, "cache": cache, "pol": pol}
+        replayed_worst = max(replayed_worst, replayed)
+        diff = max_err(outs["auto"]["prefill"], outs["ref"]["prefill"])
+        if diff > LOGIT_TOL:
+            flipped, dropped = tapes["auto"].moved_tokens(
+                tapes["ref"], tok.shape[1], lens)
+            over.append({"prompt_tokens": len(prompt), "diff": diff,
+                         "routing_replayed_diff": replayed,
+                         "flipped_tokens": int(flipped.sum()),
+                         "drop_moved_tokens": int(dropped.sum())})
         # one decode step, both paths fed the kernel path's greedy token;
         # on the paged layout both read the same arena and page table
         first = torch.argmax(outs["auto"]["prefill"], -1).to(
@@ -2714,13 +2957,22 @@ def phase_check(torch, np, cfg, params, prompts, eng, eng_paged,
     emit({"phase": phase, "prompts": len(prompts),
           "engine_prompts": len(engine_prompts),
           "max_abs_logit_diff": worst, "tol": LOGIT_TOL,
+          "prefill_routing_replayed_max_abs_logit_diff": replayed_worst,
+          "prefill_over_tol": over,
           "greedy_agree": agree, "greedy_total": total,
           "paged_vs_dense_engine_agree": eng_agree,
           "paged_vs_dense_engine_total": eng_total,
           "paged_vs_dense_engine_identical_requests": sum(
               x == y for x, y in zip(*runs))})
-    require(all(v <= LOGIT_TOL for v in worst.values()),
-            f"kernel path logits differ from the plain path: {worst}")
+    require(replayed_worst <= LOGIT_TOL
+            and worst["decode"] <= LOGIT_TOL
+            and worst["decode_paged"] <= LOGIT_TOL,
+            f"kernel path logits differ from the plain path: {worst}, "
+            f"prefill under the kernel path's routing {replayed_worst}")
+    require(all(o["flipped_tokens"] + o["drop_moved_tokens"] > 0
+                for o in over),
+            f"a prefill moved past LOGIT_TOL with the plain path routing "
+            f"every token alike: {over}")
     return engine_prompts, runs[0]
 
 
@@ -3373,15 +3625,16 @@ def host_room(avail: int) -> float:
     return min(avail / HOST_MARGIN, avail - HOST_RESERVE)
 
 
-def store_bytes_per_layer(torch, split: bool, cfg=None) -> int:
-    """Bytes of one layer's host stores of `cfg` (mixtral-8x7b by
-    default), expert-granular (`split`) or whole-layer; sized on the CPU,
-    nothing written."""
+def store_bytes_per_period(torch, split: bool, cfg=None) -> int:
+    """Bytes of one period's host stores of `cfg` (mixtral-8x7b by
+    default; a period of one layer there, of 8 in jamba), expert-granular
+    (`split`) or whole-layer; sized on the CPU, nothing written."""
     from repro_torch.core import paging
     from repro_torch.models.params import abstract_params, param_defs
     from repro_torch.serving.engine import EngineConfig
 
-    one = dataclasses.replace(cfg or _mixtral(), num_layers=1)
+    cfg = cfg or _mixtral()
+    one = dataclasses.replace(cfg, num_layers=len(cfg.period))
     probe = paging.PagedWeights.empty(
         abstract_params(one, param_defs(one)["blocks"]),
         EngineConfig().page_elems, torch.device("cpu"), split=split)
@@ -3391,7 +3644,7 @@ def store_bytes_per_layer(torch, split: bool, cfg=None) -> int:
 
 def draw_stores(torch, cfg, split: bool):
     """`cfg`'s resident params drawn on the card from ``SEED``, and its
-    block params drawn there one layer at a time and written into
+    block params drawn there one period at a time and written into
     page-locked host stores (``PagedWeights.empty``: expert-granular if
     `split`, else whole-layer), so that neither the card nor pageable host
     memory ever holds the stack.  Returns the params, the stores and the
@@ -3411,11 +3664,14 @@ def draw_stores(torch, cfg, split: bool):
                                    EngineConfig().page_elems,
                                    torch.device(DEVICE), split=split)
     pin_s = time.perf_counter() - t0
-    one_defs = param_defs(dataclasses.replace(cfg, num_layers=1))["blocks"]
-    for layer in range(cfg.num_layers):
+    # one period at a time: each period position's stack holds one layer
+    # a period
+    one_defs = param_defs(dataclasses.replace(
+        cfg, num_layers=len(cfg.period)))["blocks"]
+    for period in range(cfg.num_periods):
         drawn = init_params(cfg, g, DEVICE, defs=one_defs)
         for key, tree in drawn.items():
-            pw.write_layer(key, layer, paging.layer_slice(tree, 0))
+            pw.write_layer(key, period, paging.layer_slice(tree, 0))
         del drawn
     torch.cuda.synchronize()
     return params, pw, pin_s, time.perf_counter() - t0
@@ -3437,7 +3693,7 @@ def phase_serve_expert(torch, np, ops):
 
     full = _mixtral()
     one = dataclasses.replace(full, num_layers=1)
-    per_layer = store_bytes_per_layer(torch, split=True)
+    per_layer = store_bytes_per_period(torch, split=True)
     # serve_expert_kv's host tier holds every KV block of every layer; the
     # pinned allocator may round each store up to twice its bytes
     kv = SERVE_EXPERT_KV
@@ -3485,7 +3741,7 @@ def phase_serve_expert_int8(torch, np, ops, records):
     from repro_torch.models.params import count_params
 
     full = dataclasses.replace(_mixtral(), expert_dtype="int8")
-    per_layer = store_bytes_per_layer(torch, split=True, cfg=full)
+    per_layer = store_bytes_per_period(torch, split=True, cfg=full)
     avail = host_mem_available()
     room = host_room(avail)
     layers = min(full.num_layers, int(room // per_layer))
@@ -3527,10 +3783,13 @@ def phase_serve_expert_int8(torch, np, ops, records):
     return eng, launches, stores, res
 
 
-def serve_expert_engine(torch, np, ops, stores, settings, phase):
+def serve_expert_engine(torch, np, ops, stores, settings, phase,
+                        workload=(EXPERT_PROMPT_LENS, EXPERT_REQUESTS,
+                                  SEED + 8, EXPERT_NEW_TOKENS)):
     """An expert-paged engine over `stores` (``phase_serve_expert``'s host
     stores and resident params) with the engine settings given, serving
-    ``EXPERT_REQUESTS`` seeded requests; emits the `phase` line with the
+    `workload` (prompt lengths, requests, seed, new tokens: by default
+    ``EXPERT_REQUESTS`` seeded requests); emits the `phase` line with the
     gather's link bytes, seconds and rate."""
     from repro_torch.models.model import ExecPolicy
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -3566,9 +3825,7 @@ def serve_expert_engine(torch, np, ops, stores, settings, phase):
         return out
     ops.expert_gather = counted
     try:
-        _, res, outs = serve_run(torch, np, eng, ops, EXPERT_PROMPT_LENS,
-                                 EXPERT_REQUESTS, SEED + 8,
-                                 EXPERT_NEW_TOKENS)
+        _, res, outs = serve_run(torch, np, eng, ops, *workload)
     finally:
         ops.expert_gather = inner
     traffic = eng.weight_traffic()
@@ -4083,7 +4340,7 @@ def phase_serve_moonshot_expert(torch, np, ops, records):
     from repro_torch.models.params import count_params
 
     full = _family("moonshot-v1-16b-a3b")
-    per_layer = store_bytes_per_layer(torch, split=True, cfg=full)
+    per_layer = store_bytes_per_period(torch, split=True, cfg=full)
     avail = host_mem_available()
     room = host_room(avail)
     layers = min(full.num_layers, int(room // per_layer))
@@ -4168,6 +4425,341 @@ def phase_serve_moonshot_expert(torch, np, ops, records):
     torch.cuda.empty_cache()
     host_memory("after serve_moonshot_expert (stores released)")
     return launches, base
+
+
+def ssm_leaves(cache) -> dict:
+    """The SSM layers' conv tails and states of a cache, copied."""
+    return {(k, n): a.clone() for k, g in cache.items() if k != "pos"
+            for n, a in g.items() if n.startswith("conv") or n == "state"}
+
+
+def phase_check_mamba2(torch, np, ops):
+    """mamba2-1.3b at full width, ``CHECK_MAMBA2_LAYERS`` of its 48
+    layers, float32, on the card: one prompt of ``CHECK_MAMBA2_PROMPT``
+    tokens (past one SSD chunk, and not a multiple of 16) prefilled by the
+    engine's prefill step at the engine's bucket, the SSM state carried
+    from the prompt's true length, then ``CHECK_MAMBA2_STEPS`` decode
+    steps: the prefill's last logits and each step's within
+    ``CHECK_MAMBA2_TOL`` of a teacher-forced forward over the whole
+    sequence.  A second prefill at the prompt's exact width: its SSM
+    states and conv tails within ``CHECK_MAMBA2_STATE_TOL`` of the
+    bucketed prefill's.  Then static admission's case: one prefill of
+    ``CHECK_MAMBA2_ROWS`` (true lengths that are not multiples of 16, and
+    a padding row of length 0) in the same bucket, the lengths an int32
+    tensor on the card as the engine builds them.  Each row's states and
+    conv tails within ``CHECK_MAMBA2_STATE_TOL`` of a prefill of the same
+    shape whose rows all hold that row's prompt and length, and within
+    ``CHECK_MAMBA2_TOL`` of its prompt prefilled alone at its exact
+    width (f32 products on the card give other bits at other row counts
+    and widths); its logits within ``CHECK_MAMBA2_TOL`` of both; the
+    padding row's states exactly zero.  Printed beside: how far a
+    bucketed prefill without the true length (the JAX engine's) moves
+    them.  The mixer has no kernel (plain PyTorch in both packages): the
+    launches are printed, every count 0."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import ExecPolicy, forward, unembed
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import steps
+
+    cfg = dataclasses.replace(_family(MAMBA2_ARCH),
+                              num_layers=CHECK_MAMBA2_LAYERS,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 14), device=DEVICE)
+    pol = ExecPolicy(use_kernels=True)
+    S, n = CHECK_MAMBA2_PROMPT, CHECK_MAMBA2_STEPS
+    bucket = min(-(-S // 16) * 16, SERVE["max_seq"])
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    toks = torch.randint(2, cfg.vocab_size, (1, S + n), generator=g,
+                         device=DEVICE, dtype=torch.int32)
+    padded = torch.zeros((1, bucket), dtype=torch.int32, device=DEVICE)
+    padded[:, :S] = toks[:, :S]
+    lens = torch.tensor([S], dtype=torch.int32, device=DEVICE)
+    prefill = steps.make_prefill_fill_step(cfg, pol)
+    ops.reset_launch_counts()
+    full = unembed(cfg, params, forward(cfg, params, toks,
+                                        policy=pol)["hidden"])
+    caches = {}
+    for label, tokens in (("bucket", padded), ("exact", toks[:, :S])):
+        caches[label] = kvcache.init_cache(cfg, 1, SERVE["max_seq"],
+                                           device=DEVICE)
+        logits, _ = prefill(params, tokens, caches[label], lens)
+        if label == "bucket":
+            first = logits
+    states = {k: ssm_leaves(c) for k, c in caches.items()}
+    rows = CHECK_MAMBA2_ROWS
+    mtoks = torch.zeros((len(rows), bucket), dtype=torch.int32,
+                        device=DEVICE)
+    mtoks[0, :S] = toks[0, :S]
+    for i, m in enumerate(rows[1:], 1):
+        mtoks[i, :m] = torch.randint(2, cfg.vocab_size, (m,), generator=g,
+                                     device=DEVICE, dtype=torch.int32)
+    mcache = kvcache.init_cache(cfg, len(rows), SERVE["max_seq"],
+                                device=DEVICE)
+    mlogits, _ = prefill(params, mtoks, mcache,
+                         torch.as_tensor(np.array(rows, np.int32),
+                                         device=DEVICE))
+    mstates = ssm_leaves(mcache)
+    del mcache
+    row_errs = []
+    for i, m in enumerate(rows):
+        got = {k: v[:, i:i + 1] for k, v in mstates.items()}
+        if m == 0:
+            require(all(bool((v == 0).all()) for v in got.values()),
+                    "check_mamba2: a padding row's SSM state is not zero")
+            continue
+        errs_i = {}
+        for ref_name, tokens, n_rows, tol in (
+                ("same_shape", mtoks[i:i + 1], len(rows),
+                 CHECK_MAMBA2_STATE_TOL),
+                ("exact_width", mtoks[i:i + 1, :m], 1, CHECK_MAMBA2_TOL)):
+            c = kvcache.init_cache(cfg, n_rows, SERVE["max_seq"],
+                                   device=DEVICE)
+            wlogits, _ = prefill(params, tokens.repeat(n_rows, 1), c,
+                                 torch.full((n_rows,), m, dtype=torch.int32,
+                                            device=DEVICE))
+            want = {k: v[:, :1] for k, v in ssm_leaves(c).items()}
+            del c
+            errs_i[ref_name] = {
+                "state": max(max_err(got[k], want[k]) for k in want),
+                "logits": max_err(mlogits[i:i + 1], wlogits[:1])}
+            require(all(close(got[k], want[k], tol) for k in want),
+                    f"check_mamba2: row {i} (length {m}) of one prefill: "
+                    f"{errs_i[ref_name]} from the {ref_name} prefill")
+            require(close(mlogits[i:i + 1], wlogits[:1], CHECK_MAMBA2_TOL),
+                    f"check_mamba2: row {i} (length {m}) logits: "
+                    f"{errs_i[ref_name]} from the {ref_name} prefill")
+        row_errs.append(errs_i)
+    del mstates
+    # the JAX engine's prefill: the bucket without the true length
+    absorbed = kvcache.init_cache(cfg, 1, SERVE["max_seq"], device=DEVICE)
+    forward(cfg, params, padded, cache=absorbed, mode="prefill", policy=pol)
+    absorbed = ssm_leaves(absorbed)
+    state_err = max(max_err(states["bucket"][k], states["exact"][k])
+                    for k in states["exact"])
+    padding_moves = max(max_err(absorbed[k], states["exact"][k])
+                        for k in states["exact"])
+    require(all(close(states["bucket"][k], states["exact"][k],
+                      CHECK_MAMBA2_STATE_TOL) for k in states["exact"]),
+            f"check_mamba2: the bucketed prefill's state is {state_err} "
+            f"from the exact width's")
+    errs = [max_err(first, full[:, S - 1])]
+    require(close(first, full[:, S - 1], CHECK_MAMBA2_TOL),
+            f"check_mamba2 prefill: {errs[0]}")
+    cache = caches["bucket"]
+    for t in range(n):
+        fwd = forward(cfg, params, toks[:, S + t:S + t + 1], cache=cache,
+                      mode="decode", policy=pol)
+        got = unembed(cfg, params, fwd["hidden"][:, -1])
+        want = full[:, S + t]
+        require(bool(torch.isfinite(got).all()), "check_mamba2: not finite")
+        errs.append(max_err(got, want))
+        require(close(got, want, CHECK_MAMBA2_TOL),
+                f"check_mamba2 step {t}: {errs[-1]}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    emit({"phase": "check_mamba2", "model": MAMBA2_ARCH,
+          "layers": cfg.num_layers, "of_layers": _family(MAMBA2_ARCH)
+          .num_layers, "dtype": "float32", "prompt": S, "bucket": bucket,
+          "ssd_chunk": cfg.ssm_chunk, "decode_steps": n,
+          "max_abs_logit_diff": max(errs), "per_step": errs,
+          "tol": CHECK_MAMBA2_TOL,
+          "bucket_vs_exact_state_max_abs_diff": state_err,
+          "state_tol": CHECK_MAMBA2_STATE_TOL,
+          "padding_absorbed_state_max_abs_diff": padding_moves,
+          "rows": list(rows),
+          "rows_max_abs_diff": row_errs,
+          "launches": launches})
+    require(padding_moves > 1e3 * CHECK_MAMBA2_STATE_TOL,
+            f"check_mamba2: the padding moved the state by only "
+            f"{padding_moves}: the check sees nothing")
+    del params, full, caches, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_mamba2(torch, np, ops):
+    """mamba2-1.3b at full width and all 48 layers, every weight on the
+    card (bf16): ``MAMBA2_REQUESTS`` seeded prompts of ``PROMPT_LENS``
+    tokens, most of them not multiples of 16, x ``MAMBA2_NEW_TOKENS``,
+    through ``serve``'s settings in lockstep, in windows of both groups
+    (``_module``: transcripts equal to lockstep's) and in static mode
+    (``_static``: how many transcripts equal lockstep's is printed; its
+    micro-batches prefill 8 rows at once, whose bf16 products differ);
+    a trace window of the lockstep engine.  Returns each run's launches
+    (the mixer runs no kernel)."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = _family(MAMBA2_ARCH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    launches, outs = {}, {}
+    for name, settings in (
+            ("serve_mamba2", SERVE),
+            ("serve_mamba2_module", {**SERVE, "module_batch": True}),
+            ("serve_mamba2_static", SERVE_STATIC)):
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, EngineConfig(**settings),
+                     ExecPolicy(moe_impl="grouped", use_kernels=True),
+                     device=DEVICE)
+        prompts, res, outs[name] = serve_run(
+            torch, np, eng, ops, PROMPT_LENS, MAMBA2_REQUESTS, SEED + 13,
+            MAMBA2_NEW_TOKENS)
+        emit({"phase": name, "model": MAMBA2_ARCH, "layers": cfg.num_layers,
+              "of_layers": cfg.num_layers, "params": count_params(cfg),
+              "init_s": init_s, "engine": settings, **res,
+              "prompt_lens": [len(p) for p in prompts],
+              "prompts_not_multiple_of_16": sum(len(p) % 16 != 0
+                                                for p in prompts),
+              "identical_to_lockstep": sum(
+                  a == b for a, b in zip(outs[name], outs["serve_mamba2"])),
+              "requests_total": len(prompts)})
+        launches[name] = res["launches"]
+        if name == "serve_mamba2":
+            # 1 request x 8 tokens: ~90 small ops a layer a step
+            phase_trace(torch, np, eng, MAMBA2_ARCH, PROMPT_LENS, 1, 8)
+        del eng
+        gc.collect()
+    require(outs["serve_mamba2_module"] == outs["serve_mamba2"],
+            "mamba2: the windows' transcripts differ from lockstep's")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_jamba_expert(torch, np, ops, records):
+    """jamba-1.5-large at full width, one period (``JAMBA_LAYERS`` of its
+    72 layers) with int8 experts, random weights from a seed: a resident
+    engine (~52 GB on the card) serves ``JAMBA_REQUESTS`` requests; its
+    blocks are then packed into page-locked expert-paged stores (the
+    mixers, the dense FFNs and the attention layer in the shared spans,
+    the four MoE positions' experts in 604 MB spans), the resident engine
+    is freed, and an expert-paged engine at r_w 0.5 over the block arena
+    at r_c 0.5 serves the same requests: transcripts equal, request for
+    request.  The int8 experts' scales travel in the shared span in bf16,
+    so the resident engine runs on scales rounded to bf16 too.  Prints
+    decode tok/s, the gather's link bytes a token a layer, its bytes
+    beside ``weight_traffic()``'s booked ones and ``h2d_copy``, and its
+    host copies a layer.  Returns the launches of both runs."""
+    from repro_torch.core import offload
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    full = _family(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=JAMBA_LAYERS,
+                              expert_dtype="int8")
+    need = store_bytes_per_period(torch, split=True, cfg=cfg)
+    avail = host_mem_available()
+    emit({"phase": "host_rule", "for": "serve_jamba_expert",
+          "host_available": avail, "mem_available": mem_available(),
+          "room": host_room(avail),
+          "rule": "min(available / 1.2, available - 20 GiB)",
+          "store_bytes_per_period": need, "periods": 1,
+          "layers": cfg.num_layers, "of_layers": full.num_layers})
+    require(need <= host_room(avail),
+            f"the host holds {host_room(avail)} bytes of stores; one jamba "
+            f"period needs {need}")
+    workload = (JAMBA_PROMPT_LENS, JAMBA_REQUESTS, SEED + 12,
+                JAMBA_NEW_TOKENS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 12), device=DEVICE)
+    for g in params["blocks"].values():
+        if "moe" in g:                 # the scales the shared span holds
+            for n in ("wi_scale", "wo_scale"):
+                g["moe"][n] = g["moe"][n].to(torch.bfloat16).float()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.nbytes for t in _leaves(params))
+    eng = Engine(cfg, params, EngineConfig(**JAMBA_SERVE),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    _, res, want = serve_run(torch, np, eng, ops, *workload)
+    emit({"phase": "serve_jamba", "model": JAMBA_ARCH,
+          "layers": cfg.num_layers, "of_layers": full.num_layers,
+          "params": count_params(cfg), "weight_bytes": weight_bytes,
+          "init_s": init_s, "engine": JAMBA_SERVE, **res})
+    launches = {"serve_jamba": res["launches"]}
+    require(all(res["launches"][k] > 0 for k in
+                ("moe_ffn", "gqa_decode", "flash_prefill")),
+            f"serve_jamba: a kernel of the path never launched: "
+            f"{res['launches']}")
+    torch.cuda.synchronize()
+    packed = pack_expert_stores(torch, eng)
+    pw = packed["pw"]
+    del eng
+    params = {k: v for k, v in params.items() if k != "blocks"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_memory("serve_jamba_expert stores packed, resident blocks freed")
+    stores = {"cfg": cfg, "params": params, "pw": pw,
+              "layers": cfg.num_layers, "of_layers": full.num_layers,
+              "params_count": count_params(cfg),
+              "store_bytes_per_layer": need / cfg.num_layers,
+              "kv_host_bytes_per_layer": 0, "mem_available": avail,
+              "pinned_bytes": offload.pinned_bytes(),
+              "pin_s": packed["pack_s"], "build_s": init_s}
+    h2d = next(r for r in records if r["name"] == "expert_gather")[
+        "bound_rates"]["h2d_GBps_measured"]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        eng, launches["serve_jamba_expert"], ex = serve_expert_engine(
+            torch, np, ops, stores, JAMBA_EXPERT, "serve_jamba_expert",
+            workload)
+        tr = ex["weight_traffic"]
+        tokens = sum(len(t) for t in ex["transcripts"])
+        emit({"phase": "serve_jamba_expert_link", "layers": cfg.num_layers,
+              "moe_layers": sum(s.moe for s in cfg.period),
+              "decode_tok_per_s": ex["decode_tok_per_s"],
+              "resident_decode_tok_per_s": res["decode_tok_per_s"],
+              "shared_bytes": tr["shared_bytes"],
+              "shared_bytes_per_pass": sum(
+                  pw.shared_layer_bytes(k) * pw.manifests[k].num_layers
+                  for k in pw.manifests),
+              "gather_host_bytes": ex["gather_host_bytes"],
+              "booked_expert_bytes": tr["expert_bytes"],
+              "moved_over_booked": ex["gather_host_bytes"]
+              / max(tr["expert_bytes"], 1),
+              "gather_bytes_per_token_layer": ex["gather_host_bytes"]
+              / tokens / cfg.num_layers,
+              "link_bytes_per_token_layer": (ex["gather_host_bytes"]
+                                             + tr["shared_bytes"])
+              / tokens / cfg.num_layers,
+              "hits": tr["hits"], "misses": tr["misses"],
+              "gather_host_GBps": ex["gather_host_GBps"],
+              "h2d_copy_GBps": h2d,
+              "host_copies": ex["gather_host_copies"],
+              "host_copies_per_moe_layer": ex["gather_host_copies"]
+              / ex["gather_calls"],
+              "max_host_copies_per_moe_layer":
+                  ex["gather_max_host_copies"],
+              "kv_traffic": eng.kv_traffic()})
+        emit({"phase": "serve_jamba_expert_vs_resident",
+              "identical_requests": sum(a == b for a, b in
+                                        zip(ex["transcripts"], want)),
+              "requests_total": len(want)})
+        require(ex["transcripts"] == want,
+                "jamba: the expert-paged transcripts differ from the "
+                "resident engine's")
+        del eng
+        gc.collect()
+    finally:
+        pw.release()
+    del params, stores
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_memory("after serve_jamba_expert (stores released)")
+    return launches
 
 
 def main() -> int:
@@ -4313,6 +4905,13 @@ def main() -> int:
     launches_olmo = phase_serve_family(
         torch, np, ops, "olmo-1b", "serve_olmo", SERVE, FAMILY_PAGED,
         PROMPT_LENS, FAMILY_NEW_TOKENS)
+    # the SSM slice: mamba2 (4 layers in f32 against teacher forcing, then
+    # all 48 resident), then one period of jamba, resident and then
+    # expert-paged over the block arena
+    launches_check_mamba2 = phase_check_mamba2(torch, np, ops)
+    launches_mamba2 = phase_serve_mamba2(torch, np, ops)
+    host_memory("before serve_jamba_expert")
+    launches_jamba = phase_serve_jamba_expert(torch, np, ops, records)
     launches_launch = phase_launch(torch, ops)
     eng_mla, mla_prompts, launches_mla = phase_serve_mla(torch, np, ops)
     phase_trace(torch, np, eng_mla, "mla", PAGED_PROMPT_LENS, 16)
@@ -4343,7 +4942,9 @@ def main() -> int:
                  "check_moonshot": launches_check_moonshot,
                  **launches_moonshot,
                  "check_gemma2": launches_check_gemma2,
-                 **launches_gemma2, **launches_glm4, **launches_olmo}
+                 **launches_gemma2, **launches_glm4, **launches_olmo,
+                 "check_mamba2": launches_check_mamba2, **launches_mamba2,
+                 **launches_jamba}
     # each family shape's main path
     family_paths = {
         ("moe_ffn", "moonshot-v1-16b-a3b"):
@@ -4351,7 +4952,12 @@ def main() -> int:
         ("gqa_decode", "glm4-9b"): launches_glm4["serve_glm4"],
         ("gqa_decode", "gemma2-2b"): launches_gemma2["serve_gemma2"],
         ("paged_gqa_decode", "gemma2-2b"):
-            launches_gemma2["serve_gemma2_paged"]}
+            launches_gemma2["serve_gemma2_paged"],
+        ("moe_ffn", JAMBA_ARCH): launches_jamba["serve_jamba_expert"],
+        ("flash_prefill", JAMBA_ARCH): launches_jamba["serve_jamba"],
+        ("gqa_decode", JAMBA_ARCH): launches_jamba["serve_jamba"],
+        ("paged_gqa_decode", JAMBA_ARCH):
+            launches_jamba["serve_jamba_expert"]}
     for rec in records:
         # the wide flash_prefill body counts under its wrapper's name
         counter = rec["name"].removesuffix("_d256")

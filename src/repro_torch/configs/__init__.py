@@ -4,8 +4,10 @@ The port carries the configs its slices run: the paper's own model
 (mixtral-8x7b), the dense qwen2.5-3b, the MLA model deepseek-v3-671b,
 gemma2-2b (window/global alternation, attention and final-logit softcaps,
 head_dim 256), glm4-9b (QKV bias, 16 query heads a KV head), olmo-1b
-(non-parametric LayerNorm, MHA) and the 64-expert MoE
-moonshot-v1-16b-a3b.
+(non-parametric LayerNorm, MHA), the 64-expert MoE
+moonshot-v1-16b-a3b, the attention-free Mamba-2 model mamba2-1.3b and the
+hybrid jamba-1.5-large-398b (Mamba-2 mixers, one attention layer a period
+of 8, a 16-expert MoE on every other layer).
 ``get_config(arch).smoke()`` is the reduced same-family config the CPU tests
 use.
 """
@@ -25,6 +27,8 @@ _ARCH_MODULES = {
     "glm4-9b": "glm4_9b",
     "olmo-1b": "olmo_1b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)

@@ -8,6 +8,8 @@ A cache is a plain nested dict with the JAX package's layout:
     "p{i}": per period position, stacked over its layers, one of
         kv:  {"k": (L,B,W,Hkv,Dh), "v": ..., "slot_pos": (L,B,W) int32}
         mla: {"ckv": (L,B,W,kv_lora), "kr": (L,B,W,rope), "slot_pos": ...}
+        ssm: {"conv_x": (L,B,cw-1,d_in), "conv_B" / "conv_C":
+              (L,B,cw-1,N), "state": (L,B,nh,hd,N) f32}
     "prologue": the same for the non-periodic leading layers (stacked
         over them), when the architecture has any
   }
@@ -37,7 +39,12 @@ int8 KV (``cfg.kv_dtype == "int8"``): a kv ring or arena holds int8 ``k`` /
 ``v`` and one f32 scale per (token, head) in ``k_scale`` / ``v_scale``
 ((L,B,W,Hkv) in a ring, (L,Hkv,NB+1,bt) in an arena), written by
 ``quantize_kv``; the decode kernels fold the scales into their tiles, so
-no dequantized ring exists.  The SSM caches are not ported.
+no dequantized ring exists.
+
+An SSM layer (a Mamba-2 mixer) caches the last ``cw-1`` inputs of its
+three depthwise convs and its f32 state, one of each a row; it has no ring
+and no ``slot_pos``, stays dense beside a paged arena, and the slot
+operations below copy or clear it with the rest of a row.
 """
 from __future__ import annotations
 
@@ -58,9 +65,21 @@ def layer_cache_width(cfg: ModelConfig, spec: LayerSpec, max_seq: int) -> int:
 
 def _spec_cache(cfg: ModelConfig, spec: LayerSpec, stack: int, batch: int,
                 max_seq: int, dtype, device: torch.device) -> Dict:
-    """The empty ring of one period position (or of the prologue),
-    stacked over its `stack` layers."""
+    """The empty ring (or SSM state) of one period position (or of the
+    prologue), stacked over its `stack` layers."""
     kind = spec.cache_kind()
+    if kind == "ssm":
+        # the conv tails in the model dtype and the SSM state in f32; no
+        # ring, so no slot_pos
+        d_in = cfg.ssm_expand * cfg.d_model
+        cw, N = cfg.ssm_conv_width - 1, cfg.ssm_state
+        shapes = {"conv_x": ((cw, d_in), dtype),
+                  "conv_B": ((cw, N), dtype), "conv_C": ((cw, N), dtype),
+                  "state": ((d_in // cfg.ssm_head_dim, cfg.ssm_head_dim, N),
+                            torch.float32)}
+        return {name: torch.zeros((stack, batch) + tail, dtype=dt,
+                                  device=device)
+                for name, (tail, dt) in shapes.items()}
     W = layer_cache_width(cfg, spec, max_seq)
     if kind == "mla":
         data = {"ckv": (cfg.kv_lora_rank,), "kr": (cfg.qk_rope_head_dim,)}
@@ -165,7 +184,8 @@ def _to_arena_tile(name, blk):
 def paged_period_keys(cfg: ModelConfig) -> tuple:
     """Period positions whose KV ring is block-pageable: full-attention kv
     and mla layers.  Sliding-window rings are exempt (the ring already
-    bounds their footprint at `window`); prologue layers stay dense."""
+    bounds their footprint at `window`); SSM states (one a row, no ring)
+    and prologue layers stay dense."""
     return tuple(f"p{i}" for i, spec in enumerate(cfg.period)
                  if spec.cache_kind() in ("kv", "mla")
                  and spec.attn != ATTN_WINDOW)

@@ -1,7 +1,7 @@
 """Model assembly of the PyTorch port (``repro/models/model.py``):
 embedding → prologue blocks → periodic blocks → final norm → unembed, for
-the attention families the port runs (GQA and MLA attention with dense or
-MoE FFNs).
+the families the port runs (GQA and MLA attention, or a Mamba-2 mixer,
+with dense or MoE FFNs).
 
 JAX's ``lax.scan`` over the stacked layers becomes a Python loop over layer
 slices: each layer's parameters and cache are views into the stacked
@@ -33,6 +33,7 @@ from repro_torch.core import offload, paging
 from repro_torch.kernels import ops
 from repro_torch.models.attention import attn_forward
 from repro_torch.models.common import act_fn, apply_norm, by_group, softcap
+from repro_torch.models.mamba import mamba_forward
 from repro_torch.models.moe import gated_ffn, moe_apply, moe_apply_paged
 
 
@@ -138,7 +139,7 @@ def dense_ffn(cfg: ModelConfig, p: Dict, x):
 def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
                 cache: Optional[Dict], mode: str, pos,
                 policy: Optional[ExecPolicy], expert_fetch=None,
-                token_groups: Optional[int] = None):
+                token_groups: Optional[int] = None, lens=None):
     """One layer.  Returns (x, aux_loss, expert_counts); a given cache is
     written in place.  With ``expert_fetch`` (expert-granular paged
     weights) the MoE FFN runs the two-phase step and expert_counts (E,)
@@ -150,8 +151,17 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
     cache, so every row computes as in its lockstep dispatch (on the card
     an RMSNorm's row sums, too, change bits with the row count); the MoE
     FFN stages the G groups' routed tokens into one buffer, and
-    expert_counts becomes (G, E)."""
+    expert_counts becomes (G, E).  A mamba layer's mixer runs group by
+    group as attention does, on each group's rows of the SSM cache.
+
+    lens ((B,) integer, prefill): each row's true length, for the SSM
+    state and conv tails (attention masks the padded tail by slot_pos)."""
     aux, ecounts = 0.0, None
+
+    def mix(x, cache):
+        h = apply_norm(cfg, p.get("mamba_norm", {}), x)
+        return x + mamba_forward(cfg, p["mamba"], h, cache=cache, mode=mode,
+                                 lens=lens)
 
     def attend(x, positions, cache, pos):
         h = apply_norm(cfg, p.get("attn_norm", {}), x)
@@ -162,7 +172,10 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
             y = apply_norm(cfg, p["post_attn_norm"], y)
         return x + y
 
-    x = by_group(attend, token_groups, x, positions, cache, pos)
+    if spec.kind == "mamba":
+        x = by_group(mix, token_groups, x, cache)
+    else:
+        x = by_group(attend, token_groups, x, positions, cache, pos)
     if spec.ffn:
         h = by_group(lambda x: apply_norm(cfg, p.get("ffn_norm", {}), x),
                      token_groups, x)
@@ -192,7 +205,7 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 
 def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
             policy: Optional[ExecPolicy] = None, paged_blocks=None,
-            expert_state=None, fill_len=None,
+            expert_state=None, fill_len=None, lens=None,
             token_groups: Optional[int] = None):
     """tokens: (B,S) integer.  mode: train | prefill | decode |
     chunk_prefill.  Returns dict(hidden, cache, aux_loss); call `unembed`
@@ -211,6 +224,12 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
     count: padded tail positions are clamped to pos + fill_len, so they
     collapse into one slot that stays causally masked, and "pos" advances
     by fill_len.
+
+    lens ((B,) integer, prefill only): each row's true length where the
+    prompt is padded (the engine's buckets, a static micro-batch's
+    shorter rows).  The SSM layers then carry their state and conv tails
+    from that length; attention layers need no lens (the padded tail's
+    ring slots stay masked until decode overwrites them).
 
     token_groups=G (module-based batching, decode windows): B is G·ubatch,
     group-major; the MoE layers stage the G groups' routed tokens against
@@ -277,7 +296,8 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
                    if cache is not None else None),
             mode=run_mode, pos=pos, policy=policy,
             expert_fetch=ctx[key].make_fetch(layer) if key in ctx else None,
-            token_groups=token_groups)
+            token_groups=token_groups,
+            lens=lens if mode == "prefill" else None)
         if p is None:
             spans[key].release(layer)
         if ec is not None:

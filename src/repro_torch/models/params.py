@@ -11,10 +11,10 @@ Stacking matches the JAX package: the layers of each position in the
 repeating period are stacked on a leading "layers" axis, so the keys,
 shapes and stacking of both packages are the same (``models.convert``
 moves JAX weights over leaf by leaf).  The port covers the attention
-families it runs — GQA and MLA attention with dense or MoE FFNs, and the
-non-periodic prologue layers (stacked under ``params["prologue"]["p0"]``);
-mamba, cross-attention and encoder layers raise until their slice is
-ported.
+families it runs — GQA and MLA attention with dense or MoE FFNs, the
+Mamba-2 mixer (with or without an FFN after it), and the non-periodic
+prologue layers (stacked under ``params["prologue"]["p0"]``);
+cross-attention and encoder layers raise until their slice is ported.
 """
 from __future__ import annotations
 
@@ -138,15 +138,53 @@ def _moe_defs(cfg: ModelConfig, stack: int) -> Dict[str, ParamDef]:
     return d
 
 
+def _mamba_defs(cfg: ModelConfig, stack: int) -> Dict[str, ParamDef]:
+    """The Mamba-2 mixer, its projections stored per segment (z / x / B /
+    C / dt) as in the JAX package; a_log, d_skip and dt_bias are vectors
+    per head."""
+    E = cfg.d_model
+    d_in = cfg.ssm_expand * E
+    nh = d_in // cfg.ssm_head_dim
+    N = cfg.ssm_state
+    cw = cfg.ssm_conv_width
+
+    def conv(width, ax):
+        return ParamDef((stack, cw, width) if stack else (cw, width),
+                        (("layers",) if stack else ()) + (None, ax),
+                        "normal", fan_in=cw)
+
+    return {
+        "wz": _lin(E, d_in, "embed", "ssm_inner", stack),
+        "wx": _lin(E, d_in, "embed", "ssm_inner", stack),
+        "wB": _lin(E, N, "embed", None, stack),
+        "wC": _lin(E, N, "embed", None, stack),
+        "wdt": _lin(E, nh, "embed", "ssm_heads", stack),
+        "conv_x": conv(d_in, "ssm_inner"),
+        "conv_bx": _vec(d_in, "ssm_inner", "zeros", stack),
+        "conv_B": conv(N, None),
+        "conv_bB": _vec(N, None, "zeros", stack),
+        "conv_C": conv(N, None),
+        "conv_bC": _vec(N, None, "zeros", stack),
+        "a_log": _vec(nh, "ssm_heads", "ones", stack),
+        "d_skip": _vec(nh, "ssm_heads", "ones", stack),
+        "dt_bias": _vec(nh, "ssm_heads", "zeros", stack),
+        "norm": _vec(d_in, "ssm_inner", "ones", stack),
+        "out_proj": _lin(d_in, E, "ssm_inner", "embed", stack),
+    }
+
+
 def _block_defs(cfg: ModelConfig, spec: LayerSpec, stack: int) -> Dict:
-    if spec.kind == "mamba":
-        raise NotImplementedError("mamba layers are not ported yet")
     if spec.cross_attn:
         raise NotImplementedError("cross-attention is not ported yet")
-    d: Dict = {"attn": _attn_defs(cfg, spec, stack),
-               "attn_norm": _norm_def(cfg, stack)}
-    if cfg.post_block_norm:
-        d["post_attn_norm"] = _norm_def(cfg, stack)
+    d: Dict = {}
+    if spec.kind == "mamba":
+        d["mamba"] = _mamba_defs(cfg, stack)
+        d["mamba_norm"] = _norm_def(cfg, stack)
+    else:
+        d["attn"] = _attn_defs(cfg, spec, stack)
+        d["attn_norm"] = _norm_def(cfg, stack)
+        if cfg.post_block_norm:
+            d["post_attn_norm"] = _norm_def(cfg, stack)
     if spec.ffn:
         if spec.moe:
             d["moe"] = _moe_defs(cfg, stack)
@@ -213,9 +251,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             val = torch.full(d.shape, std / 48.0, dtype=torch.float32,
                              device=device)
         elif d.dtype == "int8":
-            val = torch.randn(d.shape, generator=generator, device=device)
-            val = torch.clamp(torch.round(val * 48.0), -127, 127).to(
-                torch.int8)
+            # one (layer, expert) matrix at a time: a whole leaf drawn in
+            # f32 at jamba's width would take 26 GB
+            lead = next(i for i, a in enumerate(d.axes)
+                        if a not in ("layers", "experts"))
+            val = torch.empty(d.shape, dtype=torch.int8, device=device)
+            for idx in np.ndindex(*d.shape[:lead]):
+                w = torch.randn(d.shape[lead:], generator=generator,
+                                device=device)
+                val[idx] = torch.clamp(torch.round(w * 48.0), -127, 127)
         else:
             std = (1.0 / math.sqrt(max(d.fan_in, 1))) if d.fan_in else 0.02
             val = torch.empty(d.shape, dtype=ldt, device=device)

@@ -316,6 +316,13 @@ class Engine:
             raise ValueError(f"unknown mode {ecfg.mode!r}")
         if ecfg.overlap and ecfg.mode != "continuous":
             raise ValueError("overlap admission requires continuous mode")
+        if ecfg.overlap and any(s.cache_kind() == "ssm" for s in
+                                list(cfg.period) + list(cfg.prologue)):
+            # a staged chunk would need the conv tails and the SSM state
+            # carried from chunk to chunk (the mixer's "chunk" mode raises)
+            raise ValueError(
+                "overlapped chunked-prefill admission needs "
+                "attention-only configs (no SSM / encoder layers)")
         if ecfg.watchdog_policy not in ("log", "skip", "abort"):
             raise ValueError(f"unknown watchdog_policy "
                              f"{ecfg.watchdog_policy!r}")
@@ -498,7 +505,7 @@ class Engine:
         self._kv_keys = kvcache.paged_period_keys(cfg)
         if not self._kv_keys:
             raise ValueError("kv_paged requires at least one "
-                             "full-attention kv period position")
+                             "full-attention kv/mla period position")
         mb = ecfg.max_seq // ecfg.block_tokens        # blocks per slot
         n_slots = ecfg.num_ubs * ecfg.ubatch
         total = n_slots * mb

@@ -41,16 +41,17 @@ def make_prefill_fill_step(cfg: ModelConfig,
     """(params, tokens (B,S), cache, lens (B,)) -> (logits (B,V), cache).
     Writes the prompt's KV into `cache` (in place).  `lens` are the true
     prompt lengths: logits are taken at each row's own final position and
-    the cache's pos is set per row.  Expert-granular: a trailing
-    ``expert_state`` argument, and the counts {key: (L, E)} as a third
-    output."""
+    the cache's pos is set per row, and the SSM layers carry their state
+    from each row's true length (``forward``'s ``lens``).  Expert-granular:
+    a trailing ``expert_state`` argument, and the counts {key: (L, E)} as a
+    third output."""
 
     expert = _expert_granular(paged_blocks)
 
     def prefill_step(params, tokens, cache, lens, expert_state=None):
         out = forward(cfg, params, tokens, cache=cache, mode="prefill",
                       policy=policy, paged_blocks=paged_blocks,
-                      expert_state=expert_state)
+                      expert_state=expert_state, lens=lens)
         cache = out["cache"]
         cache["pos"] = lens.to(torch.int32)
         idx = torch.clamp(lens - 1, min=0).long()

@@ -7,6 +7,8 @@
     Pallas kernels' int8 branch in interpret mode, partials within 1e-5,
     at blocks of 4, 8 and 16, fused and unfused; the fused int8 form
     against write-then-attend bit for bit; the int8 arena's layout.
+  * Params: the port's own draw of int8 experts, a (layer, expert)
+    matrix at a time, in the JAX package's layout.
   * Model: ``moe_grouped`` with int8 experts, and float32 logits within
     1e-4 of the JAX package's for qwen2.5-3b smoke with int8 KV (prefill
     and three decodes over the dense ring and over a paged arena, and
@@ -53,6 +55,7 @@ from repro_torch.models import kvcache  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models import params as t_params  # noqa: E402
 from repro_torch.serving import steps  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig  # noqa: E402
 from repro_torch.serving.scheduler import SlotState  # noqa: E402
@@ -243,6 +246,26 @@ def test_int8_expert_params_convert_unchanged(mixtral8):
     assert tm["wi_scale"].dtype == tm["wo_scale"].dtype == torch.float32
     for name in ("wi", "wo", "wi_scale", "wo_scale"):
         np.testing.assert_array_equal(tm[name].numpy(), np.asarray(jm[name]))
+
+
+def test_init_params_draws_int8_experts_per_matrix(mixtral8):
+    """The port's own int8 expert draw, one (layer, expert) matrix at a
+    time: the JAX package's shapes and dtypes, N(0, 1) x 48 rounded and
+    clipped to int8, and every matrix a draw of its own."""
+    _, tcfg, params, _ = mixtral8
+    got = t_params.init_params(tcfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    jm, tm = params["blocks"]["p0"]["moe"], got["blocks"]["p0"]["moe"]
+    for name in ("wi", "wo", "wi_scale", "wo_scale"):
+        assert tuple(tm[name].shape) == jm[name].shape
+        assert str(tm[name].dtype).split(".")[-1] == str(jm[name].dtype)
+    for name in ("wi", "wo"):
+        w = tm[name].float()
+        assert float(w.abs().max()) <= 127
+        assert abs(float(w.mean())) < 0.5 and abs(float(w.std()) - 48) < 2
+        mats = w.flatten(0, 1)                # (layers x experts, ...)
+        assert all(not torch.equal(mats[i], mats[j])
+                   for i in range(len(mats)) for j in range(i))
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
