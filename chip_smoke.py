@@ -262,6 +262,37 @@ Phases, each printing JSON lines:
                    the 2-4 occupied experts), flash_prefill (H 64 / Hkv 8,
                    D 128, S 384), gqa_decode and paged_gqa_decode (G 8) at
                    jamba's shapes (sub-records "families").
+     check_whisper — whisper-small at full width, 2 of its 12 encoder
+                   and 2 of its 12 decoder layers, f32: ``models.inputs.
+                   concrete_inputs``' tokens and 1500 frames, a prefill
+                   and 8 greedy decode steps through the kernels (the
+                   encoder's and the cross-attention's non-causal
+                   flash_prefill, one decode query over the encoder's
+                   keys) against the plain path within 1e-4, the
+                   persisted cross K / V too; launches to the count.
+     serve_whisper — all 12 + 12 layers, bf16: 8 requests of 1500
+                   frames and 4..64 prompt tokens, each prefilled alone
+                   through ``forward`` (the engine takes no frames, in
+                   either package) into a row of one cache, then 31
+                   greedy cached decode steps of the batch: prefill s
+                   (encoder included), decode tok/s, peak memory,
+                   launches to the count; the same through the plain
+                   versions (transcripts compared); a trace window.
+     check_paligemma / serve_paligemma — paligemma-3b at full width: 2
+                   of 18 layers in f32 with 256 patches + 96 text tokens
+                   (kernel against plain path within 1e-4; the prefix
+                   must move every text position's logits), then all 18
+                   layers in bf16: 8 requests of 256 patches + 32..128
+                   text tokens through ``forward`` as whisper's, then
+                   text only through the engine over the dense ring
+                   (``serve``'s settings and prompts, 8 x 32) and a
+                   trace window.  The kernel phase holds flash_prefill
+                   non-causal at whisper's encoder (8 x 1500, H 12, D
+                   64) and cross shapes (S 64 and 1 over 1500 keys), its
+                   wide causal body at paligemma's prefix (S 384, H 8 /
+                   Hkv 1, D 256), and gqa_decode at G 1 / D 64 and G 8 /
+                   D 256, each in bf16 and f32 (sub-records
+                   "families").
      launch      — the port's ``launch/serve.py --smoke --hw h100`` on the
                    card, and with ``--paged``: every request done.
   8. serve_mla   — deepseek-v3-671b at full width with the depth cut from
@@ -427,6 +458,28 @@ JAMBA_EXPERT = {**JAMBA_SERVE, "expert_paged": True, "w_gpu_ratio": 0.5,
                 "kv_prefetch": True}
 JAMBA_REQUESTS, JAMBA_PROMPT_LENS, JAMBA_NEW_TOKENS = 4, (64, 256), 16
 JAMBA_KERNEL_S = 384          # flash_prefill's jamba record
+# The encoder-decoder and VLM slice.  whisper-small is driven through
+# forward (the engine cannot serve an encoder's input, in either package):
+# each request prefilled alone (its 1500 frames through the encoder, its
+# prompt through the decoder) into a row of one batch cache, then greedy
+# cached decode steps of the whole batch.  check_whisper: 2 of 12 encoder
+# and 2 of 12 decoder layers in f32, kernel path against plain path
+WHISPER_ARCH, PALIGEMMA_ARCH = "whisper-small", "paligemma-3b"
+WHISPER_REQUESTS, WHISPER_PROMPT_LENS, WHISPER_NEW_TOKENS = 8, (4, 64), 32
+WHISPER_MAX_SEQ = 128
+CHECK_WHISPER_LAYERS, CHECK_WHISPER_BATCH, CHECK_WHISPER_PROMPT = 2, 2, 48
+CHECK_STEPS = 8               # decode steps of check_whisper, check_paligemma
+# paligemma-3b: its 256 patch embeddings as the prefix of each prompt,
+# then 32..128 text tokens, through forward as whisper (the engine takes
+# no patches, in either package); then text only through the engine over
+# the dense ring at serve's settings.  check_paligemma: 2 of 18 layers in
+# f32, one prefix + 96 text tokens a row
+PALIGEMMA_REQUESTS, PALIGEMMA_TEXT_LENS = 8, (32, 128)
+PALIGEMMA_NEW_TOKENS, PALIGEMMA_MAX_SEQ = 32, 512
+CHECK_PALIGEMMA_LAYERS, CHECK_PALIGEMMA_BATCH = 2, 2
+CHECK_PALIGEMMA_TEXT = 96
+# the prefix moves every text position's logits by at least this much
+PREFIX_EFFECT = 1e-2
 HOST_MARGIN = 1.2             # MemAvailable must hold the stores + 20 %
 HOST_RESERVE = 20 << 30       # ... and leave 20 GiB beside them
 # bf16 tolerances.  A kernel and its plain version both compute in f32 from
@@ -762,6 +815,7 @@ def phase_kernels(torch, F):
     records.append(kernel_mla(torch, timer, rn))
     records.append(kernel_families(torch, F, timer, rn, records))
     kernel_jamba(torch, F, timer, rn, records)
+    kernel_encdec(torch, F, timer, rn, records)
     torch.cuda.empty_cache()
     records.append(kernel_expert_gather(torch, timer, rn))
     return records
@@ -1118,6 +1172,126 @@ def kernel_jamba(torch, F, timer, rn, records):
     emit({"phase": "kernel_bf16", "name": "paged_gqa_decode",
           "model": JAMBA_ARCH, **rec})
     fam["paged_gqa_decode"][JAMBA_ARCH] = rec
+
+
+def attention_case(torch, F, timer, q, k, v, causal: bool, scale: float):
+    """flash_prefill on one bf16 shape against its plain version (within
+    ``BF16_OUT_TOL``), and on the same inputs in f32 (within ``F32_TOL``),
+    timed beside its bound and SDPA (non-causal, or causal: the library
+    call computes the same function).  Non-causal, every query sees every
+    key; causal, the prompt's own pairs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, scale=scale)
+    got, want = flash_prefill(q, k, v, **kw), \
+        ref.flash_prefill_ref(q, k, v, **kw)
+    err = max_err(got, want)
+    require(close(got, want, BF16_OUT_TOL),
+            f"flash_prefill bf16 (S {S}, Skv {Skv}, H {H} / {Hkv}, D {D}, "
+            f"causal {causal}): {err}")
+    qf, kf, vf = q.float(), k.float(), v.float()
+    got32, want32 = flash_prefill(qf, kf, vf, **kw), \
+        ref.flash_prefill_ref(qf, kf, vf, **kw)
+    err32 = max_err(got32, want32)
+    require(close(got32, want32, F32_TOL),
+            f"flash_prefill f32 (S {S}, Skv {Skv}, H {H} / {Hkv}, D {D}, "
+            f"causal {causal}): {err32}")
+    del got, want, got32, want32, qf, kf, vf
+    pairs = B * (S * (S + 1) // 2 if causal else S * Skv)
+    bms, by = bound(2 * (2 * B * S * H * D + 2 * B * Skv * Hkv * D),
+                    2 * pairs * H * 2 * D)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return {
+        "shape": {"B": B, "S": S, "Skv": Skv, "H": H, "Hkv": Hkv, "D": D,
+                  "causal": causal, "pairs": pairs, "dtype": "bf16"},
+        "max_abs_err": err, "max_abs_err_f32": err32, "tol_f32": F32_TOL,
+        "ms": timer(lambda: flash_prefill(q, k, v, **kw)),
+        "plain_ms": timer(lambda: ref.flash_prefill_ref(q, k, v, **kw)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": timer(sdpa_gqa(F, qt, kt, vt, H // Hkv, scale=scale,
+                                     is_causal=causal)),
+        "library_call": "scaled_dot_product_attention, "
+                        + ("causal" if causal else "non-causal")}
+
+
+def kernel_encdec(torch, F, timer, rn, records):
+    """The shapes whisper-small and paligemma-3b give two kernels, each
+    held against its plain version in bf16 and f32 and timed beside its
+    bound and one library call, as sub-records "families" of their
+    kernel's record: flash_prefill's non-causal form at whisper's encoder
+    (8 x 1500 frames, H 12, D 64) and at its cross-attention (S 64, and
+    the decode form S 1, over the 1500 encoder keys); the causal wide (D
+    256) body at paligemma's prefix prefill (256 patches + 128 text
+    tokens, H 8 over one KV head); gqa_decode at whisper's G 1, D 64 and
+    paligemma's G 8, D 256 over the rings their serve phases fill."""
+    by_name = {r["name"]: r for r in records}
+    fam = {name: by_name[name].setdefault("families", {}) for name in
+           ("flash_prefill", "flash_prefill_d256", "gqa_decode")}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 27)
+    wh = _family(WHISPER_ARCH)
+    B, Se, H, D = WHISPER_REQUESTS, wh.encoder_seq, wh.num_heads, wh.head_dim
+    Hkv = wh.num_kv_heads
+    k, v = rn(B, Se, Hkv, D), rn(B, Se, Hkv, D)
+    cases = {}
+    for label, S in (("encoder", Se), ("cross", WHISPER_PROMPT_LENS[1]),
+                     ("cross_decode", 1)):
+        q = rn(B, S, H, D)
+        cases[label] = attention_case(torch, F, timer, q, k, v, False,
+                                      D ** -0.5)
+        emit({"phase": "kernel_bf16", "name": "flash_prefill",
+              "model": WHISPER_ARCH, "at": label, **cases[label]})
+        del q
+    fam["flash_prefill"][WHISPER_ARCH] = {
+        **cases["encoder"], "cross": cases["cross"],
+        "cross_decode": cases["cross_decode"]}
+    del k, v
+
+    pg = _family(PALIGEMMA_ARCH)
+    S = pg.vision_tokens + PALIGEMMA_TEXT_LENS[1]
+    H, Hkv, D = pg.num_heads, pg.num_kv_heads, pg.head_dim
+    q, k, v = rn(1, S, H, D), rn(1, S, Hkv, D), rn(1, S, Hkv, D)
+    rec = attention_case(torch, F, timer, q, k, v, True, pg.query_scale)
+    emit({"phase": "kernel_bf16", "name": "flash_prefill_d256",
+          "model": PALIGEMMA_ARCH, **rec})
+    fam["flash_prefill_d256"][PALIGEMMA_ARCH] = rec
+    del q, k, v
+
+    for arch, cfg, B, W, lo, hi in (
+            (WHISPER_ARCH, wh, WHISPER_REQUESTS, WHISPER_MAX_SEQ,
+             WHISPER_PROMPT_LENS[0] + 1,
+             WHISPER_PROMPT_LENS[1] + WHISPER_NEW_TOKENS),
+            (PALIGEMMA_ARCH, pg, PALIGEMMA_REQUESTS, PALIGEMMA_MAX_SEQ,
+             pg.vision_tokens + PALIGEMMA_TEXT_LENS[0] + 1,
+             pg.vision_tokens + PALIGEMMA_TEXT_LENS[1]
+             + PALIGEMMA_NEW_TOKENS)):
+        H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q, k, v = rn(B, H, D), rn(B, W, Hkv, D), rn(B, W, Hkv, D)
+        lens = torch.randint(lo, hi, (B,), generator=g, device=DEVICE)
+        valid = torch.arange(W, device=DEVICE)[None, :] < lens[:, None]
+        kw = dict(scale=cfg.query_scale or D ** -0.5)
+        rec = gqa_case(torch, F, timer, q, k, v, valid, kw)
+        rec["f32"] = gqa_f32_case(torch, q, k, v, valid, kw)
+        emit({"phase": "kernel_bf16", "name": "gqa_decode", "model": arch,
+              **rec})
+        fam["gqa_decode"][arch] = rec
+        del q, k, v
+
+
+def gqa_f32_case(torch, q, k, v, valid, kw) -> dict:
+    """gqa_decode on f32 copies of a bf16 case's inputs against its plain
+    version, within ``F32_TOL``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gqa_decode import gqa_decode
+    q, k, v = q.float(), k.float(), v.float()
+    got, want = gqa_decode(q, k, v, valid, **kw), \
+        ref.gqa_decode_ref(q, k, v, valid, **kw)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    require(all(close(a, b, F32_TOL) for a, b in zip(got, want)),
+            f"gqa_decode f32 (H {q.shape[1]} / {k.shape[2]}, D "
+            f"{q.shape[2]}): {err}")
+    return {"max_abs_err": err, "tol": F32_TOL}
 
 
 def kernel_expert_gather(torch, timer, rn):
@@ -2794,16 +2968,24 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests,
     It records the device's activity only: every number here is read from
     it, and recording the host's operators too multiplied the processing
     and lengthened the window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     rng = np.random.default_rng(SEED + 1)
     for n in rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests):
         eng.submit(rng.integers(2, eng.cfg.vocab_size, n), new_tokens)
+    trace_window(torch, label, eng.run_until_idle, requests=n_requests,
+                 new_tokens_each=new_tokens)
+
+
+def trace_window(torch, label, run, **extra) -> None:
+    """`run()` under torch.profiler (the device's activity only): device
+    time by kernel family and the device's busy share of the window's wall
+    time, emitted as a ``trace`` line with `extra`'s keys."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run_until_idle()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     families = {"moe_ffn": ("moe_flags", "moe_up", "moe_down", "moe_reduce"),
@@ -2829,8 +3011,7 @@ def phase_trace(torch, np, eng, label, prompt_lens, n_requests,
     # kernels (the expert-paged path), it can exceed the wall time, so the
     # kernels' share is given apart
     kernel_ms = device_ms - ms["memcpy_htod"] - ms["memcpy_dtoh"]
-    emit({"phase": "trace", "engine": label, "requests": n_requests,
-          "new_tokens_each": new_tokens,
+    emit({"phase": "trace", "engine": label, **extra,
           "wall_ms": wall * 1e3, "device_ms": device_ms,
           "device_busy_share": device_ms / (wall * 1e3),
           "kernel_busy_share": kernel_ms / (wall * 1e3),
@@ -4762,6 +4943,316 @@ def phase_serve_jamba_expert(torch, np, ops, records):
     return launches
 
 
+def serve_forward(torch, cfg, params, requests, extra: str, policy,
+                  max_seq: int, new_tokens: int):
+    """Greedy serving through ``forward``: each request (``concrete_inputs``
+    of one row: its "tokens" and its `extra` frontend input) prefilled
+    alone into a batch-1 cache whose row is then copied into one batch
+    cache (``kvcache.insert_slot``: the rings, ``pos`` and whisper's
+    cross K / V), then ``new_tokens - 1`` cached decode steps of the whole
+    batch, each row at its own position.  Returns the transcripts
+    (``new_tokens`` each, the prefill's token first), the synchronized
+    prefill and decode seconds, and whether every logit was finite."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import forward, unembed
+    cache = kvcache.init_cache(cfg, len(requests), max_seq, device=DEVICE)
+    finite = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = []
+    for row, r in enumerate(requests):
+        single = kvcache.init_cache(cfg, 1, max_seq, device=DEVICE)
+        fwd = forward(cfg, params, r["tokens"], cache=single, mode="prefill",
+                      policy=policy, **{extra: r[extra]})
+        logits = unembed(cfg, params, fwd["hidden"][:, -1])
+        finite &= bool(torch.isfinite(logits).all())
+        first.append(logits.argmax(-1))
+        kvcache.insert_slot(cache, single, row)
+        del single, fwd
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = torch.stack(first)                                  # (B, 1)
+    out = [tok]
+    for _ in range(new_tokens - 1):
+        fwd = forward(cfg, params, tok, cache=cache, mode="decode",
+                      policy=policy)
+        logits = unembed(cfg, params, fwd["hidden"][:, -1])
+        finite &= bool(torch.isfinite(logits).all())
+        tok = logits.argmax(-1, keepdim=True)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return torch.cat(out, 1).tolist(), t1 - t0, t2 - t1, finite
+
+
+def serve_forward_phase(torch, ops, cfg, params, requests, extra, phase,
+                        max_seq, new_tokens, expected):
+    """``serve_forward`` through the kernels (every count set to 0 just
+    before, read just after; the launches must equal `expected`, the count
+    of one launch a layer a forward), then through the plain versions on
+    the same requests (``ExecPolicy(impl="ref")``): how many transcripts
+    agree is printed.  Returns the kernel path's launches."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import count_params
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    outs, prefill_s, decode_s, finite = serve_forward(
+        torch, cfg, params, requests, extra, ExecPolicy(use_kernels=True),
+        max_seq, new_tokens)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plain, plain_prefill_s, plain_decode_s, plain_finite = serve_forward(
+        torch, cfg, params, requests, extra, ExecPolicy(impl="ref"),
+        max_seq, new_tokens)
+    B = len(requests)
+    decode_tokens = B * (new_tokens - 1)
+    emit({"phase": phase, "model": cfg.name, "layers": cfg.num_layers,
+          "of_layers": cfg.num_layers,
+          "encoder_layers": cfg.encoder_layers,
+          "params": count_params(cfg),
+          "requests": B,
+          "prompt_lens": [int(r["tokens"].shape[1]) for r in requests],
+          "new_tokens_each": new_tokens, "prefill_s": prefill_s,
+          "decode_s": decode_s, "decode_tokens": decode_tokens,
+          "decode_tok_per_s": decode_tokens / decode_s,
+          "max_memory_allocated": peak, "launches": launches,
+          "expected_launches": expected,
+          "plain_prefill_s": plain_prefill_s,
+          "plain_decode_tok_per_s": decode_tokens / plain_decode_s,
+          "identical_to_plain": sum(a == b for a, b in zip(outs, plain)),
+          "requests_total": B})
+    require(finite and plain_finite, f"{phase}: logits not finite")
+    require(all(0 <= t < cfg.vocab_size for o in outs for t in o)
+            and all(len(o) == new_tokens for o in outs),
+            f"{phase}: transcripts malformed")
+    require(all(launches[k] == n for k, n in expected.items()),
+            f"{phase}: launches {launches}, expected {expected}")
+    return launches
+
+
+def check_paths(torch, cfg, params, tokens, extras, steps, tol, phase):
+    """Prefill `tokens` (with `extras`, the frontend inputs) into a cache,
+    then `steps` greedy decode steps, through the kernels (counted) and
+    then through the plain versions fed the same tokens: the logits of the
+    prefill and of every step within `tol` of the plain path's, and
+    whisper's persisted cross K / V too.  Returns the launches, the largest
+    differences and the kernel path's prefill logits."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import ExecPolicy, forward, unembed
+    B, S = tokens.shape
+    errs, logits, caches, fed = {}, {}, {}, []
+    for label, pol in (("kernels", ExecPolicy(use_kernels=True)),
+                       ("plain", ExecPolicy(impl="ref"))):
+        ops.reset_launch_counts()
+        cache = kvcache.init_cache(cfg, B, S + steps + 1, device=DEVICE)
+        fwd = forward(cfg, params, tokens, cache=cache, mode="prefill",
+                      policy=pol, **extras)
+        out = [unembed(cfg, params, fwd["hidden"])]
+        for t in range(steps):
+            if label == "kernels":
+                fed.append(out[-1][:, -1].argmax(-1, keepdim=True))
+            fwd = forward(cfg, params, fed[t], cache=cache, mode="decode",
+                          policy=pol)
+            out.append(unembed(cfg, params, fwd["hidden"]))
+        torch.cuda.synchronize()
+        if label == "kernels":
+            launches = ops.launch_counts()
+        logits[label], caches[label] = out, cache
+    for t, (a, b) in enumerate(zip(logits["kernels"], logits["plain"])):
+        name = "prefill" if t == 0 else f"decode{t - 1}"
+        require(bool(torch.isfinite(a).all()), f"{phase} {name}: not finite")
+        errs[name] = max_err(a, b)
+        require(close(a, b, tol), f"{phase} {name}: {errs[name]}")
+    if "xattn" in caches["kernels"]:
+        for k in ("k", "v"):
+            a, b = caches["kernels"]["xattn"][k], caches["plain"]["xattn"][k]
+            errs["xattn_" + k] = max_err(a, b)
+            require(close(a, b, tol),
+                    f"{phase} xattn {k}: {errs['xattn_' + k]}")
+    return launches, errs, logits["kernels"][0]
+
+
+def phase_check_whisper(torch, np, ops):
+    """whisper-small at full width, ``CHECK_WHISPER_LAYERS`` of its 12
+    encoder and 12 decoder layers, float32, random weights from a seed:
+    ``concrete_inputs``' tokens and 1500 frames a row, prefilled, then
+    ``CHECK_STEPS`` greedy decode steps through the kernels (the encoder's
+    and the cross-attention's non-causal flash_prefill, one decode query
+    over the encoder keys, the decoder's causal flash_prefill and
+    gqa_decode) against the plain path within ``F32_TOL``.  Returns the
+    launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.inputs import concrete_inputs
+    from repro_torch.models.params import init_params
+    L = CHECK_WHISPER_LAYERS
+    cfg = dataclasses.replace(_family(WHISPER_ARCH), num_layers=L,
+                              encoder_layers=L, dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 14), device=DEVICE)
+    inp = concrete_inputs(cfg, ShapeConfig(
+        "check_whisper", CHECK_WHISPER_PROMPT, CHECK_WHISPER_BATCH,
+        "prefill"), seed=SEED + 14, device=DEVICE)
+    launches, errs, _ = check_paths(
+        torch, cfg, params, inp["tokens"], {"frames": inp["frames"]},
+        CHECK_STEPS, F32_TOL, "check_whisper")
+    expected = {"flash_prefill": 3 * L + CHECK_STEPS * L,
+                "gqa_decode": CHECK_STEPS * L}
+    emit({"phase": "check_whisper", "layers": L, "encoder_layers": L,
+          "batch": CHECK_WHISPER_BATCH, "prompt": CHECK_WHISPER_PROMPT,
+          "frames": cfg.encoder_seq, "decode_steps": CHECK_STEPS,
+          "dtype": "float32", "max_abs_diff": errs, "tol": F32_TOL,
+          "launches": launches, "expected_launches": expected})
+    require(all(launches[k] == n for k, n in expected.items()),
+            f"check_whisper: launches {launches}, expected {expected}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_check_paligemma(torch, np, ops):
+    """paligemma-3b at full width, ``CHECK_PALIGEMMA_LAYERS`` of its 18
+    layers, float32: ``concrete_inputs``' 256 patches and 256 + 96 tokens
+    a row (the first 256 replaced by the patches), prefilled, then
+    ``CHECK_STEPS`` greedy decode steps through the kernels against the
+    plain path within ``F32_TOL``; and the prefix must move every text
+    position's prefill logits (against the same tokens without patches)
+    by more than ``PREFIX_EFFECT``.  Returns the launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import kvcache
+    from repro_torch.models.inputs import concrete_inputs
+    from repro_torch.models.model import ExecPolicy, forward, unembed
+    from repro_torch.models.params import init_params
+    L = CHECK_PALIGEMMA_LAYERS
+    cfg = dataclasses.replace(_family(PALIGEMMA_ARCH), num_layers=L,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 15), device=DEVICE)
+    nv = cfg.vision_tokens
+    inp = concrete_inputs(cfg, ShapeConfig(
+        "check_paligemma", nv + CHECK_PALIGEMMA_TEXT,
+        CHECK_PALIGEMMA_BATCH, "prefill"), seed=SEED + 15, device=DEVICE)
+    launches, errs, with_prefix = check_paths(
+        torch, cfg, params, inp["tokens"], {"patches": inp["patches"]},
+        CHECK_STEPS, F32_TOL, "check_paligemma")
+    B, S = inp["tokens"].shape
+    text = unembed(cfg, params, forward(
+        cfg, params, inp["tokens"],
+        cache=kvcache.init_cache(cfg, B, S + 1, device=DEVICE),
+        mode="prefill", policy=ExecPolicy(use_kernels=True))["hidden"])
+    moved = (with_prefix[:, nv:] - text[:, nv:]).abs().amax(-1)   # (B, T)
+    effect = float(moved.min())
+    expected = {"flash_prefill": L, "gqa_decode": CHECK_STEPS * L}
+    emit({"phase": "check_paligemma", "layers": L,
+          "batch": CHECK_PALIGEMMA_BATCH, "vision_tokens": nv,
+          "text_tokens": CHECK_PALIGEMMA_TEXT, "decode_steps": CHECK_STEPS,
+          "dtype": "float32", "max_abs_diff": errs, "tol": F32_TOL,
+          "prefix_effect_min": effect, "prefix_effect_bound": PREFIX_EFFECT,
+          "launches": launches, "expected_launches": expected})
+    require(all(launches[k] == n for k, n in expected.items()),
+            f"check_paligemma: launches {launches}, expected {expected}")
+    require(effect > PREFIX_EFFECT,
+            f"check_paligemma: the prefix moves a text position's logits "
+            f"by only {effect}")
+    del params, with_prefix, text
+    torch.cuda.empty_cache()
+    return launches
+
+
+def forward_requests(np, cfg, n, lens, extra_len, seed):
+    """`n` requests of ``concrete_inputs`` draws, one row each: prompts of
+    ``extra_len`` + lens[0]..lens[1] tokens (paligemma's prefix in front)
+    and their frontend input."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.inputs import concrete_inputs
+    rng = np.random.default_rng(seed)
+    return [concrete_inputs(cfg, ShapeConfig(f"request{i}",
+                                             extra_len + int(m), 1,
+                                             "prefill"),
+                            seed=seed + i, device=DEVICE)
+            for i, m in enumerate(rng.integers(lens[0], lens[1] + 1, n))]
+
+
+def phase_serve_whisper(torch, np, ops):
+    """whisper-small at full width and depth (12 encoder and 12 decoder
+    layers, bf16), random weights from a seed: ``WHISPER_REQUESTS``
+    requests of 1500 frames and 4..64 prompt tokens, ``WHISPER_NEW_TOKENS``
+    greedy tokens each, through ``serve_forward`` (the prefill seconds
+    include the encoder); then a trace window of one request's prefill
+    and 8 decode steps.  Returns the launches."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import init_params
+    cfg = _family(WHISPER_ARCH)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                         device=DEVICE)
+    reqs = forward_requests(np, cfg, WHISPER_REQUESTS,
+                            WHISPER_PROMPT_LENS, 0, SEED + 16)
+    L, n, steps = cfg.num_layers, WHISPER_REQUESTS, WHISPER_NEW_TOKENS - 1
+    # a prefill: the encoder's layers and the decoder's self- and cross-
+    # attention; a decode step: gqa_decode and the cross-attention
+    expected = {"flash_prefill": n * (cfg.encoder_layers + 2 * L)
+                + steps * L, "gqa_decode": steps * L}
+    launches = serve_forward_phase(
+        torch, ops, cfg, params, reqs, "frames", "serve_whisper",
+        WHISPER_MAX_SEQ, WHISPER_NEW_TOKENS, expected)
+    trace_window(torch, WHISPER_ARCH, lambda: serve_forward(
+        torch, cfg, params, reqs[:1], "frames", ExecPolicy(use_kernels=True),
+        WHISPER_MAX_SEQ, 9), requests=1, new_tokens_each=9)
+    del params, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve_whisper": launches}
+
+
+def phase_serve_paligemma(torch, np, ops):
+    """paligemma-3b at full width and all 18 layers (bf16), random weights
+    from a seed: ``PALIGEMMA_REQUESTS`` requests of 256 patches + 32..128
+    text tokens, ``PALIGEMMA_NEW_TOKENS`` greedy tokens each, through
+    ``serve_forward``; then text only through the engine over the dense
+    ring at ``serve``'s settings (``FAMILY_REQUESTS`` prompts of
+    ``PROMPT_LENS``, ``FAMILY_NEW_TOKENS`` each) and a trace window of it.
+    Returns each run's launches."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg = _family(PALIGEMMA_ARCH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = forward_requests(np, cfg, PALIGEMMA_REQUESTS,
+                            PALIGEMMA_TEXT_LENS, cfg.vision_tokens,
+                            SEED + 17)
+    L, steps = cfg.num_layers, PALIGEMMA_NEW_TOKENS - 1
+    expected = {"flash_prefill": PALIGEMMA_REQUESTS * L,
+                "gqa_decode": steps * L}
+    launches = {"serve_paligemma": serve_forward_phase(
+        torch, ops, cfg, params, reqs, "patches", "serve_paligemma",
+        PALIGEMMA_MAX_SEQ, PALIGEMMA_NEW_TOKENS, expected)}
+    del reqs
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, EngineConfig(**SERVE),
+                 ExecPolicy(moe_impl="grouped", use_kernels=True),
+                 device=DEVICE)
+    _, res, _ = serve_run(torch, np, eng, ops, PROMPT_LENS, FAMILY_REQUESTS,
+                          SEED + 18, FAMILY_NEW_TOKENS)
+    emit({"phase": "serve_paligemma_engine", "model": PALIGEMMA_ARCH,
+          "layers": L, "of_layers": L, "params": count_params(cfg),
+          "init_s": init_s, "engine": SERVE, "text_only": True, **res})
+    require(all(res["launches"][k] > 0 for k in ("gqa_decode",
+                                                  "flash_prefill")),
+            f"serve_paligemma_engine: a kernel of the path never launched: "
+            f"{res['launches']}")
+    launches["serve_paligemma_engine"] = res["launches"]
+    phase_trace(torch, np, eng, PALIGEMMA_ARCH, PROMPT_LENS, 2, 8)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4912,6 +5403,12 @@ def main() -> int:
     launches_mamba2 = phase_serve_mamba2(torch, np, ops)
     host_memory("before serve_jamba_expert")
     launches_jamba = phase_serve_jamba_expert(torch, np, ops, records)
+    # the encoder-decoder and VLM slice: whisper (2 + 2 layers in f32,
+    # then all 12 + 12) and paligemma (2 layers in f32, then all 18)
+    launches_check_whisper = phase_check_whisper(torch, np, ops)
+    launches_whisper = phase_serve_whisper(torch, np, ops)
+    launches_check_paligemma = phase_check_paligemma(torch, np, ops)
+    launches_paligemma = phase_serve_paligemma(torch, np, ops)
     launches_launch = phase_launch(torch, ops)
     eng_mla, mla_prompts, launches_mla = phase_serve_mla(torch, np, ops)
     phase_trace(torch, np, eng_mla, "mla", PAGED_PROMPT_LENS, 16)
@@ -4944,7 +5441,10 @@ def main() -> int:
                  "check_gemma2": launches_check_gemma2,
                  **launches_gemma2, **launches_glm4, **launches_olmo,
                  "check_mamba2": launches_check_mamba2, **launches_mamba2,
-                 **launches_jamba}
+                 **launches_jamba,
+                 "check_whisper": launches_check_whisper, **launches_whisper,
+                 "check_paligemma": launches_check_paligemma,
+                 **launches_paligemma}
     # each family shape's main path
     family_paths = {
         ("moe_ffn", "moonshot-v1-16b-a3b"):
@@ -4957,7 +5457,13 @@ def main() -> int:
         ("flash_prefill", JAMBA_ARCH): launches_jamba["serve_jamba"],
         ("gqa_decode", JAMBA_ARCH): launches_jamba["serve_jamba"],
         ("paged_gqa_decode", JAMBA_ARCH):
-            launches_jamba["serve_jamba_expert"]}
+            launches_jamba["serve_jamba_expert"],
+        ("flash_prefill", WHISPER_ARCH): launches_whisper["serve_whisper"],
+        ("gqa_decode", WHISPER_ARCH): launches_whisper["serve_whisper"],
+        ("flash_prefill_d256", PALIGEMMA_ARCH):
+            launches_paligemma["serve_paligemma"],
+        ("gqa_decode", PALIGEMMA_ARCH):
+            launches_paligemma["serve_paligemma"]}
     for rec in records:
         # the wide flash_prefill body counts under its wrapper's name
         counter = rec["name"].removesuffix("_d256")
@@ -4965,11 +5471,12 @@ def main() -> int:
         rec["launches_by_path"] = {k: v[counter]
                                    for k, v in new_paths.items()}
         if rec["name"] == "flash_prefill_d256":
-            # only gemma2's bf16 paths run the wide body (check_gemma2 is
-            # f32: the CUDA-core body)
+            # only gemma2's and paligemma's bf16 paths run the wide body
+            # (check_gemma2 and check_paligemma are f32: the CUDA-core body)
             rec["launches_by_path"] = {
                 k: new_paths[k][counter]
-                for k in ("serve_gemma2", "serve_gemma2_paged")}
+                for k in ("serve_gemma2", "serve_gemma2_paged",
+                          "serve_paligemma", "serve_paligemma_engine")}
         for model, sub in rec.get("families", {}).items():
             sub["launches"] = family_paths[rec["name"], model][counter]
             require(sub["launches"] > 0,

@@ -7,7 +7,9 @@ head_dim 256), glm4-9b (QKV bias, 16 query heads a KV head), olmo-1b
 (non-parametric LayerNorm, MHA), the 64-expert MoE
 moonshot-v1-16b-a3b, the attention-free Mamba-2 model mamba2-1.3b and the
 hybrid jamba-1.5-large-398b (Mamba-2 mixers, one attention layer a period
-of 8, a 16-expert MoE on every other layer).
+of 8, a 16-expert MoE on every other layer), the encoder-decoder
+whisper-small (its decoder cross-attends the encoder's output) and the
+VLM paligemma-3b (a prefix of patch embeddings before the text).
 ``get_config(arch).smoke()`` is the reduced same-family config the CPU tests
 use.
 """
@@ -29,6 +31,8 @@ _ARCH_MODULES = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "mamba2-1.3b": "mamba2_1_3b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "whisper-small": "whisper_small",
+    "paligemma-3b": "paligemma_3b",
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)

@@ -1,5 +1,8 @@
-// Causal flash attention for prefill on Hopper.  Replaces the Pallas TPU
-// kernel repro/kernels/flash_prefill.py::flash_prefill (body _kernel).
+// Flash attention for prefill on Hopper, causal or not.  Replaces the
+// Pallas TPU kernel repro/kernels/flash_prefill.py::flash_prefill (body
+// _kernel).  The non-causal form (whisper's encoder, and its decoder's
+// cross-attention: S queries over Skv encoder keys, S = 1 in decode)
+// masks by kv_len alone; nothing in it assumes queries and keys aligned.
 //
 // What it computes: grouped-query attention of q (B,S,H,D) against
 // k/v (B,Skv,Hkv,D/Dv), the KV head of query head h being h / (H/Hkv):

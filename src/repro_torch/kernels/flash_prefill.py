@@ -1,14 +1,16 @@
-"""Causal flash attention for prefill: the wrapper of
+"""Flash attention for prefill, causal or not: the wrapper of
 ``csrc/flash_prefill.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_prefill.py::
 flash_prefill``.  On the H100 it is bound by operations (about
-4·B·H·S²·D/2 for a causal prompt); see the source for the design.  bf16
-takes the tensor-core body (D and Dv multiples of 8 up to 256, its wide
-form, Q reloaded from shared memory, where D > 192 or Dv > 128; the
-wrapper raises on others), float32 the CUDA-core body.  A CPU tensor
-takes the plain version (``ref.flash_prefill_ref``); a CUDA tensor launches
-the kernel or raises.
+4·B·H·S²·D/2 for a causal prompt, 4·B·H·S·Skv·D non-causal, as whisper's
+encoder and cross-attention run it) where S is long; one decode query
+over whisper's encoder keys is bound by their bytes.  See the source for
+the design.  bf16 takes the tensor-core body (D and Dv multiples of 8 up
+to 256, its wide form, Q reloaded from shared memory, where D > 192 or
+Dv > 128; the wrapper raises on others), float32 the CUDA-core body.  A
+CPU tensor takes the plain version (``ref.flash_prefill_ref``); a CUDA
+tensor launches the kernel or raises.
 """
 from __future__ import annotations
 

@@ -10,12 +10,15 @@ arena runs the paged flash-decode kernels (GQA and absorbed MLA) in their
 fused decode-write form, as the reference does; and full-mode prefill runs
 the flash-prefill kernel where the reference runs ``chunked_attention``;
 ``impl="ref"`` runs those plain versions instead (``kernels/ops.py``).
+whisper's cross-attention (``kv_override``) runs the flash-prefill kernel
+in its non-causal form, S queries over the encoder's keys, in prefill and
+in decode alike.
 Chunk mode attends a prompt chunk's queries against the whole ring in
 plain PyTorch and f32, as the reference computes it outside any kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -119,23 +122,36 @@ def _proj(x, w, b=None):
 
 def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
                 cache: Optional[Dict], mode: str, pos=None,
-                causal: bool = True, impl: str = "auto"):
+                causal: bool = True, kv_override: Optional[Tuple] = None,
+                impl: str = "auto"):
     """x: (B,S,E).  mode: 'full' (train / prefill, writing the ring when a
     cache is given), 'decode' (S == 1: write the ring, then attend over
     it) or 'chunk' (write a prompt chunk at its absolute positions, then
     attend its queries over the whole ring).  Returns (out, layer_cache);
-    the cache is updated in place."""
+    the cache is updated in place.
+
+    kv_override: (k, v) already built, (B,Skv,Hkv,Dh) each (whisper's
+    cross-attention over the encoder's positions): only the query is
+    projected, and the S queries attend to all Skv keys, non-causal and
+    without a window, in 'full' mode (also for one decode query)."""
     B, S, E = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = cfg.query_scale or Dh ** -0.5
     window = cfg.window_size if spec.attn == ATTN_WINDOW else 0
 
     q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, H, Dh)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(B, S, Hkv, Dh)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, Hkv, Dh)
+    if kv_override is None:
+        k = _proj(x, p["wk"], p.get("bk")).reshape(B, S, Hkv, Dh)
+        v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, Hkv, Dh)
+        if cfg.pos == "rope":
+            k = apply_rope(k, positions, cfg.rope_theta)
+    else:
+        if mode != "full" or cache is not None:
+            raise ValueError("cross-attention runs in full mode, no cache")
+        k, v = kv_override
+        causal, window = False, 0
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
 
     # int8 KV: the ring holds the quantized k, v and their scales; the
     # kernels and the chunk attention fold the scales into their tiles

@@ -1,6 +1,6 @@
-"""Shared model building blocks: norms, activations, RoPE, softcap, and the
-memory-efficient (flash-style) chunked attention in plain PyTorch — the
-counterpart of ``repro/models/common.py``.
+"""Shared model building blocks: norms, activations, RoPE, sinusoidal
+positions, softcap, and the memory-efficient (flash-style) chunked
+attention in plain PyTorch — the counterpart of ``repro/models/common.py``.
 
 Everything here is a plain function over tensors and explicit parameter
 dicts.  ``chunked_attention`` is the plain version of the flash-prefill
@@ -8,6 +8,7 @@ kernel (``kernels/flash_prefill.py``).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -131,6 +132,19 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions, d_model: int):
+    """Whisper-style sinusoidal embeddings computed on the fly:
+    positions (...,) -> (..., d_model) f32, the sines then the cosines."""
+    half = d_model // 2
+    rate = (torch.tensor(math.log(10000.0), dtype=torch.float32)
+            / max(half - 1, 1))
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) * rate.to(
+                                        positions.device))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

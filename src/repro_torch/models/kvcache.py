@@ -12,6 +12,9 @@ A cache is a plain nested dict with the JAX package's layout:
               (L,B,cw-1,N), "state": (L,B,nh,hd,N) f32}
     "prologue": the same for the non-periodic leading layers (stacked
         over them), when the architecture has any
+    "xattn": {"k": (L,B,encS,Hkv,Dh), "v": ...}  (whisper: the decoder
+        layers' cross-attention K and V of the encoder's output, written
+        once by prefill and read by every decode step)
   }
 
 W is the ring width: ``min(window, max_seq)`` for sliding-window layers,
@@ -108,8 +111,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
     allocates them as a shared block arena instead of per-slot rings)."""
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
-    if cfg.encoder_layers:
-        raise NotImplementedError("encoder caches are not ported")
     cache: Dict = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                       device=device)}
     for i, spec in enumerate(cfg.period):
@@ -120,7 +121,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
         cache["prologue"] = _spec_cache(cfg, cfg.prologue[0],
                                         len(cfg.prologue), batch, max_seq,
                                         dtype, device)
+    if cfg.encoder_layers:
+        shape = (cfg.num_periods, batch, cfg.encoder_seq, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache["xattn"] = {name: torch.zeros(shape, dtype=dtype,
+                                            device=device)
+                          for name in ("k", "v")}
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype=None) -> Dict:
+    """``init_cache``'s layout as tensors on the ``meta`` device (shapes
+    and dtypes, no storage)."""
+    return init_cache(cfg, batch, max_seq, dtype, device="meta")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Model assembly of the PyTorch port (``repro/models/model.py``):
 embedding → prologue blocks → periodic blocks → final norm → unembed, for
-the families the port runs (GQA and MLA attention, or a Mamba-2 mixer,
-with dense or MoE FFNs).
+every family of the reference: GQA and MLA attention, or a Mamba-2 mixer,
+with dense or MoE FFNs; whisper's encoder, whose output the decoder
+blocks cross-attend; paligemma's prefix of patch embeddings.
 
 JAX's ``lax.scan`` over the stacked layers becomes a Python loop over layer
 slices: each layer's parameters and cache are views into the stacked
@@ -31,8 +32,9 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import offload, paging
 from repro_torch.kernels import ops
-from repro_torch.models.attention import attn_forward
-from repro_torch.models.common import act_fn, apply_norm, by_group, softcap
+from repro_torch.models.attention import attn_forward, gqa_forward
+from repro_torch.models.common import (act_fn, apply_norm, by_group,
+                                       sinusoidal_positions, softcap)
 from repro_torch.models.mamba import mamba_forward
 from repro_torch.models.moe import gated_ffn, moe_apply, moe_apply_paged
 
@@ -139,7 +141,8 @@ def dense_ffn(cfg: ModelConfig, p: Dict, x):
 def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
                 cache: Optional[Dict], mode: str, pos,
                 policy: Optional[ExecPolicy], expert_fetch=None,
-                token_groups: Optional[int] = None, lens=None):
+                token_groups: Optional[int] = None, lens=None,
+                causal: bool = True, enc_out=None, xattn_cache=None):
     """One layer.  Returns (x, aux_loss, expert_counts); a given cache is
     written in place.  With ``expert_fetch`` (expert-granular paged
     weights) the MoE FFN runs the two-phase step and expert_counts (E,)
@@ -155,7 +158,14 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
     group as attention does, on each group's rows of the SSM cache.
 
     lens ((B,) integer, prefill): each row's true length, for the SSM
-    state and conv tails (attention masks the padded tail by slot_pos)."""
+    state and conv tails (attention masks the padded tail by slot_pos).
+
+    causal=False: the self-attention sees every position (whisper's
+    encoder).  A cross-attention layer (``spec.cross_attn``) attends its
+    queries to the encoder's positions: outside decode it projects K and
+    V from ``enc_out`` (B, encS, E) and, given ``xattn_cache`` (this
+    layer's ``{"k", "v"}`` of ``cache["xattn"]``), writes them there; in
+    decode it reads them from there."""
     aux, ecounts = 0.0, None
 
     def mix(x, cache):
@@ -166,7 +176,7 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
     def attend(x, positions, cache, pos):
         h = apply_norm(cfg, p.get("attn_norm", {}), x)
         y, _ = attn_forward(cfg, spec, p["attn"], h, positions, cache=cache,
-                            mode=mode, pos=pos,
+                            mode=mode, pos=pos, causal=causal,
                             impl=policy.impl if policy else "auto")
         if cfg.post_block_norm:
             y = apply_norm(cfg, p["post_attn_norm"], y)
@@ -176,6 +186,10 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
         x = by_group(mix, token_groups, x, cache)
     else:
         x = by_group(attend, token_groups, x, positions, cache, pos)
+    if spec.cross_attn:
+        x = x + cross_attend(cfg, p, x, positions, mode=mode,
+                             enc_out=enc_out, xattn_cache=xattn_cache,
+                             impl=policy.impl if policy else "auto")
     if spec.ffn:
         h = by_group(lambda x: apply_norm(cfg, p.get("ffn_norm", {}), x),
                      token_groups, x)
@@ -196,14 +210,68 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
     return x, aux, ecounts
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens):
+def cross_attend(cfg: ModelConfig, p: Dict, x, positions, *, mode: str,
+                 enc_out, xattn_cache: Optional[Dict], impl: str = "auto"):
+    """A decoder layer's cross-attention output (before the residual add).
+    The encoder's K and V are projected once, by the train or prefill
+    forward, and persisted in ``xattn_cache``; each decode step reads them
+    (one query row over the encoder's positions)."""
+    h = apply_norm(cfg, p["xattn_norm"], x)
+    if mode == "decode":
+        k, v = xattn_cache["k"], xattn_cache["v"]
+    else:
+        B, Se, _ = enc_out.shape
+        shape = (B, Se, cfg.num_kv_heads, cfg.head_dim)
+        k = torch.matmul(enc_out, p["xattn"]["wk"].to(enc_out.dtype))
+        v = torch.matmul(enc_out, p["xattn"]["wv"].to(enc_out.dtype))
+        k, v = k.reshape(shape), v.reshape(shape)
+        if xattn_cache is not None:     # persist for decode
+            xattn_cache["k"].copy_(k)
+            xattn_cache["v"].copy_(v)
+    y, _ = gqa_forward(cfg, LayerSpec(), p["xattn"], h, positions,
+                       cache=None, mode="full", kv_override=(k, v),
+                       impl=impl)
+    return y
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens, positions, patches=None):
+    """Token embeddings (B,S,E): scaled where the config says so, the first
+    ``min(vision_tokens, S)`` rows then overwritten by the unscaled patch
+    embeddings (paligemma's prefix), and the sinusoidal stand-in for
+    learned positions added at the tokens' absolute ``positions``
+    (whisper)."""
     x = params["embed"]["tokens"][tokens]            # (B,S,E) gather
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.vision_tokens and patches is not None:
+        nv = min(cfg.vision_tokens, x.shape[1])
+        x = torch.cat([patches[:, :nv].to(x.dtype), x[:, nv:]], dim=1)
+    if cfg.pos == "learned":                         # sinusoidal stand-in
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x
 
 
+def encoder_forward(cfg: ModelConfig, params, frames,
+                    policy: Optional[ExecPolicy] = None):
+    """whisper's encoder over frames (B, encS, E) (the conv frontend is
+    stubbed): sinusoidal positions 0..encS-1, the encoder blocks with
+    non-causal self-attention, then the encoder's final norm."""
+    B, S, E = frames.shape
+    positions = torch.arange(S, device=frames.device)[None].expand(B, S)
+    x = frames + sinusoidal_positions(positions, E).to(frames.dtype)
+    enc = params["encoder"]
+    spec = LayerSpec(cross_attn=False)
+    for layer in range(cfg.encoder_layers):
+        x, _, _ = block_apply(cfg, spec,
+                              paging.layer_slice(enc["blocks"]["p0"], layer),
+                              x, positions=positions, cache=None,
+                              mode="full", pos=None, policy=policy,
+                              causal=False)
+    return apply_norm(cfg, enc["final_norm"], x)
+
+
 def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
+            frames=None, patches=None,
             policy: Optional[ExecPolicy] = None, paged_blocks=None,
             expert_state=None, fill_len=None, lens=None,
             token_groups: Optional[int] = None):
@@ -244,9 +312,16 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
     spans whose map entry is >= 0 are read from the pool, the rest from
     the host store.  The result gains "expert_counts" ({key: (L, E)}, or
     (L, G, E) with token_groups; tokens routed to each expert) for the
-    host residency cache."""
-    if cfg.encoder_layers or cfg.vision_tokens or cfg.pos == "learned":
-        raise NotImplementedError(f"{cfg.name}: not ported yet")
+    host residency cache.
+
+    frames ((B, encS, E), whisper): the stubbed audio frontend's output.
+    A train or prefill forward runs the encoder over it, and each decoder
+    layer cross-attends the result (prefill persists the layers' K and V
+    in ``cache["xattn"]``, which decode reads); such a forward without
+    frames raises.  patches ((B, vision_tokens, E), paligemma): the
+    stubbed vision tower's output, the prefix that replaces the first
+    token embeddings (``embed_tokens``); without it the model runs on
+    text alone, as the engine serves it."""
     B, S = tokens.shape
     if mode == "decode":
         if cache is None:
@@ -268,7 +343,14 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         run_mode = "full"
 
-    x = embed_tokens(cfg, params, tokens)
+    enc_out = None
+    if cfg.encoder_layers and mode != "decode":
+        if frames is None:
+            raise ValueError(f"{cfg.name}: a {mode} forward needs frames "
+                             f"(B, {cfg.encoder_seq}, {cfg.d_model}) for "
+                             f"its encoder")
+        enc_out = encoder_forward(cfg, params, frames, policy)
+    x = embed_tokens(cfg, params, tokens, positions, patches)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     spans, ctx = {}, {}
     if paged_blocks is not None:
@@ -297,7 +379,10 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
             mode=run_mode, pos=pos, policy=policy,
             expert_fetch=ctx[key].make_fetch(layer) if key in ctx else None,
             token_groups=token_groups,
-            lens=lens if mode == "prefill" else None)
+            lens=lens if mode == "prefill" else None, enc_out=enc_out,
+            xattn_cache=(paging.layer_slice(cache["xattn"], layer)
+                         if spec.cross_attn and cache is not None
+                         else None))
         if p is None:
             spans[key].release(layer)
         if ec is not None:

@@ -10,11 +10,13 @@ this one source come:
 Stacking matches the JAX package: the layers of each position in the
 repeating period are stacked on a leading "layers" axis, so the keys,
 shapes and stacking of both packages are the same (``models.convert``
-moves JAX weights over leaf by leaf).  The port covers the attention
-families it runs — GQA and MLA attention with dense or MoE FFNs, the
-Mamba-2 mixer (with or without an FFN after it), and the non-periodic
-prologue layers (stacked under ``params["prologue"]["p0"]``);
-cross-attention and encoder layers raise until their slice is ported.
+moves JAX weights over leaf by leaf).  It covers every family of the
+reference: GQA and MLA attention with dense or MoE FFNs, the Mamba-2
+mixer (with or without an FFN after it), the non-periodic prologue layers
+(stacked under ``params["prologue"]["p0"]``), and whisper's encoder
+(``params["encoder"]``: its blocks, built without cross-attention, and
+its final norm) with the cross-attention leaves ``xattn`` and
+``xattn_norm`` of the decoder blocks.
 """
 from __future__ import annotations
 
@@ -173,9 +175,8 @@ def _mamba_defs(cfg: ModelConfig, stack: int) -> Dict[str, ParamDef]:
     }
 
 
-def _block_defs(cfg: ModelConfig, spec: LayerSpec, stack: int) -> Dict:
-    if spec.cross_attn:
-        raise NotImplementedError("cross-attention is not ported yet")
+def _block_defs(cfg: ModelConfig, spec: LayerSpec, stack: int,
+                decoder: bool = True) -> Dict:
     d: Dict = {}
     if spec.kind == "mamba":
         d["mamba"] = _mamba_defs(cfg, stack)
@@ -185,6 +186,9 @@ def _block_defs(cfg: ModelConfig, spec: LayerSpec, stack: int) -> Dict:
         d["attn_norm"] = _norm_def(cfg, stack)
         if cfg.post_block_norm:
             d["post_attn_norm"] = _norm_def(cfg, stack)
+    if spec.cross_attn and decoder:
+        d["xattn"] = _attn_defs(cfg, LayerSpec(), stack)
+        d["xattn_norm"] = _norm_def(cfg, stack)
     if spec.ffn:
         if spec.moe:
             d["moe"] = _moe_defs(cfg, stack)
@@ -197,8 +201,6 @@ def _block_defs(cfg: ModelConfig, spec: LayerSpec, stack: int) -> Dict:
 
 
 def param_defs(cfg: ModelConfig) -> Dict:
-    if cfg.encoder_layers:
-        raise NotImplementedError("encoder layers are not ported")
     defs: Dict = {
         "embed": {"tokens": ParamDef((cfg.vocab_size, cfg.d_model),
                                      ("vocab", "embed"), "embed",
@@ -213,6 +215,13 @@ def param_defs(cfg: ModelConfig) -> Dict:
                                               len(cfg.prologue))}
     defs["blocks"] = {f"p{i}": _block_defs(cfg, spec, cfg.num_periods)
                       for i, spec in enumerate(cfg.period)}
+    if cfg.encoder_layers:
+        enc_spec = LayerSpec(cross_attn=False)
+        defs["encoder"] = {
+            "blocks": {"p0": _block_defs(cfg, enc_spec, cfg.encoder_layers,
+                                         decoder=False)},
+            "final_norm": _norm_def(cfg, 0),
+        }
     return defs
 
 

@@ -53,11 +53,13 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "glm4-9b", "olmo-1b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "moonshot-v1-16b-a3b", "whisper-small",
+                                  "paligemma-3b"])
 def test_family_configs_import_without_jax(arch):
-    """Each config module of the four families of the attention slice
-    imports, and resolves through ``get_config``, where jax cannot be
-    imported, and pulls in no module of the JAX package."""
+    """Each config module of the four families of the attention slice, and
+    of whisper and paligemma, imports, and resolves through
+    ``get_config``, where jax cannot be imported, and pulls in no module
+    of the JAX package."""
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
