@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing JSON lines:
 
-  1. build       — compile the six CUDA kernels from ``src/repro_torch/
+  1. build       — compile the seven CUDA kernels from ``src/repro_torch/
                    kernels/csrc`` (one nvcc per source, all at once), timed.
   2. kernels     — hold each kernel against its plain PyTorch version on the
                    card: in float32 at small shapes (TF32 off) and in bf16
@@ -42,6 +42,29 @@ Phases, each printing JSON lines:
                    group of 16 and gemma2's D 256 with softcap 50, and
                    the fused paged decode at gemma2's D 256 (sub-records
                    "families").
+                   The backward of flash_prefill (``kernel_flash_bwd``,
+                   the port's own kernel) against autograd of the plain
+                   version, f32 within 1e-4 and bf16 within 2e-2 of each
+                   gradient's max-abs, at mixtral's training shape (B 4,
+                   S 256, causal) and sub-records "train_shapes" at
+                   DeepSeek's MLA heads (D 192 / Dv 128), whisper's
+                   cross-attention with kv_len and gemma2's D 256 with a
+                   window and the softcap; timed beside its bound, the
+                   plain version's autograd backward and the backward of
+                   scaled_dot_product_attention.
+  2b. train      — while the card is empty: ``train_check``, mixtral-8x7b
+                   at full width, 1 of its 32 layers in f32, one step's
+                   loss and every gradient through the kernels against
+                   the plain path (within 1e-4 of each leaf's max-abs, no
+                   leaf without a gradient); ``train_mixtral``, 2 of 32
+                   layers in bf16 with f32 AdamW moments, 8 steps of 4 x
+                   256 tokens from the port's DataPipeline through
+                   ``Trainer``: each step's loss, grad norm and time,
+                   train tokens/s, peak memory, one step split into
+                   forward + backward and AdamW, one forward and one
+                   backward attention launch a layer a step; then
+                   ``train_resume``, a checkpoint saved and resumed at
+                   ``.smoke()`` width (step, parameters and moments equal).
   3. serve       — the port's Engine at the full width of mixtral-8x7b with
                    the depth cut from 32 to 4 layers and every weight on
                    the card, random weights from a seed, the dense KV
@@ -320,6 +343,7 @@ import math
 import os
 import resource
 import statistics
+import shutil
 import subprocess
 import sys
 import time
@@ -480,6 +504,19 @@ CHECK_PALIGEMMA_LAYERS, CHECK_PALIGEMMA_BATCH = 2, 2
 CHECK_PALIGEMMA_TEXT = 96
 # the prefix moves every text position's logits by at least this much
 PREFIX_EFFECT = 1e-2
+# The training slice.  train_mixtral: mixtral-8x7b at full width, 2 of its
+# 32 layers, bf16 with f32 AdamW moments, 8 steps of 4 rows x 256 tokens
+# from the port's DataPipeline through Trainer.  train_check: 1 layer in
+# f32, one step's loss and every gradient through the kernels against the
+# plain path.  The backward kernel's records: mixtral's training shape,
+# DeepSeek's MLA heads, whisper's cross-attention with kv_len, gemma2's
+# D 256 with a window and the softcap
+TRAIN_B, TRAIN_S = 4, 256
+TRAIN_LAYERS, TRAIN_STEPS = 2, 8
+TRAIN_CHECK_LAYERS = 1
+GRAD_TOL = 1e-4               # train_check: each leaf, of its max-abs
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of each gradient's max-abs
+GEMMA2_BWD_WINDOW = 64        # gemma2's 4096 cut to bite at S 256
 HOST_MARGIN = 1.2             # MemAvailable must hold the stores + 20 %
 HOST_RESERVE = 20 << 30       # ... and leave 20 GiB beside them
 # bf16 tolerances.  A kernel and its plain version both compute in f32 from
@@ -816,6 +853,7 @@ def phase_kernels(torch, F):
     records.append(kernel_families(torch, F, timer, rn, records))
     kernel_jamba(torch, F, timer, rn, records)
     kernel_encdec(torch, F, timer, rn, records)
+    records.append(kernel_flash_bwd(torch, F, timer, rn))
     torch.cuda.empty_cache()
     records.append(kernel_expert_gather(torch, timer, rn))
     return records
@@ -1277,6 +1315,363 @@ def kernel_encdec(torch, F, timer, rn, records):
               **rec})
         fam["gqa_decode"][arch] = rec
         del q, k, v
+
+
+def bwd_case(torch, F, timer, rn, B, S, Skv, H, Hkv, D, Dv, *, kv_len=None,
+             causal=True, window=0, cap=0.0, scale=None, q_std=1.0):
+    """flash_prefill's gradients through the kernels (``ops.flash_prefill``
+    under autograd: the forward kernel with the rows' log-sum-exp, then
+    ``flash_prefill_bwd``) against autograd of the plain version on the
+    same inputs, in f32 and bf16 (``BWD_TOL`` of each gradient's max-abs);
+    the backward kernel timed in bf16 beside its bound, the plain
+    version's backward (autograd through ``flash_prefill_ref``) and the
+    backward of one scaled_dot_product_attention call."""
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ops, ref
+    kw = dict(causal=causal, window=window, attn_softcap=cap, scale=scale)
+    q, k = rn(B, S, H, D, std=q_std), rn(B, Skv, Hkv, D)
+    v, do = rn(B, Skv, Hkv, Dv), rn(B, S, H, Dv)
+    errs = {}
+    for name, tol in BWD_TOL.items():
+        dt = getattr(torch, name)
+        args, g = [t.to(dt) for t in (q, k, v)], do.to(dt)
+        grads = {}
+        for impl in ("auto", "ref"):
+            xs = [a.clone().requires_grad_(True) for a in args]
+            o = ops.flash_prefill(*xs, kv_len, impl=impl, **kw)
+            grads[impl] = torch.autograd.grad(o, xs, g)
+            del o, xs
+        errs[name] = max(
+            max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+            for a, b in zip(grads["auto"], grads["ref"]))
+        require(all(a.dtype == dt for a in grads["auto"]),
+                "flash_prefill_bwd: a gradient left in another dtype")
+        require(errs[name] <= tol,
+                f"flash_prefill_bwd {name} (S {S}, Skv {Skv}, H {H} / "
+                f"{Hkv}, D {D} / {Dv}): {errs[name]} of max-abs")
+        del grads, args, g
+    qp = torch.arange(S, device=DEVICE)[:, None]
+    kp = torch.arange(Skv, device=DEVICE)[None, :]
+    lens = (torch.full((B,), Skv, device=DEVICE) if kv_len is None
+            else kv_len)
+    mask = (kp[None] < lens[:, None, None]).expand(B, S, Skv)
+    if causal:
+        cm = kp <= qp
+        if window:
+            cm = cm & (kp > qp - window)
+        mask = mask & cm[None]
+    pairs = int(mask.sum())                  # this run's (query, key) pairs
+    nbytes = 2 * (2 * (B * S * H * D + B * Skv * Hkv * (D + Dv))
+                  + 2 * B * S * H * Dv) + 4 * B * H * S + 4 * B
+    bms, by = bound(nbytes, 2 * pairs * H * (3 * D + 2 * Dv))
+    o, lse = fp._forward(q, k, v, kv_len, causal, window, cap, scale,
+                         with_lse=True)
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o_ref = ref.flash_prefill_ref(*xs, kv_len, **kw)
+    lx = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    skw = {"scale": scale if scale is not None else D ** -0.5}
+    if kv_len is not None or window:
+        skw["attn_mask"] = mask[:, None]
+    else:
+        skw["is_causal"] = causal
+    lo = sdpa_gqa(F, *lx, H // Hkv, **skw)()
+    ldo = do.transpose(1, 2)
+    rec = {"shape": {"B": B, "S": S, "Skv": Skv, "H": H, "Hkv": Hkv, "D": D,
+                     "Dv": Dv, "causal": causal, "window": window,
+                     "softcap": cap, "kv_len": None if kv_len is None
+                     else kv_len.tolist(), "pairs": pairs, "dtype": "bf16"},
+           "max_abs_err": errs["bfloat16"], "max_abs_err_f32": errs[
+               "float32"], "err_of": "max |kernel - plain| / max |plain|, "
+                                     "over dq, dk, dv",
+           "ms": timer(lambda: fp.flash_prefill_bwd(q, k, v, o, lse, do,
+                                                    kv_len, **kw)),
+           "plain_ms": timer(lambda: torch.autograd.grad(
+               o_ref, xs, do, retain_graph=True), 3, 1),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(lambda: torch.autograd.grad(
+               lo, lx, ldo, retain_graph=True)),
+           "library_call": "autograd backward of scaled_dot_product_attention"
+                           + (", masked" if "attn_mask" in skw else "")
+                           + (", without the softcap" if cap else "")}
+    del o, lse, o_ref, lo, xs, lx
+    return rec
+
+
+def bwd_rows_without_a_key(torch, rn) -> dict:
+    """A prompt whose query rows 68 and 69 (batch 0) see no valid key: S
+    70, window 9, kv_len (60, 70), H 4 / 2, D 16.  The kernels give such
+    a row 0 and lse -inf, so it sends no gradient back; the plain version
+    (a finite mask) averages every key of the row.  Required: the
+    kernels' gradients equal the plain version's with those rows' output
+    gradient zeroed (``BWD_TOL``) and no dk or dv past kv_len.  Recorded:
+    how far the plain version's own gradients are from the kernels'."""
+    from repro_torch.kernels import ops
+    B, S, H, Hkv, D, window = 2, 70, 4, 2, 16, 9
+    lens = torch.tensor([60, 70], dtype=torch.int32, device=DEVICE)
+    i = torch.arange(S, device=DEVICE)[None, :]
+    has = (i - window + 1).clamp(min=0) < lens[:, None]        # (B, S)
+    past = i >= lens[:, None]                          # keys past kv_len
+    q, k, v, do = rn(B, S, H, D), rn(B, S, Hkv, D), rn(B, S, Hkv, D), \
+        rn(B, S, H, D)
+    out = {"shape": {"B": B, "S": S, "H": H, "Hkv": Hkv, "D": D,
+                     "window": window, "kv_len": lens.tolist()},
+           "rows_without_a_key": int((~has).sum())}
+    for name, tol in BWD_TOL.items():
+        dt = getattr(torch, name)
+        args, g = [t.to(dt) for t in (q, k, v)], do.to(dt)
+        grads = {}
+        for impl, gg in (("auto", g), ("ref", g),
+                         ("ref_kept", g * has[:, :, None, None].to(dt))):
+            xs = [a.clone().requires_grad_(True) for a in args]
+            o = ops.flash_prefill(*xs, lens, window=window,
+                                  impl="auto" if impl == "auto" else "ref")
+            grads[impl] = torch.autograd.grad(o, xs, gg)
+        rel = {key: [max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+                     for a, b in zip(grads["auto"], grads[key])]
+               for key in ("ref", "ref_kept")}
+        out[name] = {"err_vs_plain_rows_zeroed": max(rel["ref_kept"]),
+                     "dq_dk_dv_err_vs_plain": rel["ref"]}
+        require(max(rel["ref_kept"]) <= tol,
+                f"flash_prefill_bwd {name}, rows without a key: "
+                f"{rel['ref_kept']} of max-abs")
+        require(not grads["auto"][0][~has].any()
+                and not grads["auto"][1][past].any()
+                and not grads["auto"][2][past].any(),
+                f"flash_prefill_bwd {name}: a row without a key sent "
+                f"a gradient back")
+    return out
+
+
+def kernel_flash_bwd(torch, F, timer, rn):
+    """The backward kernel's record: mixtral's training shape (B 4, S 256,
+    H 32 / 8, D 128, causal), and sub-records "train_shapes" at DeepSeek's
+    MLA heads (H 128, D 192 / Dv 128), whisper's cross-attention (S 256
+    over its 1500 encoder positions, kv_len 3/4 and 1/2 of them on two
+    rows) and gemma2's
+    heads (H 8 / 4, D 256, a window of ``GEMMA2_BWD_WINDOW`` and its
+    softcap of 50, q drawn with std 32 so that the cap saturates)."""
+    cfg = _mixtral()
+    rec = {"name": "flash_prefill_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_prefill_bwd.cu",
+           "replaces": "src/repro/models/common.py:113",
+           **bwd_case(torch, F, timer, rn, TRAIN_B, TRAIN_S, TRAIN_S,
+                      cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                      cfg.head_dim)}
+    emit({"phase": "kernel_flash_bwd", "model": "mixtral-8x7b", **rec})
+    ds = _deepseek()
+    wh, gm = _family(WHISPER_ARCH), _family("gemma2-2b")
+    Se = wh.encoder_seq           # rows of all, 3/4 and 1/2 the frames
+    lens = torch.tensor([Se - Se // 4 * (i % 3) for i in range(TRAIN_B)],
+                        dtype=torch.int32, device=DEVICE)
+    cases = {
+        "deepseek-v3-671b": dict(
+            B=TRAIN_B, S=TRAIN_S, Skv=TRAIN_S, H=ds.num_heads,
+            Hkv=ds.num_heads, D=ds.qk_nope_head_dim + ds.qk_rope_head_dim,
+            Dv=ds.v_head_dim),
+        WHISPER_ARCH: dict(
+            B=TRAIN_B, S=TRAIN_S, Skv=wh.encoder_seq, H=wh.num_heads,
+            Hkv=wh.num_kv_heads, D=wh.head_dim, Dv=wh.head_dim,
+            kv_len=lens, causal=False),
+        "gemma2-2b": dict(
+            B=TRAIN_B, S=TRAIN_S, Skv=TRAIN_S, H=gm.num_heads,
+            Hkv=gm.num_kv_heads, D=gm.head_dim, Dv=gm.head_dim,
+            window=GEMMA2_BWD_WINDOW, cap=gm.attn_softcap,
+            scale=gm.query_scale, q_std=32.0)}
+    rec["train_shapes"] = {}
+    for model, kw in cases.items():
+        sub = bwd_case(torch, F, timer, rn, **kw)
+        emit({"phase": "kernel_flash_bwd", "model": model, **sub})
+        rec["train_shapes"][model] = sub
+    rec["rows_without_a_key"] = bwd_rows_without_a_key(torch, rn)
+    emit({"phase": "kernel_flash_bwd", "case": "rows_without_a_key",
+          **rec["rows_without_a_key"]})
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_check(torch, np, ops):
+    """mixtral-8x7b at full width, ``TRAIN_CHECK_LAYERS`` of its 32 layers,
+    float32 (TF32 off), random weights from a seed: one step's loss and
+    every gradient leaf through the kernels (``impl="auto"``: the forward
+    and backward attention kernels) and through the plain path
+    (``impl="ref"``), within ``GRAD_TOL`` of each leaf's max-abs; no leaf
+    may lack a gradient; the batch is the port's DataPipeline's first.
+    Returns the kernel path's launches."""
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import init_params
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import (make_loss_fn, requires_grad_,
+                                                 value_and_grad)
+    L = TRAIN_CHECK_LAYERS
+    cfg = dataclasses.replace(_mixtral(), num_layers=L, dtype="float32")
+    params = requires_grad_(init_params(cfg, torch.Generator(
+        device=DEVICE).manual_seed(SEED + 30), device=DEVICE))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                   batch_size=TRAIN_B, seed=SEED))
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in next(pipe).items()}
+    pipe.close()
+    res = {}
+    for impl in ("auto", "ref"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        loss, metrics, grads = value_and_grad(
+            make_loss_fn(cfg, ExecPolicy(impl=impl)), params, batch)
+        torch.cuda.synchronize()
+        res[impl] = (float(loss), metrics, tree_leaves(grads),
+                     ops.launch_counts())
+    (loss_k, m_k, g_k, launches), (loss_p, m_p, g_p, plain_launches) = \
+        res["auto"], res["ref"]
+    missing = sum(g is None for g in g_k + g_p)
+    worst = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(g_k, g_p) if a is not None and b is not None)
+    expected = {"flash_prefill": L, "flash_prefill_bwd": L}
+    emit({"phase": "train_check", "layers": L, "params": n_params,
+          "dtype": "float32", "batch": [TRAIN_B, TRAIN_S],
+          "loss": [loss_k, loss_p],
+          "aux_loss": [float(m_k["aux_loss"]), float(m_p["aux_loss"])],
+          "leaves": len(g_k), "missing_grads": missing,
+          "max_grad_err_of_max_abs": worst, "tol": GRAD_TOL,
+          "launches": launches, "plain_launches": plain_launches,
+          "expected_launches": expected})
+    require(missing == 0, f"train_check: {missing} leaves without a gradient")
+    require(worst <= GRAD_TOL, f"train_check: gradients differ by {worst}")
+    require(abs(loss_k - loss_p) <= GRAD_TOL * abs(loss_p),
+            f"train_check: loss {loss_k} vs {loss_p}")
+    require(all(launches[k] == n for k, n in expected.items()),
+            f"train_check: launches {launches}, expected {expected}")
+    require(not any(plain_launches.values()),
+            f"train_check: the plain path launched {plain_launches}")
+    del params, batch, res, g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_mixtral(torch, np, ops):
+    """mixtral-8x7b at full width, ``TRAIN_LAYERS`` of its 32 layers, bf16
+    with AdamW's moments in f32, ``TRAIN_STEPS`` steps of ``TRAIN_B`` x
+    ``TRAIN_S`` tokens from the port's DataPipeline through ``Trainer``,
+    as a user runs it: a finite loss and grad norm at every step, each
+    step's loss and time, train tokens/s (all tokens over the whole
+    ``run()``'s wall time, data and the first step included; the median
+    step's rate beside it) and peak device memory; the
+    launches over the run must be one forward and one backward attention
+    launch a layer a step.  One more step, after the count, is timed in
+    its two parts: forward and backward, then AdamW.  Then a checkpoint
+    save and resume at
+    ``.smoke()`` width: the resumed trainer's step, parameters and moments
+    equal what was saved.  Returns the launches."""
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.training.optimizer import apply_updates, tree_leaves
+    from repro_torch.training.train_step import make_loss_fn, value_and_grad
+    from repro_torch.training.trainer import Trainer, TrainConfig
+    L = TRAIN_LAYERS
+    cfg = dataclasses.replace(_mixtral(), num_layers=L)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainConfig(steps=TRAIN_STEPS, batch_size=TRAIN_B,
+                                  seq_len=TRAIN_S, log_every=1, seed=SEED),
+                 device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(tr.params))
+    step_s = []
+    inner = tr.step_fn
+
+    def timed(params, state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(params, state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    tr.step_fn = timed
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log = tr.metrics_log
+    steady = statistics.median(step_s[1:])
+    pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                   batch_size=TRAIN_B, seed=SEED))
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in next(pipe).items()}
+    pipe.close()
+    t = time.perf_counter()
+    _, _, grads = value_and_grad(make_loss_fn(cfg, None), tr.params, batch)
+    torch.cuda.synchronize()
+    fwd_bwd_s = time.perf_counter() - t
+    t = time.perf_counter()
+    apply_updates(tr.params, grads, tr.opt_state, tr.opt)
+    torch.cuda.synchronize()
+    adamw_s = time.perf_counter() - t
+    del grads, batch
+    expected = {"flash_prefill": L * TRAIN_STEPS,
+                "flash_prefill_bwd": L * TRAIN_STEPS}
+    emit({"phase": "train_mixtral", "layers": L, "params": n_params,
+          "dtype": cfg.dtype, "moment_dtype": tr.opt.moment_dtype,
+          "batch": [TRAIN_B, TRAIN_S], "steps": len(log),
+          "loss": [m["loss"] for m in log],
+          "grad_norm": [m["grad_norm"] for m in log],
+          "lr": [m["lr"] for m in log], "step_s": step_s,
+          "init_s": init_s, "median_step_s_after_first": steady,
+          "one_step_split_s": {"forward_backward": fwd_bwd_s,
+                               "adamw": adamw_s},
+          "run_s": run_s,
+          "train_tokens_per_s": TRAIN_STEPS * TRAIN_B * TRAIN_S / run_s,
+          "median_step_tokens_per_s": TRAIN_B * TRAIN_S / steady,
+          "peak_device_bytes": peak, "launches": launches,
+          "expected_launches": expected})
+    require(len(log) == TRAIN_STEPS and all(
+        math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+        for m in log), f"train_mixtral: a step not finite: {log}")
+    require(all(launches[k] == n for k, n in expected.items()),
+            f"train_mixtral: launches {launches}, expected {expected}")
+    del tr, inner, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # save and resume at smoke width, through the trainer's checkpoints
+    ckpt = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    sm = _mixtral().smoke()
+
+    def trainer(steps):
+        return Trainer(sm, TrainConfig(steps=steps, batch_size=2, seq_len=32,
+                                       ckpt_dir=ckpt, ckpt_every=1,
+                                       seed=SEED), device=DEVICE)
+
+    first = trainer(2)
+    first.run()
+    resumed = trainer(3)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(first.params), tree_leaves(resumed.params)))
+    same_moments = all(torch.equal(a, b) for name in ("mu", "nu")
+                       for a, b in zip(tree_leaves(first.opt_state[name]),
+                                       tree_leaves(resumed.opt_state[name])))
+    step_at_resume = resumed.step
+    resumed.run()
+    emit({"phase": "train_resume", "config": sm.name,
+          "saved_steps": [2], "resumed_at": step_at_resume,
+          "params_equal": same, "moments_equal": same_moments,
+          "final_step": resumed.step,
+          "on_device": str(tree_leaves(resumed.params)[0].device)})
+    require(step_at_resume == 2 and same and same_moments
+            and resumed.step == 3,
+            "train_resume: the resumed trainer is not the saved one")
+    del first, resumed
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def gqa_f32_case(torch, q, k, v, valid, kw) -> dict:
@@ -5273,6 +5668,10 @@ def main() -> int:
     host_memory("start")
     records = phase_kernels(torch, F)
     torch.cuda.empty_cache()
+    # the training path while the card is empty (train_mixtral's peak is
+    # ~50 GB)
+    launches_train_check = phase_train_check(torch, np, ops)
+    launches_train = phase_train_mixtral(torch, np, ops)
     eng, serve_prompts, launches, serve_outs, serve_res = phase_serve(
         torch, np, ops)
     launches_module = phase_serve_module(torch, np, ops, eng.params,
@@ -5417,10 +5816,13 @@ def main() -> int:
     by_path = {"paged_gqa_decode": launches_paged,
                "paged_mla_decode": launches_mla,
                "expert_gather": launches_expert,
-               "flash_prefill_d256": launches_gemma2["serve_gemma2"]}
+               "flash_prefill_d256": launches_gemma2["serve_gemma2"],
+               "flash_prefill_bwd": launches_train}
     # the launches of the later slices' paths, beside each kernel's main
     # path
-    new_paths = {"serve_module": launches_module,
+    new_paths = {"train_check": launches_train_check,
+                 "train_mixtral": launches_train,
+                 "serve_module": launches_module,
                  "serve_overlap": launches_overlap,
                  "serve_expert_module": launches_expert_module,
                  "serve_budget": launches_budget,
@@ -5490,6 +5892,8 @@ def main() -> int:
                 **rec["int8"]}
     require(by_path["flash_prefill_d256"]["flash_prefill"] > 0,
             "the D-256 flash_prefill never launched in serve_gemma2")
+    require(by_path["flash_prefill_bwd"]["flash_prefill_bwd"] > 0,
+            "flash_prefill_bwd never launched in train_mixtral")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_call", "shape", "launches_by_path")
@@ -5498,7 +5902,9 @@ def main() -> int:
                                             "deepseek", "full_ring", "int8",
                                             "families", "global_layer",
                                             "max_abs_err_no_softcap",
-                                            "softcap_effect")
+                                            "softcap_effect",
+                                            "max_abs_err_f32",
+                                            "train_shapes")
                           if k in r}} for r in records]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

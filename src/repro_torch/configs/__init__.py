@@ -36,6 +36,12 @@ _ARCH_MODULES = {
 }
 
 ALL_ARCHS: List[str] = list(_ARCH_MODULES)
+# the reference's ten assigned architectures, in its order (all but the
+# paper's own mixtral-8x7b)
+ASSIGNED_ARCHS: List[str] = [
+    "gemma2-2b", "olmo-1b", "glm4-9b", "qwen2.5-3b", "paligemma-3b",
+    "moonshot-v1-16b-a3b", "deepseek-v3-671b", "mamba2-1.3b",
+    "jamba-1.5-large-398b", "whisper-small"]
 
 _cache: Dict[str, ModelConfig] = {}
 
@@ -50,5 +56,9 @@ def get_config(arch: str) -> ModelConfig:
     return _cache[arch]
 
 
-__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config",
-           "shape_applicable", "ALL_ARCHS"]
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config", "get_shape",
+           "shape_applicable", "ASSIGNED_ARCHS", "ALL_ARCHS"]

@@ -25,8 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("moe_ffn", "gqa_decode", "flash_prefill", "paged_decode",
-           "paged_mla_decode", "expert_gather")
+KERNELS = ("moe_ffn", "gqa_decode", "flash_prefill", "flash_prefill_bwd",
+           "paged_decode", "paged_mla_decode", "expert_gather")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

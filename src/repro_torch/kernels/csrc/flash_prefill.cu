@@ -70,6 +70,13 @@ constexpr int kThreads = 128;
 constexpr int kBQ = 16;  // query rows per block (kThreads / 8)
 constexpr int kBK = 32;  // keys per tile (8 threads x 4 scores)
 
+// The log-sum-exp of a row's scores from its running (m_safe, l), which
+// the backward (csrc/flash_prefill_bwd.cu) recomputes P from; -inf for a
+// row with no valid key.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : -INFINITY;
+}
+
 size_t smem_bytes_f32(int D, int Dv) {
   return sizeof(float) *
          (static_cast<size_t>(kBQ + kBK) * (D + 1) +
@@ -82,7 +89,8 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ k,
                              const float* __restrict__ v,
                              const int* __restrict__ kv_len,
-                             float* __restrict__ o, int S, int Skv, int H,
+                             float* __restrict__ o,
+                             float* __restrict__ lse, int S, int Skv, int H,
                              int Hkv, int D, int Dv, int causal, int window,
                              float scale, float cap) {
   extern __shared__ float sm[];
@@ -194,11 +202,14 @@ __global__ void __launch_bounds__(kThreads)
     o[((static_cast<size_t>(b) * S + q0 + r) * H + h) * Dv + d] =
         os[i] / fmaxf(ls[r], 1e-30f);
   }
+  if (lse != nullptr && tid < nq)
+    lse[(static_cast<size_t>(b) * H + h) * S + q0 + tid] =
+        row_lse(ms[tid], ls[tid]);
 }
 
 int launch_f32(const void* q, const void* k, const void* v, const int* kv_len,
-               void* o, int B, int S, int Skv, int H, int Hkv, int D, int Dv,
-               int causal, int window, float scale, float cap,
+               void* o, float* lse, int B, int S, int Skv, int H, int Hkv,
+               int D, int Dv, int causal, int window, float scale, float cap,
                cudaStream_t st) {
   const size_t smem = smem_bytes_f32(D, Dv);
   if (smem > 48 * 1024) {
@@ -210,8 +221,8 @@ int launch_f32(const void* q, const void* k, const void* v, const int* kv_len,
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   flash_prefill_f32_kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_len, static_cast<float*>(o), S, Skv, H,
-      Hkv, D, Dv, causal, window, scale, cap);
+      static_cast<const float*>(v), kv_len, static_cast<float*>(o), lse, S,
+      Skv, H, Hkv, D, Dv, causal, window, scale, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -258,7 +269,8 @@ __global__ void __launch_bounds__(NW * 32)
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
                             const int* __restrict__ kv_len,
-                            bf16* __restrict__ o, int S, int Skv, int H,
+                            bf16* __restrict__ o,
+                            float* __restrict__ lse, int S, int Skv, int H,
                             int Hkv, int D, int Dv, int causal, int window,
                             float scale, float cap) {
   constexpr int LDQ = DP + kPad;   // row stride of Q and K in shared memory
@@ -298,6 +310,9 @@ __global__ void __launch_bounds__(NW * 32)
     for (int i = tid; i < nq * vch; i += NT)
       *reinterpret_cast<uint4*>(ob + (q0 + i / vch) * ostr + i % vch * 8) =
           make_uint4(0u, 0u, 0u, 0u);
+    if (lse != nullptr)
+      for (int i = tid; i < nq; i += NT)
+        lse[static_cast<size_t>(bh) * S + q0 + i] = -INFINITY;
     return;
   }
   // zero the contraction padding (columns D..DP of Q and K, Dv..DVP of
@@ -472,6 +487,9 @@ __global__ void __launch_bounds__(NW * 32)
     for (int n = 0; n < NV; ++n)
       *reinterpret_cast<uint32_t*>(os + (g + 8 * r) * LDV + n * 8 + 2 * t) =
           pack_bf16(oacc[n][2 * r] / l, oacc[n][2 * r + 1] / l);
+    if (lse != nullptr && t == 0 && wq + g + 8 * r < S)
+      lse[static_cast<size_t>(bh) * S + wq + g + 8 * r] =
+          row_lse(m_run[r], l_run[r]);
   }
   __syncwarp();
   for (int i = lane; i < 16 * vch; i += 32) {
@@ -484,8 +502,8 @@ __global__ void __launch_bounds__(NW * 32)
 
 template <int DP, int DVP, int NW>
 int launch_tc(const void* q, const void* k, const void* v, const int* kv_len,
-              void* o, int B, int S, int Skv, int H, int Hkv, int D, int Dv,
-              int causal, int window, float scale, float cap,
+              void* o, float* lse, int B, int S, int Skv, int H, int Hkv,
+              int D, int Dv, int causal, int window, float scale, float cap,
               cudaStream_t st) {
   static_assert(16 * NW <= 2 * kTcBK, "output staging over the V buffers");
   constexpr size_t smem = smem_bytes_tc<DP, DVP, NW>();
@@ -496,31 +514,33 @@ int launch_tc(const void* q, const void* k, const void* v, const int* kv_len,
   const dim3 grid((S + 16 * NW - 1) / (16 * NW), B * H);
   flash_prefill_tc_kernel<DP, DVP, NW><<<grid, NW * 32, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), kv_len, static_cast<bf16*>(o), S, Skv, H,
-      Hkv, D, Dv, causal, window, scale, cap);
+      static_cast<const bf16*>(v), kv_len, static_cast<bf16*>(o), lse, S, Skv,
+      H, Hkv, D, Dv, causal, window, scale, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 // D <= 192 and Dv <= 128: 4 warps, the Q fragments in registers
 template <int DP>
 int launch_tc_dv(const void* q, const void* k, const void* v,
-                 const int* kv_len, void* o, int B, int S, int Skv, int H,
-                 int Hkv, int D, int Dv, int causal, int window, float scale,
-                 float cap, cudaStream_t st) {
+                 const int* kv_len, void* o, float* lse, int B, int S,
+                 int Skv, int H, int Hkv, int D, int Dv, int causal,
+                 int window, float scale, float cap, cudaStream_t st) {
   if (Dv <= 32)
-    return launch_tc<DP, 32, 4>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D,
+    return launch_tc<DP, 32, 4>(q, k, v, kv_len, o, lse, B, S, Skv, H, Hkv, D,
                                 Dv, causal, window, scale, cap, st);
   if (Dv <= 64)
-    return launch_tc<DP, 64, 4>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D,
+    return launch_tc<DP, 64, 4>(q, k, v, kv_len, o, lse, B, S, Skv, H, Hkv, D,
                                 Dv, causal, window, scale, cap, st);
-  return launch_tc<DP, 128, 4>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv,
-                               causal, window, scale, cap, st);
+  return launch_tc<DP, 128, 4>(q, k, v, kv_len, o, lse, B, S, Skv, H, Hkv, D,
+                               Dv, causal, window, scale, cap, st);
 }
 
 }  // namespace
 
 // q (B,S,H,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv), o (B,S,H,Dv) of one
 // dtype; kv_len (B,) int32.  window <= 0: no window; cap <= 0: no softcap.
+// lse: null, or a (B,H,S) f32 output of each row's log-sum-exp m + log l
+// (-inf for a row with no valid key), what the backward recomputes P from.
 // f32 takes the CUDA-core body, bf16 the tensor-core body (D % 8 == 0,
 // D <= 256, Dv % 8 == 0, Dv <= 256, 16-byte aligned rows; its wide form
 // where D > 192 or Dv > 128).
@@ -529,25 +549,25 @@ extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
                                     void* o, int B, int S, int Skv, int H,
                                     int Hkv, int D, int Dv, int causal,
                                     int window, float scale, float cap,
-                                    void* stream) {
+                                    void* stream, float* lse) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return launch_f32(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv, causal,
+    return launch_f32(q, k, v, kv_len, o, lse, B, S, Skv, H, Hkv, D, Dv, causal,
                       window, scale, cap, st);
   if (dtype != DT_BF16 || D % 8 || Dv % 8 || D > 256 || Dv > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D > 192 || Dv > 128)  // wide heads: Q reloaded from shared memory
-    return launch_tc<256, 256, 8>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D,
+    return launch_tc<256, 256, 8>(q, k, v, kv_len, o, lse, B, S, Skv, H, Hkv, D,
                                   Dv, causal, window, scale, cap, st);
   if (D <= 32)
-    return launch_tc_dv<32>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv,
+    return launch_tc_dv<32>(q, k, v, kv_len, o, lse, B, S, Skv, H, Hkv, D, Dv,
                             causal, window, scale, cap, st);
   if (D <= 64)
-    return launch_tc_dv<64>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv,
+    return launch_tc_dv<64>(q, k, v, kv_len, o, lse, B, S, Skv, H, Hkv, D, Dv,
                             causal, window, scale, cap, st);
   if (D <= 128)
-    return launch_tc_dv<128>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv,
+    return launch_tc_dv<128>(q, k, v, kv_len, o, lse, B, S, Skv, H, Hkv, D, Dv,
                              causal, window, scale, cap, st);
-  return launch_tc_dv<192>(q, k, v, kv_len, o, B, S, Skv, H, Hkv, D, Dv,
+  return launch_tc_dv<192>(q, k, v, kv_len, o, lse, B, S, Skv, H, Hkv, D, Dv,
                            causal, window, scale, cap, st);
 }

@@ -27,6 +27,7 @@ from repro_torch.models import kvcache as _kvcache
 IMPLS = ("auto", "ref")
 KERNELS = {"moe_ffn": _moe.moe_ffn, "gqa_decode": _gqa.gqa_decode,
            "flash_prefill": _fp.flash_prefill,
+           "flash_prefill_bwd": _fp.flash_prefill_bwd,
            "paged_gqa_decode": _paged.paged_gqa_decode,
            "paged_mla_decode": _mla.paged_mla_decode,
            "expert_gather": _eg.expert_gather}
@@ -155,14 +156,20 @@ def paged_mla_decode_fused(qcat, layer_cache, new, pos, *, scale: float,
 def flash_prefill(q, k, v, kv_len=None, *, causal: bool = True,
                   window: int = 0, attn_softcap: float = 0.0, scale=None,
                   impl: str = "auto"):
-    """Prefill flash attention, normalized output."""
+    """Prefill flash attention, normalized output.  Under autograd (grad
+    enabled and an input that requires it) a CUDA tensor runs
+    ``FlashPrefillFn``, whose backward is the ``flash_prefill_bwd`` kernel;
+    a CPU tensor, or ``ref``, differentiates the plain version."""
     _check_impl(impl)
+    kw = dict(causal=causal, window=window, attn_softcap=attn_softcap,
+              scale=scale)
     if impl == "ref":
-        return _ref.flash_prefill_ref(q, k, v, kv_len, causal=causal,
-                                      window=window,
-                                      attn_softcap=attn_softcap, scale=scale)
-    return _fp.flash_prefill(q, k, v, kv_len, causal=causal, window=window,
-                             attn_softcap=attn_softcap, scale=scale)
+        return _ref.flash_prefill_ref(q, k, v, kv_len, **kw)
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return _fp.FlashPrefillFn.apply(q, k, v, kv_len, causal, window,
+                                        attn_softcap, scale)
+    return _fp.flash_prefill(q, k, v, kv_len, **kw)
 
 
 def expert_gather(store, pool, resident_map, layer: int, sel, n_act,

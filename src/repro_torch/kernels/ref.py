@@ -119,6 +119,56 @@ def flash_prefill_ref(q, k, v, kv_len=None, *, causal: bool = True,
                              kv_len=kv_len)
 
 
+def flash_prefill_bwd_ref(q, k, v, o, do, kv_len=None, lse=None, *,
+                          causal: bool = True, window: int = 0,
+                          attn_softcap: float = 0.0, scale=None):
+    """The plain math of the backward kernel (``csrc/flash_prefill_bwd.cu``),
+    in f32 over the whole (S, Skv) score matrix, for the tests: raw scores
+    x = scale * q.k, s = softcap(x), masked as the forward masks; P =
+    exp(s - lse) (lse (B,H,S), each row's log-sum-exp, recomputed here
+    when not given); D = rowsum(do * o); dS = P * (dO.V^T - D), times
+    1 - (s / cap)^2 under a softcap; dq = scale * dS.K, dk = scale *
+    dS^T.Q, dv = P^T.dO, summed over each KV head's query heads.  Returns
+    (dq, dk, dv) in f32."""
+    B, S, H, D = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    G = H // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    dev = q.device
+    qf = q.float().reshape(B, S, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    x = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    s = (attn_softcap * torch.tanh(x / attn_softcap) if attn_softcap
+         else x)
+    qp = torch.arange(S, device=dev)[:, None]
+    kp = torch.arange(Skv, device=dev)[None, :]
+    lens = (torch.full((B,), Skv, device=dev) if kv_len is None
+            else kv_len.to(dev))
+    mask = kp[None] < lens[:, None, None]                   # (B, S, Skv)
+    if causal:
+        cm = kp <= qp
+        if window:
+            cm = cm & (kp > qp - window)
+        mask = mask & cm[None]
+    mask = mask[:, None, None]                              # (B,1,1,S,Skv)
+    if lse is None:
+        lse = torch.logsumexp(torch.where(mask, s, -torch.inf), -1)
+    else:
+        lse = lse.float().reshape(B, Hkv, G, S)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dof = do.float().reshape(B, S, Hkv, G, Dv)
+    delta = (dof * o.float().reshape(B, S, Hkv, G, Dv)).sum(-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if attn_softcap:
+        ds = ds * (1 - (s / attn_softcap) ** 2)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dq.reshape(B, S, H, D), dk, dv
+
+
 def expert_gather_ref(store, pool, resident_map, layer: int, sel, n_act,
                       manifest):
     """The expert gather's plain version: for each compact slot a, the span

@@ -82,6 +82,75 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
                         r"from\s+(jax|repro)(\s|\.)(?!_))", re.M)
 
 
+TRAINING_MODULES = ["repro_torch.training.losses",
+                    "repro_torch.training.optimizer",
+                    "repro_torch.training.train_step",
+                    "repro_torch.training.trainer",
+                    "repro_torch.data.pipeline",
+                    "repro_torch.runtime.checkpoint",
+                    "repro_torch.launch.train",
+                    "repro_torch.kernels.flash_prefill"]
+
+
+@pytest.fixture(scope="module")
+def training_imports():
+    """One process where jax cannot be imported imports the training
+    slice's modules in turn; for each, the modules of jax or of the JAX
+    package loaded by then."""
+    code = (
+        "import sys, importlib, json, torch\n"
+        "sys.modules['jax'] = None\n"
+        "out = {}\n"
+        f"for name in {TRAINING_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    out[name] = [m for m in sys.modules\n"
+        "                 if m == 'repro' or m.startswith('repro.')\n"
+        "                 or m.startswith('jax.') or m.startswith('jaxlib')]\n"
+        "from repro_torch.kernels import flash_prefill\n"
+        "out['fn'] = issubclass(flash_prefill.FlashPrefillFn,\n"
+        "                       torch.autograd.Function)\n"
+        "print(json.dumps(out))\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_import_without_jax(training_imports, module):
+    """Each module of the training slice, and the flash_prefill wrapper
+    with its autograd Function, imports where jax cannot be imported and
+    pulls in no module of the JAX package."""
+    assert training_imports[module] == []
+    assert training_imports["fn"] is True
+
+
+def test_train_launcher_runs_without_jax():
+    """``repro_torch.launch.train --device cpu`` in a process where jax
+    cannot be imported: a few steps of mixtral's smoke config with finite
+    metrics; without ``--device`` and without a GPU the trainer raises."""
+    code = (
+        "import sys, json, math, torch\n"
+        "sys.modules['jax'] = None\n"
+        "from repro_torch.launch import train\n"
+        "args = ['--arch', 'mixtral-8x7b', '--smoke', '--steps', '3',\n"
+        "        '--batch-size', '2', '--seq-len', '16']\n"
+        "out = train.main(args + ['--device', 'cpu'])\n"
+        "assert all(math.isfinite(v) for v in out['final'].values())\n"
+        "if not torch.cuda.is_available():\n"
+        "    try:\n"
+        "        train.main(args)\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'device' in str(e)\n"
+        "    else:\n"
+        "        raise AssertionError('trained on the CPU unasked')\n"
+        "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
+        "print(json.dumps(out['final']))\n")
+    r = _run(code, timeout=300)
+    assert r.returncode == 0, r.stderr
+    final = json.loads(r.stdout.strip().splitlines()[-1])
+    assert set(final) == {"loss", "lm_loss", "aux_loss", "grad_norm", "lr"}
+
+
 def test_sources_do_not_import_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [SMOKE]
     assert len(files) > 20
