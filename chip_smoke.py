@@ -65,6 +65,14 @@ Phases, each printing JSON lines:
                    backward attention launch a layer a step; then
                    ``train_resume``, a checkpoint saved and resumed at
                    ``.smoke()`` width (step, parameters and moments equal).
+                   ``train_plan`` (after ``train_check``): the same 1-layer
+                   f32 model under the train plan of a ("model",) mesh of
+                   one rank on an nccl group of one — the expert-parallel
+                   all-to-all body with remat — against ``train_check``'s
+                   step without a plan: loss within 1e-6 relative, every
+                   gradient within 1e-5 of its leaf's max-abs; remat on
+                   and off, peak memory and seconds of each; the
+                   attention's forward kernel twice a layer under remat.
   3. serve       — the port's Engine at the full width of mixtral-8x7b with
                    the depth cut from 32 to 4 layers and every weight on
                    the card, random weights from a seed, the dense KV
@@ -161,6 +169,17 @@ Phases, each printing JSON lines:
                    from its seed and changes them with it; ``sample``'s
                    frequencies over 200 000 draws match softmax(logits /
                    T), and top_k=8 draws nothing else.
+     serve_plan  — ``serve``'s weights through ``make_serve_step`` under
+                   the decode plans of a ("model",) mesh (the expert-
+                   parallel psum body) and a ("data", "model") mesh (the
+                   grouped MoE), one rank each on an nccl group, both
+                   with the sequence-sharded decode attention: 8 prompts
+                   of 128 tokens over a ring of 512, 16 greedy steps at
+                   capacity 8.0; tokens and logits against the step
+                   without a plan, decode tok/s of each; the plan's
+                   kernels against their plain versions with the routing
+                   replayed, in bf16 and at 1 layer in f32; the launches
+                   of moe_ffn, gqa_decode and flash_prefill to the count.
      serve_int8  — ``serve`` with int8 expert weights and int8 KV
                    (``expert_dtype`` / ``kv_dtype``), 4 layers on the
                    card; ``serve_paged_int8`` the same weights over
@@ -336,6 +355,7 @@ this file outside the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -514,6 +534,14 @@ PREFIX_EFFECT = 1e-2
 TRAIN_B, TRAIN_S = 4, 256
 TRAIN_LAYERS, TRAIN_STEPS = 2, 8
 TRAIN_CHECK_LAYERS = 1
+# the distributed layer's phases: plans over meshes of one rank on an nccl
+# group of one.  serve_plan at capacity 8.0, where no expert bucket can
+# overflow (as the reference's expert-parallel test takes it);
+# train_plan's all-to-all body at 2.0, its least drop-free capacity at one
+# rank (each of the 8 experts' buckets holds all B*S tokens)
+PLAN_B, PLAN_SLOTS, PLAN_PROMPT, PLAN_STEPS = 8, 512, 128, 16
+PLAN_CF, TRAIN_PLAN_CF = 8.0, 2.0
+PLAN_LOSS_TOL, PLAN_GRAD_TOL = 1e-6, 1e-5   # train_plan: relative, of max-abs
 GRAD_TOL = 1e-4               # train_check: each leaf, of its max-abs
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of each gradient's max-abs
 GEMMA2_BWD_WINDOW = 64        # gemma2's 4096 cut to bite at S 256
@@ -1550,6 +1578,117 @@ def phase_train_check(torch, np, ops):
     return launches
 
 
+def nccl_group(torch):
+    """Initialize a process group of one rank over nccl, its rendezvous an
+    in-memory store (no environment variable set, no port opened), and
+    check it with one all-reduce.  A failed initialization fails the run:
+    there is no fallback to gloo on the card."""
+    import torch.distributed as dist
+    require(dist.is_nccl_available(), "this PyTorch has no nccl")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    t = torch.full((1,), 3.0, device=DEVICE)
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    require(dist.get_backend() == "nccl" and float(t) == 3.0,
+            f"the nccl group: backend {dist.get_backend()}, sum {float(t)}")
+    return dist
+
+
+def phase_train_plan(torch, np, ops):
+    """mixtral-8x7b at full width, ``TRAIN_CHECK_LAYERS`` of 32 layers in
+    f32, under the train plan of a ("model",) mesh of one rank on an nccl
+    group: the expert-parallel all-to-all body (``ep_a2a``, at
+    ``TRAIN_PLAN_CF``) with ``remat``.  One step's loss and gradients
+    against ``train_check``'s step without a plan (the dense MoE) on the
+    same weights and batch: the loss within ``PLAN_LOSS_TOL`` relative,
+    every gradient within ``PLAN_GRAD_TOL`` of its leaf's max-abs; the
+    same step with remat off; each one's peak device memory above the
+    weights and its seconds.  Under remat the attention's forward kernel
+    runs twice a layer (the forward, and its recomputation in the
+    backward).  Returns the plan step's launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import init_params
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import (make_loss_fn, requires_grad_,
+                                                 value_and_grad)
+    dist = nccl_group(torch)
+    L = TRAIN_CHECK_LAYERS
+    cfg = dataclasses.replace(_mixtral(), num_layers=L, dtype="float32",
+                              capacity_factor=TRAIN_PLAN_CF)
+    params = requires_grad_(init_params(cfg, torch.Generator(
+        device=DEVICE).manual_seed(SEED + 30), device=DEVICE))
+    pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                   batch_size=TRAIN_B, seed=SEED))
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in next(pipe).items()}
+    pipe.close()
+    mesh = make_mesh((1,), ("model",))
+    shape = ShapeConfig("train_plan", TRAIN_S, TRAIN_B, "train")
+    plan = SH.make_plan(cfg, shape, mesh)
+    policies = {"plan": plan.policy,
+                "plan_no_remat": SH.make_plan(cfg, shape, mesh,
+                                              remat=False).policy,
+                "no_plan": ExecPolicy()}
+    res = {}
+    for name, policy in policies.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, metrics, grads = value_and_grad(make_loss_fn(cfg, policy),
+                                              params, batch)
+        torch.cuda.synchronize()
+        res[name] = {"loss": float(loss), "aux_loss": float(
+            metrics["aux_loss"]), "grads": tree_leaves(grads),
+            "launches": ops.launch_counts(), "seconds":
+            time.perf_counter() - t0, "peak_above_weights":
+            torch.cuda.max_memory_allocated() - held}
+        del grads
+    want, got = res["no_plan"], res["plan"]
+    missing = sum(g is None for r in res.values() for g in r["grads"])
+    worst = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(got["grads"], want["grads"]))
+    remat_err = max(max_err(a, b) for a, b in
+                    zip(got["grads"], res["plan_no_remat"]["grads"]))
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    expected = {"plan": {"flash_prefill": 2 * L, "flash_prefill_bwd": L},
+                "plan_no_remat": {"flash_prefill": L,
+                                  "flash_prefill_bwd": L}}
+    emit({"phase": "train_plan", "layers": L, "dtype": "float32",
+          "batch": [TRAIN_B, TRAIN_S], "mesh": mesh.shape,
+          "backend": dist.get_backend(), "moe_variant": plan.moe_variant,
+          "remat": plan.policy.remat, "capacity_factor": TRAIN_PLAN_CF,
+          **{f"{k}_{n}": r[k] for n, r in res.items()
+             for k in ("loss", "aux_loss", "seconds", "launches",
+                       "peak_above_weights")},
+          "loss_rel_err": loss_rel, "loss_tol": PLAN_LOSS_TOL,
+          "max_grad_err_of_max_abs": worst, "grad_tol": PLAN_GRAD_TOL,
+          "max_grad_err_remat_vs_not": remat_err, "missing_grads": missing,
+          "expected_launches": expected, "card": card_line()})
+    require(plan.moe_variant == "ep_a2a" and plan.policy.remat,
+            f"train_plan: variant {plan.moe_variant}")
+    require(missing == 0, f"train_plan: {missing} leaves without a gradient")
+    require(loss_rel <= PLAN_LOSS_TOL,
+            f"train_plan: loss {got['loss']} vs {want['loss']}")
+    require(worst <= PLAN_GRAD_TOL, f"train_plan: gradients differ by {worst}")
+    for name, exp in expected.items():
+        require(all(res[name]["launches"][k] == n for k, n in exp.items()),
+                f"train_plan: {name} launched {res[name]['launches']}, "
+                f"expected {exp}")
+    launches = got["launches"]
+    del params, batch, res, got, want
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_train_mixtral(torch, np, ops):
     """mixtral-8x7b at full width, ``TRAIN_LAYERS`` of its 32 layers, bf16
     with AdamW's moments in f32, ``TRAIN_STEPS`` steps of ``TRAIN_B`` x
@@ -2560,6 +2699,151 @@ def phase_serve(torch, np, ops):
             f"a kernel of the dense path never launched: {launches}")
     res["device_kv_bytes"] = eng.kv_traffic()["device_kv_bytes"]
     return eng, prompts, launches, outs, res
+
+
+def plan_decode(torch, cfg, params, prompt, policy, feed=None, tape=None):
+    """``prompt`` (B, P): its first P - 1 tokens prefilled into a dense
+    ring of ``PLAN_SLOTS``, then ``PLAN_STEPS`` greedy ``make_serve_step``
+    calls from its last token, each fed the step's own token (or
+    ``feed``'s, to hold two paths on the same inputs), all under ``tape``
+    (a ``RoutingTape``) when given.  Returns (logits (steps, B, V),
+    tokens (steps, B), decode seconds)."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import forward
+    from repro_torch.serving.steps import make_serve_step
+    cache = kvcache.init_cache(cfg, prompt.shape[0], PLAN_SLOTS,
+                               device=DEVICE)
+    step = make_serve_step(cfg, policy)
+    logits, toks = [], []
+    with torch.no_grad(), (tape if tape is not None
+                           else contextlib.nullcontext()):
+        forward(cfg, params, prompt[:, :-1], cache=cache, mode="prefill",
+                policy=policy)
+        tok = prompt[:, -1:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(PLAN_STEPS):
+            nxt, lg, cache = step(params, cache, tok)
+            logits.append(lg)
+            toks.append(nxt)
+            tok = (feed[i] if feed is not None else nxt)[:, None].long()
+        torch.cuda.synchronize()
+    return torch.stack(logits), torch.stack(toks), time.perf_counter() - t0
+
+
+def phase_serve_plan(torch, np, ops, params):
+    """``serve``'s 4-layer mixtral-8x7b weights (bf16, full width) decoded
+    greedily through ``make_serve_step`` under the decode plans of two
+    meshes of one rank on an nccl group: ("model",), whose plan runs the
+    expert-parallel psum body (``ep_psum``), and ("data", "model"), whose
+    plan runs the grouped MoE; both with the sequence-sharded decode
+    attention (``gqa_decode`` partials, combined across the KV axes).  B
+    ``PLAN_B`` prompts of ``PLAN_PROMPT`` tokens over a ring of
+    ``PLAN_SLOTS``, ``PLAN_STEPS`` steps, at capacity ``PLAN_CF``.  Each
+    plan against ``make_serve_step`` without a plan (the grouped MoE
+    through the kernels): the same tokens, logits within ``LOGIT_TOL``
+    (whether bit-equal printed), decode tok/s of both; the ("model",)
+    plan's kernels against its ``impl="ref"`` form on the same inputs and
+    routing (``RoutingTape``): in bf16 within ``LOGIT_TOL``, and at 1 layer
+    in f32 within ``F32_TOL``.  Returns each plan run's launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import init_params
+    dist = nccl_group(torch)
+    cfg = dataclasses.replace(_mixtral(), num_layers=LAYERS,
+                              capacity_factor=PLAN_CF)
+    shape = ShapeConfig("serve_plan", PLAN_SLOTS, PLAN_B, "decode")
+    rng = np.random.default_rng(SEED + 40)
+    prompt = torch.as_tensor(rng.integers(2, cfg.vocab_size,
+                                          (PLAN_B, PLAN_PROMPT)),
+                             device=DEVICE)
+    base_logits, base_toks, base_s = plan_decode(
+        torch, cfg, params, prompt, ExecPolicy(moe_impl="grouped",
+                                               use_kernels=True))
+    L, n = LAYERS, PLAN_STEPS
+    expected = {"moe_ffn": L * (n + 1), "gqa_decode": L * n,
+                "flash_prefill": L}
+    launches, line = {}, {"phase": "serve_plan", "model": "mixtral-8x7b",
+                          "layers": L, "of_layers": _mixtral().num_layers,
+                          "batch": PLAN_B, "prompt": PLAN_PROMPT,
+                          "ring": PLAN_SLOTS, "steps": n,
+                          "capacity_factor": PLAN_CF,
+                          "backend": dist.get_backend(),
+                          "no_plan_decode_tok_per_s": PLAN_B * n / base_s}
+    for sizes, names in (((1,), ("model",)), ((1, 1), ("data", "model"))):
+        mesh = make_mesh(sizes, names)
+        plan = SH.make_plan(cfg, shape, mesh, use_kernels=True)
+        key = "mesh_" + "_".join(names)
+        ops.reset_launch_counts()
+        logits, toks, secs = plan_decode(torch, cfg, params, prompt,
+                                         plan.policy)
+        launches[f"serve_plan_{key}"] = ops.launch_counts()
+        err = max_err(logits, base_logits)
+        line[key] = {"moe_variant": plan.moe_variant,
+                     "attn_fn": plan.policy.attn_fn is not None,
+                     "kv_axes": plan.kv_axes, "dp_axes": plan.dp_axes,
+                     "decode_tok_per_s": PLAN_B * n / secs,
+                     "max_abs_err_vs_no_plan": err,
+                     "bit_equal_to_no_plan": bool(torch.equal(logits,
+                                                              base_logits)),
+                     "tokens_equal": bool(torch.equal(toks, base_toks)),
+                     "launches": launches[f"serve_plan_{key}"]}
+        require(torch.isfinite(logits).all(), f"serve_plan {key}: logits")
+        require(plan.policy.attn_fn is not None,
+                f"serve_plan {key}: no sequence-sharded attention")
+        require(torch.equal(toks, base_toks) and err <= LOGIT_TOL,
+                f"serve_plan {key}: against no plan, tokens "
+                f"{line[key]['tokens_equal']}, logits {err}")
+        got = launches[f"serve_plan_{key}"]
+        require(all(got[k] == v for k, v in expected.items()),
+                f"serve_plan {key}: launched {got}, expected {expected}")
+    require(line["mesh_model"]["moe_variant"] == "ep_psum"
+            and line["mesh_data_model"]["moe_variant"] == "grouped_pjit",
+            f"serve_plan: variants {line}")
+    # the ("model",) plan's kernels against its plain form, same routing
+    plan = SH.make_plan(cfg, shape, make_mesh((1,), ("model",)),
+                        use_kernels=True)
+    with_ref = dataclasses.replace(plan.policy, impl="ref")
+    tape = RoutingTape()
+    k_logits, k_toks, _ = plan_decode(torch, cfg, params, prompt,
+                                      plan.policy, tape=tape)
+    r_logits, _, _ = plan_decode(torch, cfg, params, prompt, with_ref,
+                                 feed=k_toks, tape=RoutingTape(replay=tape))
+    line["bf16_max_abs_err_kernels_vs_plain"] = max_err(k_logits, r_logits)
+    del tape, k_logits, r_logits, base_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg1 = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    p1 = init_params(cfg1, torch.Generator(device=DEVICE).manual_seed(
+        SEED + 41), device=DEVICE)
+    plan = SH.make_plan(cfg1, shape, make_mesh((1,), ("model",)),
+                        use_kernels=True)
+    tape = RoutingTape()
+    k_logits, k_toks, _ = plan_decode(torch, cfg1, p1, prompt, plan.policy,
+                                      tape=tape)
+    r_logits, _, _ = plan_decode(
+        torch, cfg1, p1, prompt, dataclasses.replace(plan.policy,
+                                                     impl="ref"),
+        feed=k_toks, tape=RoutingTape(replay=tape))
+    line["f32_1_layer_max_abs_err_kernels_vs_plain"] = max_err(k_logits,
+                                                               r_logits)
+    line["f32_tol"], line["bf16_tol"] = F32_TOL, LOGIT_TOL
+    line["expected_launches"] = expected
+    line["card"] = card_line()
+    emit(line)
+    require(line["bf16_max_abs_err_kernels_vs_plain"] <= LOGIT_TOL,
+            "serve_plan: bf16 kernels against the plain versions: "
+            f"{line['bf16_max_abs_err_kernels_vs_plain']}")
+    require(close(k_logits, r_logits, F32_TOL),
+            "serve_plan: f32 kernels against the plain versions: "
+            f"{line['f32_1_layer_max_abs_err_kernels_vs_plain']}")
+    del p1, tape, k_logits, r_logits
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_serve_module(torch, np, ops, params, want, launches_serve):
@@ -5671,6 +5955,7 @@ def main() -> int:
     # the training path while the card is empty (train_mixtral's peak is
     # ~50 GB)
     launches_train_check = phase_train_check(torch, np, ops)
+    launches_train_plan = phase_train_plan(torch, np, ops)
     launches_train = phase_train_mixtral(torch, np, ops)
     eng, serve_prompts, launches, serve_outs, serve_res = phase_serve(
         torch, np, ops)
@@ -5703,6 +5988,8 @@ def main() -> int:
                                                eng.params, serve_prompts[:8])
     launches_sample = phase_sample(torch, np, ops, eng.cfg, eng.params,
                                    serve_prompts[:8])
+    # the distributed layer: plans over meshes of one rank on nccl
+    launches_serve_plan = phase_serve_plan(torch, np, ops, eng.params)
     # int8 expert weights and int8 KV through the three kernels' int8
     # paths, 4 layers on the card
     eng8, _, launches_int8, _ = phase_serve_int8(torch, np, ops, serve_res)
@@ -5821,6 +6108,7 @@ def main() -> int:
     # the launches of the later slices' paths, beside each kernel's main
     # path
     new_paths = {"train_check": launches_train_check,
+                 "train_plan": launches_train_plan, **launches_serve_plan,
                  "train_mixtral": launches_train,
                  "serve_module": launches_module,
                  "serve_overlap": launches_overlap,

@@ -6,13 +6,35 @@
 
 It runs on the card unless ``--device`` names another device.  The
 Trainer resumes from the latest checkpoint in ``--ckpt-dir``, so
-preemption recovery is: re-run the same command.
+preemption recovery is: re-run the same command.  Under a launcher that
+sets ``RANK`` and ``WORLD_SIZE`` (``torchrun``) every process joins the
+launcher's process group first (``init_distributed``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import Optional, Sequence
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def init_distributed(device: DeviceLike = None) -> Optional[str]:
+    """Join the launcher's process group when ``RANK`` and ``WORLD_SIZE``
+    are set (its rendezvous from ``MASTER_ADDR`` / ``MASTER_PORT``): nccl
+    on the card, gloo only when the caller asks for the CPU.  Returns the
+    backend, or None when no launcher set the variables."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    import torch
+    import torch.distributed as dist
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend)
+    return backend
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -29,6 +51,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
+    backend = init_distributed(args.device)
 
     from repro_torch.configs import get_config
     from repro_torch.training.trainer import Trainer, TrainConfig
@@ -42,6 +65,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     trainer = Trainer(cfg, tcfg, device=args.device)
     metrics = trainer.run()
     out = {"final": metrics, "log": trainer.metrics_log[-5:]}
+    if backend is not None:
+        import torch.distributed as dist
+        out["process_group"] = {"backend": backend,
+                                "rank": dist.get_rank(),
+                                "world_size": dist.get_world_size()}
+        dist.destroy_process_group()
     print(json.dumps(out, indent=1))
     return out
 

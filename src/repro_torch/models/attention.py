@@ -15,6 +15,9 @@ in its non-causal form, S queries over the encoder's keys, in prefill and
 in decode alike.
 Chunk mode attends a prompt chunk's queries against the whole ring in
 plain PyTorch and f32, as the reference computes it outside any kernel.
+Under a sharding plan, GQA decode over the dense ring runs the plan's
+sequence-sharded attention (``attn_fn``: the same kernel's partials on each
+rank's slice of the ring, combined across the ranks) after the ring write.
 """
 from __future__ import annotations
 
@@ -113,6 +116,22 @@ def chunk_attention_ring(q, k, v, valid, *, scale: float,
     return o.reshape(B, S, H, v.shape[-1])
 
 
+def _check_attn_fn(attn_fn, cache, quantized: bool) -> None:
+    """What a sequence-sharded decode attention takes here: a dense ring
+    whose slice is this rank's whole ring (one rank on the KV axes), in
+    the model dtype.  No test drives the others."""
+    if kvcache.is_paged(cache):
+        raise NotImplementedError("a block-paged cache under a sequence-"
+                                  "sharded attention is not ported")
+    if quantized:
+        raise NotImplementedError("int8 KV under a sequence-sharded "
+                                  "attention is not ported")
+    if attn_fn.kv_shards != 1:
+        raise NotImplementedError(
+            f"the ring write of a cache sharded over {attn_fn.kv_shards} "
+            f"ranks is not ported: a step under a plan runs on one rank")
+
+
 def _proj(x, w, b=None):
     y = torch.matmul(x, w.to(x.dtype))
     if b is not None:
@@ -123,7 +142,7 @@ def _proj(x, w, b=None):
 def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
                 cache: Optional[Dict], mode: str, pos=None,
                 causal: bool = True, kv_override: Optional[Tuple] = None,
-                impl: str = "auto"):
+                impl: str = "auto", attn_fn=None):
     """x: (B,S,E).  mode: 'full' (train / prefill, writing the ring when a
     cache is given), 'decode' (S == 1: write the ring, then attend over
     it) or 'chunk' (write a prompt chunk at its absolute positions, then
@@ -133,7 +152,11 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
     kv_override: (k, v) already built, (B,Skv,Hkv,Dh) each (whisper's
     cross-attention over the encoder's positions): only the query is
     projected, and the S queries attend to all Skv keys, non-causal and
-    without a window, in 'full' mode (also for one decode query)."""
+    without a window, in 'full' mode (also for one decode query).
+
+    attn_fn: a sharding plan's sequence-sharded decode attention
+    (``distributed.collectives.make_seq_sharded_attn``), which takes the
+    place of the dense ring's partials after the ring write."""
     B, S, E = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = cfg.query_scale or Dh ** -0.5
@@ -160,7 +183,14 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
         if S != 1 or cache is None:
             raise ValueError("decode attends one token per row over a cache")
         new = kvcache.quantize_kv(k, v) if quantized else {"k": k, "v": v}
-        if kvcache.is_paged(cache):
+        if attn_fn is not None:
+            _check_attn_fn(attn_fn, cache, quantized)
+            kvcache.write_decode(cache, new, pos)
+            valid = decode_valid_mask(cache["slot_pos"], pos, window)
+            o = attn_fn(q[:, 0], cache["k"], cache["v"], valid, scale=scale,
+                        attn_softcap=cfg.attn_softcap, impl=impl)
+            part = None
+        elif kvcache.is_paged(cache):
             # block-paged pool: fused decode-write straight through the
             # page table (the kernel merges the fresh token into its
             # block, then the arena scatter runs)
@@ -174,7 +204,9 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
                                   scale=scale, attn_softcap=cfg.attn_softcap,
                                   k_scale=cache.get("k_scale"),
                                   v_scale=cache.get("v_scale"), impl=impl)
-        o = combine_partials(*part)[:, None].to(x.dtype)     # (B,1,H,Dh)
+        if part is not None:
+            o = combine_partials(*part)
+        o = o[:, None].to(x.dtype)                           # (B,1,H,Dh)
     elif mode == "full":
         # full-sequence forward always begins at absolute position 0
         o = ops.flash_prefill(q, k, v, causal=causal, window=window,
@@ -217,8 +249,14 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
 
 def mla_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
                 cache: Optional[Dict], mode: str, pos=None,
-                causal: bool = True, impl: str = "auto"):
-    """x: (B,S,E); modes as `gqa_forward`.  Returns (out, layer_cache)."""
+                causal: bool = True, impl: str = "auto", attn_fn=None):
+    """x: (B,S,E); modes as `gqa_forward`.  Returns (out, layer_cache).
+    A sequence-sharded decode (``attn_fn``) is not ported for MLA: no test
+    drives it, and ``gqa_decode`` cannot take the absorbed heads (128
+    query heads over one latent head of 576)."""
+    if attn_fn is not None and mode == "decode":
+        raise NotImplementedError("MLA decode under a sequence-sharded "
+                                  "attention is not ported")
     B, S, E = x.shape
     H = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim

@@ -20,14 +20,20 @@ layer index and ordered by CUDA events, so nothing is read back to the
 host.
 
 Execution strategy is injected through an `ExecPolicy`, as in the JAX
-package.
+package; a sharding plan's policy also carries the expert-parallel MoE body
+(``moe_fn``), the sequence-sharded decode attention (``attn_fn``) and
+``remat``, which in a train forward runs each block under
+``torch.utils.checkpoint``.  The reference's ``remat`` never takes effect:
+its check compares the scan's mode, never "train", with "train"
+(``repro/models/model.py:229``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import offload, paging
@@ -41,12 +47,17 @@ from repro_torch.models.moe import gated_ffn, moe_apply, moe_apply_paged
 
 @dataclass
 class ExecPolicy:
-    """How to execute (not what to compute)."""
+    """How to execute (not what to compute).  ``moe_fn``, ``attn_fn`` and
+    ``remat`` are set by a sharding plan (``distributed.sharding``)."""
     moe_impl: str = "dense"               # dense | grouped
     use_kernels: bool = False             # grouped MoE FFN through moe_ffn
     impl: str = "auto"                    # kernel dispatch (kernels/ops.py):
     # auto (the CUDA kernels on CUDA tensors, plain PyTorch on CPU) | ref
     # (the kernels' plain versions everywhere)
+    moe_fn: Optional[Callable] = None     # overrides moe_impl when set
+    attn_fn: Optional[Callable] = None    # sequence-sharded decode attention
+    remat: bool = False                   # train: each block recomputed in
+    # the backward (torch.utils.checkpoint)
 
 
 @dataclass
@@ -177,7 +188,8 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
         h = apply_norm(cfg, p.get("attn_norm", {}), x)
         y, _ = attn_forward(cfg, spec, p["attn"], h, positions, cache=cache,
                             mode=mode, pos=pos, causal=causal,
-                            impl=policy.impl if policy else "auto")
+                            impl=policy.impl if policy else "auto",
+                            attn_fn=policy.attn_fn if policy else None)
         if cfg.post_block_norm:
             y = apply_norm(cfg, p["post_attn_norm"], y)
         return x + y
@@ -208,6 +220,13 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
                          token_groups, y)
         x = x + y
     return x, aux, ecounts
+
+
+def _remat_block(*args, **kw):
+    """``block_apply`` under ``torch.utils.checkpoint``: its activations
+    are not kept for the backward but recomputed there (what
+    ``jax.checkpoint`` of the scanned body is in the reference)."""
+    return checkpoint(block_apply, *args, use_reentrant=False, **kw)
 
 
 def cross_attend(cfg: ModelConfig, p: Dict, x, positions, *, mode: str,
@@ -369,10 +388,13 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
                for layer in range(cfg.num_periods)
                for i, spec in enumerate(cfg.period)]
     counts: Dict[str, list] = {k: [] for k in ctx}
+    # remat: each block's activations are recomputed in the backward
+    block = (_remat_block if policy is not None and policy.remat
+             and mode == "train" else block_apply)
     for spec, p, key, layer in stacks:
         lp = (spans[key].params(layer) if p is None
               else paging.layer_slice(p, layer))
-        x, aux, ec = block_apply(
+        x, aux, ec = block(
             cfg, spec, lp, x, positions=positions,
             cache=(paging.layer_slice(cache[key], layer)
                    if cache is not None else None),

@@ -14,8 +14,12 @@ Execution paths (numerically equivalent up to capacity drops):
     (``fetch_experts``: resident ones from the device pool, misses from the
     pinned host store) and computed on as a compacted subset.
 
+  * ``moe_ep_psum_local`` / ``moe_ep_a2a_local`` — the expert-parallel
+    bodies a sharding plan runs on every rank of its mesh (tokens
+    replicated and the output summed, or tokens exchanged by all-to-all),
+    each through ``grouped_ffn``.
+
 Gate/up projections are stored as (D, 2, F), as in the JAX package.
-Expert parallelism is a later slice.
 """
 from __future__ import annotations
 
@@ -204,6 +208,134 @@ def moe_grouped(cfg: ModelConfig, p: Dict, x, *, capacity_factor=None,
 
 
 # ---------------------------------------------------------------------------
+# Expert-parallel bodies (run on every rank of a mesh by the plan's moe_fn,
+# distributed.collectives.make_moe_shard_fn)
+# ---------------------------------------------------------------------------
+
+def _expert_slice(mesh, expert_axes) -> Tuple[int, int]:
+    """(shards, this rank's index) over the expert axes, which must be in
+    mesh order: the experts' blocks and the all-to-all's lanes both follow
+    a group's rank order."""
+    if mesh.in_mesh_order(expert_axes) != tuple(expert_axes):
+        raise ValueError(f"expert axes {expert_axes} are not in mesh order")
+    return mesh.axis_size(expert_axes), mesh.axis_index(expert_axes)
+
+
+def moe_ep_psum_local(cfg: ModelConfig, p_local: Dict, x, *, mesh,
+                      expert_axes, capacity_factor=None,
+                      use_kernel: bool = False, ffn_axes=(),
+                      impl: str = "auto"):
+    """Tokens replicated over expert_axes (+ffn_axes); p_local holds this
+    rank's expert slice wi (E_loc, D, 2, F_loc), wo (E_loc, F_loc, D) and
+    the whole router.  With ffn_axes set, each expert's FFN dim is also
+    sharded (2D stationary weights) and the output sum covers both axis
+    groups: decode moves only (T, D)-sized activations while every weight
+    stays on its shard.  The shared experts, replicated over the expert
+    axes, enter the sum divided by their count.  x: (T, D)."""
+    from repro_torch.distributed.collectives import all_reduce
+    T, D = x.shape
+    NE, K = cfg.num_experts, cfg.top_k
+    M, my = _expert_slice(mesh, expert_axes)
+    E_loc = NE // M
+    cf = capacity_factor or cfg.capacity_factor
+    cap_e = max(1, int(T * K * cf / NE + 0.999))
+
+    w, idx, aux = route(cfg, p_local["router"], x)
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
+    flat_w = w.reshape(-1)
+    local_e = flat_e - my * E_loc
+    mine = (local_e >= 0) & (local_e < E_loc)
+    dest = torch.where(mine, local_e, -1)
+    slot, keep = _bucket(dest, E_loc, cap_e)
+    e_safe = torch.where(keep, dest, 0)
+    s_safe = torch.where(keep, slot, cap_e - 1)
+
+    xbuf = torch.zeros((E_loc, cap_e, D), dtype=x.dtype, device=x.device)
+    xbuf = xbuf.index_put((e_safe, s_safe),
+                          torch.where(keep[:, None], x[flat_t], 0),
+                          accumulate=True)
+    ybuf = grouped_ffn(cfg, p_local["wi"], p_local["wo"], xbuf, use_kernel,
+                       p_local.get("wi_scale"), p_local.get("wo_scale"),
+                       impl=impl)
+    y = torch.where(keep[:, None], ybuf[e_safe, s_safe], 0)
+    out = combine_routed(x, y * flat_w[:, None].to(x.dtype), K)
+    if cfg.num_shared_experts:
+        out = out + gated_ffn(cfg, p_local["shared"]["wi"],
+                              p_local["shared"]["wo"], x) / M
+    reduce_axes = tuple(expert_axes) + tuple(ffn_axes)
+    return all_reduce(out, mesh.group(reduce_axes)), aux
+
+
+def _all_to_all(x, group):
+    """Block i of x's leading axis to rank i of ``group``; the blocks
+    received, in rank order.  Differentiable for floating x."""
+    import torch.distributed as dist
+    out = torch.empty_like(x)
+    if x.is_floating_point():
+        from torch.distributed.nn.functional import all_to_all_single
+        return all_to_all_single(out, x.contiguous(), group=group)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+def moe_ep_a2a_local(cfg: ModelConfig, p_local: Dict, x, *, mesh,
+                     expert_axes, capacity_factor=None,
+                     use_kernel: bool = False, impl: str = "auto"):
+    """Tokens sharded over expert_axes (x is this rank's token slice):
+    routed tokens go to their expert's rank and back by all-to-all, in
+    lanes of ``cap`` tokens per (source, destination) pair.  aux is the
+    mean of the ranks' router losses.  x: (T_loc, D)."""
+    from repro_torch.distributed.collectives import all_reduce
+    T, D = x.shape
+    NE, K = cfg.num_experts, cfg.top_k
+    M, _ = _expert_slice(mesh, expert_axes)
+    group = mesh.group(expert_axes)
+    E_loc = NE // M
+    cf = capacity_factor or cfg.capacity_factor
+    cap = max(1, int(T * K * cf / M + 0.999))            # per src->dst lane
+    cap_e = max(1, int(M * cap * cf / E_loc + 0.999))    # per local expert
+
+    w, idx, aux = route(cfg, p_local["router"], x)
+    flat_e = idx.reshape(-1)
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
+    flat_w = w.reshape(-1)
+    dest = flat_e // E_loc
+    slot, keep = _bucket(dest, M, cap)
+    d_safe = torch.where(keep, dest, 0)
+    s_safe = torch.where(keep, slot, cap - 1)
+
+    send_x = torch.zeros((M, cap, D), dtype=x.dtype, device=x.device)
+    send_x = send_x.index_put((d_safe, s_safe),
+                              torch.where(keep[:, None], x[flat_t], 0),
+                              accumulate=True)
+    send_le = torch.full((M * cap,), -1, dtype=torch.int32, device=x.device)
+    send_le.scatter_reduce_(0, d_safe * cap + s_safe,
+                            torch.where(keep, flat_e % E_loc, -1).to(
+                                torch.int32), reduce="amax")
+    rx = _all_to_all(send_x, group).reshape(M * cap, D)
+    rle = _all_to_all(send_le, group).long()
+
+    slot2, keep2 = _bucket(rle, E_loc, cap_e)
+    e2 = torch.where(keep2, rle, 0)
+    s2 = torch.where(keep2, slot2, cap_e - 1)
+    xbuf = torch.zeros((E_loc, cap_e, D), dtype=x.dtype, device=x.device)
+    xbuf = xbuf.index_put((e2, s2), torch.where(keep2[:, None], rx, 0),
+                          accumulate=True)
+    ybuf = grouped_ffn(cfg, p_local["wi"], p_local["wo"], xbuf, use_kernel,
+                       p_local.get("wi_scale"), p_local.get("wo_scale"),
+                       impl=impl)
+    ry = torch.where(keep2[:, None], ybuf[e2, s2], 0).reshape(M, cap, D)
+    back = _all_to_all(ry, group)
+    y = torch.where(keep[:, None], back[d_safe, s_safe], 0)
+    out = combine_routed(x, y * flat_w[:, None].to(x.dtype), K)
+    if cfg.num_shared_experts:
+        out = out + gated_ffn(cfg, p_local["shared"]["wi"],
+                              p_local["shared"]["wo"], x)
+    return out, all_reduce(aux, group) / M
+
+
+# ---------------------------------------------------------------------------
 # Expert-granular paged path (two-phase layer step)
 # ---------------------------------------------------------------------------
 
@@ -344,6 +476,8 @@ def moe_apply_paged(cfg: ModelConfig, p: Dict, x3, fetch_experts,
 def moe_apply(cfg: ModelConfig, p: Dict, x3, policy=None,
               token_groups: Optional[int] = None):
     """Dispatch on the execution policy. x3: (B, S, D)."""
+    if policy is not None and policy.moe_fn is not None:
+        return policy.moe_fn(cfg, p, x3, impl=policy.impl)
     B, S, D = x3.shape
     x = x3.reshape(B * S, D)
     if policy is not None and policy.moe_impl == "grouped":

@@ -6,6 +6,7 @@ this one source come:
 
   * `init_params`  — materialized, randomly initialized dict of tensors
   * `count_params` — exact parameter counts (total / active-per-token)
+  * `param_axes`   — the logical axes the sharding plans map onto a mesh
 
 Stacking matches the JAX package: the layers of each position in the
 repeating period are stacked on a leading "layers" axis, so the keys,
@@ -223,6 +224,18 @@ def param_defs(cfg: ModelConfig) -> Dict:
             "final_norm": _norm_def(cfg, 0),
         }
     return defs
+
+
+def tree_map_defs(fn, defs):
+    """``fn`` applied to every ParamDef of a defs tree, keeping its keys."""
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    return {k: tree_map_defs(fn, v) for k, v in defs.items()}
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """Each parameter's logical axis names (one per dim)."""
+    return tree_map_defs(lambda d: d.axes, param_defs(cfg))
 
 
 def _leaves(defs, path=()):

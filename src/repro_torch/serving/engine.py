@@ -778,9 +778,12 @@ class Engine:
         b, chunk = self.ecfg.ubatch, self.ecfg.decode_chunk
         window = len(gids) > 1
         # EOS-aware reservations are optimistic: preempt (recompute) the
-        # youngest rows of a group this chunk could take past its budget
+        # youngest decoding rows while this chunk, or the first token of a
+        # staged prefill that the next prefill chunk completes, could take
+        # a group past its budget
         for gid in gids:
-            self.scheduler.enforce_budget(gid, chunk)
+            self.scheduler.enforce_budget(gid, chunk,
+                                          self.ecfg.prefill_chunk)
         if self._kv is not None:
             self._kv_sweep()              # blocks of budget-preempted slots
             # fetch/alloc the working set of every row the dispatch reads

@@ -298,13 +298,22 @@ class Scheduler:
             assigned.append(slot)
         return assigned
 
-    def enforce_budget(self, gid: int, chunk: int) -> List[ServeRequest]:
+    def enforce_budget(self, gid: int, chunk: int,
+                       prefill_chunk: Optional[int] = None
+                       ) -> List[ServeRequest]:
         """Pre-decode guard for optimistic ("ewma") reservations: ensure
         the group's footprint cannot exceed cache_tokens even if every
-        decoding row emits its next `chunk` tokens.  While it could,
-        preempt the youngest decoding request.  Returns the preempted
-        requests.  Under "worst" reservations admission already guarantees
-        the bound and this is a no-op."""
+        decoding row emits its next `chunk` tokens and every staged
+        prefill that its next chunk of `prefill_chunk` prompt tokens
+        completes emits its first token (None: any staged prefill may
+        complete).  While it could, preempt the youngest decoding request.
+        Returns the preempted requests.  Under "worst" reservations
+        admission already guarantees the bound and this is a no-op.
+
+        The JAX package charges a staged prefill its footprint alone, so
+        a first token that lands before the next guard can take the group
+        one token over its budget; this guard is a deliberate deviation
+        from it."""
         preempted: List[ServeRequest] = []
         while True:
             live = [s for s in self.slots[gid]
@@ -312,15 +321,24 @@ class Scheduler:
                     and s.req]
             decoding = [s for s in live if s.state == SlotState.DECODE]
             occ_need = sum(
-                self._charge(s.req.footprint
-                             + (min(chunk, s.req.remaining)
-                                if s.state == SlotState.DECODE else 0))
-                for s in live)
+                self._charge(s.req.footprint + self._next_tokens(
+                    s, chunk, prefill_chunk)) for s in live)
             if occ_need <= self.cache_tokens or not decoding:
                 return preempted
             victim = max(decoding, key=lambda s: s.req.rid)   # youngest
             preempted.append(victim.req)
             self.preempt(victim)
+
+    @staticmethod
+    def _next_tokens(slot: Slot, chunk: int,
+                     prefill_chunk: Optional[int]) -> int:
+        """Tokens a live slot may add before the next guard: a decoding
+        row its next chunk, a staged prefill its first token once its
+        next prefill chunk reaches the end of its prompt."""
+        if slot.state == SlotState.DECODE:
+            return min(chunk, slot.req.remaining)
+        rest = slot.req.footprint - slot.prefill_pos      # prompt left
+        return int(prefill_chunk is None or rest <= prefill_chunk)
 
     def start_decode(self, slot: Slot) -> None:
         assert slot.state == SlotState.PREFILL

@@ -4,8 +4,10 @@ static mode), its chunked form for overlapped admission
 (``prefill_chunk``) and the masked multi-token ``decode_chunk`` of the
 slot-pool engine (a chunk of 1 in static mode).  Prefill, monolithic or
 chunked, runs on a dense cache; the paged pool is written by the slot
-inserts.  The reference's ``make_serve_step`` and ``make_prefill_step``
-are not ported: no ported driver calls them.
+inserts.  ``make_serve_step`` is the plain greedy decode step that a
+sharding plan's policy runs (``distributed.sharding.make_plan``); the
+reference's ``make_prefill_step`` is not ported: no ported module calls
+it.
 
 Whole-layer paged weights (a ``core.paging.PagedWeights`` without expert
 manifests as ``paged_blocks``) change nothing here: the forward streams
@@ -33,6 +35,22 @@ from repro_torch.serving.sampling import sample
 def _expert_granular(paged_blocks) -> bool:
     return (isinstance(paged_blocks, paging.PagedWeights)
             and bool(paged_blocks.expert_manifests))
+
+
+def make_serve_step(cfg: ModelConfig,
+                    policy: Optional[ExecPolicy] = None) -> Callable:
+    """One greedy decode step: (params, cache, tokens (B,1)) ->
+    (next_token (B,) int32, logits (B,V) f32, cache), the cache written in
+    place and returned."""
+
+    def serve_step(params, cache, tokens):
+        out = forward(cfg, params, tokens, cache=cache, mode="decode",
+                      policy=policy)
+        logits = unembed(cfg, params, out["hidden"][:, -1])
+        return (torch.argmax(logits, dim=-1).to(torch.int32), logits,
+                out["cache"])
+
+    return serve_step
 
 
 def make_prefill_fill_step(cfg: ModelConfig,

@@ -47,9 +47,15 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert r.returncode == 0, r.stderr
     names = set(r.stdout.split())
     assert len(names) >= 20
-    # the policy path's modules are among those imported without jax
+    # the policy path's modules, and the distributed layer's, are among
+    # those imported without jax
     assert {"repro_torch.core.hrm", "repro_torch.core.policy",
             "repro_torch.core.cgopipe", "repro_torch.launch.serve"} <= names
+    assert {"repro_torch.distributed.sharding",
+            "repro_torch.distributed.collectives",
+            "repro_torch.distributed.compression",
+            "repro_torch.core.census", "repro_torch.runtime.elastic",
+            "repro_torch.launch.mesh", "repro_torch.launch.train"} <= names
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "glm4-9b", "olmo-1b",
