@@ -73,6 +73,26 @@ Phases, each printing JSON lines:
                    gradient within 1e-5 of its leaf's max-abs; remat on
                    and off, peak memory and seconds of each; the
                    attention's forward kernel twice a layer under remat.
+                   ``train_tp`` and ``serve_tp`` (after ``train_plan``):
+                   tensor parallelism on two ranks of the one card, each
+                   a process of this script (``--tp-rank``) in a gloo
+                   group over CUDA tensors (nccl refuses two ranks on one
+                   device).  ``train_tp``: each rank draws the 1-layer
+                   f32 model, runs the one-rank step on the whole weights
+                   and keeps its gradients' blocks, then one step of the
+                   ("model",) train plan on its slices (``ep_a2a``,
+                   remat, heads, vocabulary): loss within 1e-6 relative,
+                   every gradient within 1e-5 of its leaf's max-abs, the
+                   grad norm; ``serve_tp``: the parent decodes
+                   ``serve_plan``'s prompts through the one-rank step
+                   (1 layer f32, 8 steps; 2 layers bf16, 16 steps), the
+                   ranks the same under the ("model",) decode plan
+                   (``ep_psum`` on 4 experts a rank, each rank's half of
+                   the ring): f32 logits within 1e-4 of the one-rank
+                   logits' max-abs and tokens equal, bf16 decode tok/s
+                   beside the one-rank step's; the launches of both to
+                   the count.  The kernel phase's ``kernel_tp`` adds the
+                   split shapes as sub-records "tp".
   3. serve       — the port's Engine at the full width of mixtral-8x7b with
                    the depth cut from 32 to 4 layers and every weight on
                    the card, random weights from a seed, the dense KV
@@ -542,6 +562,17 @@ TRAIN_CHECK_LAYERS = 1
 PLAN_B, PLAN_SLOTS, PLAN_PROMPT, PLAN_STEPS = 8, 512, 128, 16
 PLAN_CF, TRAIN_PLAN_CF = 8.0, 2.0
 PLAN_LOSS_TOL, PLAN_GRAD_TOL = 1e-6, 1e-5   # train_plan: relative, of max-abs
+# tensor parallelism (train_tp, serve_tp): TP_WORLD ranks on the one card
+# in a gloo group over CUDA tensors (nccl refuses two ranks on one device),
+# each a process of this script (``--tp-rank``); serve_tp's f32 check at 1
+# layer and TP_F32_STEPS steps, its bf16 run at TP_SERVE_LAYERS and
+# PLAN_STEPS; serve_plan's batch, prompt, ring and capacity
+TP_WORLD, TP_SERVE_LAYERS, TP_F32_STEPS = 2, 2, 8
+# serve_tp's runs: (label, layers, dtype, weights' seed, steps)
+TP_SERVE_RUNS = (("f32", 1, "float32", SEED + 41, TP_F32_STEPS),
+                 ("bf16", TP_SERVE_LAYERS, "bfloat16", SEED, PLAN_STEPS))
+TP_LOGIT_TOL = 1e-4           # serve_tp f32: of the one-rank logits' max-abs
+TP_TIMEOUT_S = 600
 GRAD_TOL = 1e-4               # train_check: each leaf, of its max-abs
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of each gradient's max-abs
 GEMMA2_BWD_WINDOW = 64        # gemma2's 4096 cut to bite at S 256
@@ -882,6 +913,7 @@ def phase_kernels(torch, F):
     kernel_jamba(torch, F, timer, rn, records)
     kernel_encdec(torch, F, timer, rn, records)
     records.append(kernel_flash_bwd(torch, F, timer, rn))
+    kernel_tp(torch, F, timer, rn, records)
     torch.cuda.empty_cache()
     records.append(kernel_expert_gather(torch, timer, rn))
     return records
@@ -1687,6 +1719,347 @@ def phase_train_plan(torch, np, ops):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def kernel_tp(torch, F, timer, rn, records):
+    """The shapes a plan over ``TP_WORLD`` ranks gives mixtral-8x7b's
+    kernels (sub-records "tp" of their records): moe_ffn with the rank's 4
+    of 8 experts at serve_tp's decode bucket (C 16: 8 tokens, top-2,
+    capacity 8.0), gqa_decode over a rank's 256 of 512 ring slots (128
+    valid) with every head, flash_prefill on the rank's 16 of 32 query
+    heads and 4 of 8 KV heads at serve_tp's prefill (B 8, S 127) and
+    train_tp's (B 4, S 256), and flash_prefill_bwd at train_tp's; each
+    held against its plain version and timed beside its bound and one
+    library call."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn
+    cfg = _mixtral()
+    E, D, Fd = cfg.num_experts // TP_WORLD, cfg.d_model, cfg.d_ff
+    H, Hkv, Dh = (cfg.num_heads // TP_WORLD, cfg.num_kv_heads // TP_WORLD,
+                  cfg.head_dim)
+    by_name = {r["name"]: r for r in records}
+    C = max(1, int(PLAN_B * cfg.top_k * PLAN_CF / cfg.num_experts + 0.999))
+    wi, wo = rn(E, D, 2, Fd, std=D ** -0.5), rn(E, Fd, D, std=Fd ** -0.5)
+    # the rank's buckets of a step whose 8 tokens route over all 8 experts
+    x = routed_xbuf(torch, rn, cfg.num_experts, C, D, cfg.top_k,
+                    PLAN_B)[0][:E].contiguous()
+    occ = int(x.ne(0).any(-1).any(-1).sum())
+    got, want = moe_ffn(x, wi, wo), ref.moe_ffn_ref(x, wi, wo)
+    err = max_err(got, want)
+    require(close(got, want, BF16_OUT_TOL), f"moe_ffn bf16 tp: {err}")
+    wi3 = wi.view(E, D, 2 * Fd)
+
+    def library():
+        h = torch.bmm(x, wi3)
+        return torch.bmm(F.silu(h[..., :Fd]) * h[..., Fd:], wo)
+    # the occupied experts' weights: the kernel skips the empty ones' rows
+    bms, by = bound(2 * (2 * E * C * D + 3 * occ * D * Fd),
+                    6 * occ * C * D * Fd)
+    by_name["moe_ffn"]["tp"] = [{
+        "shape": {"E": E, "C": C, "D": D, "F": Fd, "dtype": "bf16",
+                  "occupied_experts": occ,
+                  "at": "serve_tp decode, a rank's experts"},
+        "max_abs_err": err, "ms": timer(lambda: moe_ffn(x, wi, wo)),
+        "plain_ms": timer(lambda: ref.moe_ffn_ref(x, wi, wo), 3, 1),
+        "bound_ms": bms, "bound_by": by, "library_ms": timer(library),
+        "library_call": "torch.bmm chain (up, silu * up, down)"}]
+    del wi, wo, x, wi3, got, want
+    W = PLAN_SLOTS // TP_WORLD
+    q, k, v = (rn(PLAN_B, cfg.num_heads, Dh), rn(PLAN_B, W, cfg.num_kv_heads,
+               Dh), rn(PLAN_B, W, cfg.num_kv_heads, Dh))
+    # rank 0's block mid-serve: the prompt's slots of its half (rank 1's
+    # block holds no position at serve_tp's depth)
+    valid = (torch.arange(W, device=DEVICE)[None, :]
+             < PLAN_PROMPT).expand(PLAN_B, W).contiguous()
+    by_name["gqa_decode"]["tp"] = [gqa_case(torch, F, timer, q, k, v, valid,
+                                            dict(scale=Dh ** -0.5))]
+    by_name["flash_prefill"]["tp"] = [
+        attention_case(torch, F, timer, rn(B, S, H, Dh), rn(B, S, Hkv, Dh),
+                       rn(B, S, Hkv, Dh), True, Dh ** -0.5)
+        for B, S in ((PLAN_B, PLAN_PROMPT - 1), (TRAIN_B, TRAIN_S))]
+    by_name["flash_prefill_bwd"]["tp"] = [bwd_case(
+        torch, F, timer, rn, TRAIN_B, TRAIN_S, TRAIN_S, H, Hkv, Dh, Dh)]
+    for name in ("moe_ffn", "gqa_decode", "flash_prefill",
+                 "flash_prefill_bwd"):
+        for sub in by_name[name]["tp"]:
+            emit({"phase": "kernel_tp", "name": name, **sub})
+
+
+def tp_rank_train(torch, ops, mesh) -> dict:
+    """train_tp on this rank: mixtral-8x7b at full width, 1 of its 32
+    layers in f32, ``train_check``'s weights and batch.  First the one-rank
+    step on the whole weights (no plan: the dense MoE), whose gradients'
+    blocks under the plan this rank keeps; then one step of the ("model",)
+    train plan (``ep_a2a`` at ``TRAIN_PLAN_CF``, remat) on this rank's
+    slices: loss, each gradient's distance from its block (of the whole
+    leaf's max-abs), the global grad norm against the one-rank one, then
+    AdamW on the slices; seconds and launches of the plan's step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import init_params
+    from repro_torch.training import optimizer as t_opt
+    from repro_torch.training.train_step import (make_loss_fn, requires_grad_,
+                                                 value_and_grad)
+    cfg = dataclasses.replace(_mixtral(), num_layers=TRAIN_CHECK_LAYERS,
+                              dtype="float32", capacity_factor=TRAIN_PLAN_CF)
+    params = requires_grad_(init_params(cfg, torch.Generator(
+        device=DEVICE).manual_seed(SEED + 30), device=DEVICE))
+    pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                   batch_size=TRAIN_B, seed=SEED))
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in next(pipe).items()}
+    pipe.close()
+    loss1, _, grads1 = value_and_grad(make_loss_fn(cfg, ExecPolicy()),
+                                      params, batch)
+    plan = SH.make_plan(cfg, ShapeConfig("train_tp", TRAIN_S, TRAIN_B,
+                                         "train"), mesh)
+    want = [(SH.local_slice(g, spec, mesh).clone(), float(g.abs().max()))
+            for g, spec in zip(t_opt.tree_leaves(grads1),
+                               t_opt.tree_leaves(plan.param_specs))]
+    norm1 = float(t_opt.global_norm(grads1))
+    local = requires_grad_(t_opt.tree_map(
+        lambda t: t.detach().clone(memory_format=torch.contiguous_format),
+        SH.shard_tree(params, plan.param_specs, mesh)))
+    del params, grads1
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, metrics, grads = value_and_grad(make_loss_fn(cfg, plan.policy),
+                                          local, batch, plan.policy.shard)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    errs = [max_err(g, b) / max(scale, 1e-30)
+            for g, (b, scale) in zip(t_opt.tree_leaves(grads), want)]
+    opt = t_opt.OptConfig()
+    _, _, opt_metrics = t_opt.apply_updates(
+        local, grads, t_opt.init_opt_state(local, opt), opt,
+        plan.policy.shard)
+    torch.cuda.synchronize()
+    out = {"moe_variant": plan.moe_variant, "remat": plan.policy.remat,
+           "loss_one_rank": float(loss1), "loss": float(loss),
+           "aux_loss": float(metrics["aux_loss"]),
+           "grad_norm_one_rank": norm1,
+           "grad_norm": float(opt_metrics["grad_norm"]),
+           "max_grad_err_of_max_abs": max(errs), "leaves": len(errs),
+           "seconds": secs, "launches": launches,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del local, grads, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_serve(torch, ops, mesh, prompt) -> dict:
+    """serve_tp on this rank: mixtral-8x7b at full width under the
+    ("model",) decode plan (``ep_psum`` through moe_ffn on the rank's 4
+    experts, the sequence-sharded attention over its half of the ring),
+    each rank drawing the whole layers from the parent's seeds and keeping
+    its slices: 1 layer in f32 for ``TP_F32_STEPS`` steps, then
+    ``TP_SERVE_LAYERS`` in bf16 for ``PLAN_STEPS`` steps, counted and
+    timed."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.params import init_params
+    from repro_torch.training.optimizer import tree_map
+    out = {}
+    for label, layers, dtype, seed, steps in TP_SERVE_RUNS:
+        cfg = dataclasses.replace(_mixtral(), num_layers=layers, dtype=dtype,
+                                  capacity_factor=PLAN_CF)
+        plan = SH.make_plan(cfg, ShapeConfig("serve_tp", PLAN_SLOTS, PLAN_B,
+                                             "decode"), mesh,
+                            use_kernels=True)
+        params = tree_map(
+            lambda t: t.clone(memory_format=torch.contiguous_format),
+            SH.shard_tree(init_params(cfg, torch.Generator(
+                device=DEVICE).manual_seed(seed), device=DEVICE),
+                plan.param_specs, mesh))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        logits, toks, secs = plan_decode(torch, cfg, params, prompt,
+                                         plan.policy, plan=plan, steps=steps)
+        out[label] = {"moe_variant": plan.moe_variant,
+                      "logits": logits.float().cpu(), "tokens": toks.cpu(),
+                      "decode_tok_per_s": PLAN_B * steps / secs,
+                      "launches": ops.launch_counts()}
+        del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(argv) -> int:
+    """One rank of train_tp / serve_tp: ``chip_smoke.py --tp-rank RANK
+    WORLD DIR`` joins a gloo group of WORLD ranks through ``DIR/init``,
+    runs both phases' rank parts and saves their results to
+    ``DIR/rank<RANK>.pt``."""
+    import torch
+    import torch.distributed as dist
+    rank, world, rundir = int(argv[0]), int(argv[1]), argv[2]
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_mesh
+    build.build_all()                     # built by the parent: loads them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rundir}/init",
+                            rank=rank, world_size=world)
+    mesh = make_mesh((world,), ("model",))
+    prompt = torch.load(os.path.join(rundir, "prompt.pt")).to(DEVICE)
+    out = {"train": tp_rank_train(torch, ops, mesh),
+           "serve": tp_rank_serve(torch, ops, mesh, prompt),
+           "backend": dist.get_backend()}
+    dist.destroy_process_group()
+    torch.save(out, os.path.join(rundir, f"rank{rank}.pt"))
+    return 0
+
+
+def phase_tp(torch, np, ops):
+    """train_tp and serve_tp: mixtral-8x7b at full width under plans of a
+    ("model",) mesh of ``TP_WORLD`` ranks on the one card (``tp_rank``,
+    each a process of this script over a gloo group of CUDA tensors),
+    against the one-rank step.  The parent first runs serve_tp's one-rank
+    decodes (the grouped MoE through the kernels, no plan) on the same
+    weights and prompt, then starts the ranks and waits for them; a rank
+    that fails fails the run.  Checks: train_tp's loss within
+    ``PLAN_LOSS_TOL`` relative and every gradient within ``PLAN_GRAD_TOL``
+    of its leaf's max-abs of the one-rank step's, on every rank;
+    serve_tp's f32 logits within ``TP_LOGIT_TOL`` of the one-rank logits'
+    max-abs and the same tokens; the launches of the plans' kernels to the
+    count.  Prints the bf16 decode tok/s beside the one-rank step's.
+    Returns each phase's launches (rank 0's)."""
+    from repro_torch.models.model import ExecPolicy
+    from repro_torch.models.params import init_params
+    rng = np.random.default_rng(SEED + 40)
+    prompt = torch.as_tensor(rng.integers(2, _mixtral().vocab_size,
+                                          (PLAN_B, PLAN_PROMPT)),
+                             device=DEVICE)
+    one = {}
+    for label, layers, dtype, seed, steps in TP_SERVE_RUNS:
+        cfg = dataclasses.replace(_mixtral(), num_layers=layers, dtype=dtype,
+                                  capacity_factor=PLAN_CF)
+        params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(
+            seed), device=DEVICE)
+        logits, toks, secs = plan_decode(
+            torch, cfg, params, prompt,
+            ExecPolicy(moe_impl="grouped", use_kernels=True), steps=steps)
+        one[label] = {"logits": logits.float().cpu(), "tokens": toks.cpu(),
+                      "decode_tok_per_s": PLAN_B * steps / secs}
+        del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    rundir = os.path.join(ROOT, "build", f"tp_{os.getpid()}")
+    shutil.rmtree(rundir, ignore_errors=True)
+    os.makedirs(rundir)
+    torch.save(prompt.cpu(), os.path.join(rundir, "prompt.pt"))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         str(TP_WORLD), rundir], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(TP_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    require(all(p.returncode == 0 for p in procs),
+            "a tensor-parallel rank failed:\n" + "\n".join(
+                f"--- rank {r} (exit {p.returncode})\n{log[-3000:]}"
+                for r, (p, log) in enumerate(zip(procs, logs))))
+    res = [torch.load(os.path.join(rundir, f"rank{r}.pt"))
+           for r in range(TP_WORLD)]
+    shutil.rmtree(rundir, ignore_errors=True)
+    card = card_line()
+    # train_tp
+    L = TRAIN_CHECK_LAYERS
+    expected = {"flash_prefill": 2 * L, "flash_prefill_bwd": L}
+    tr = [r["train"] for r in res]
+    loss1 = tr[0]["loss_one_rank"]
+    loss_rel = max(abs(t["loss"] - loss1) / abs(loss1) for t in tr)
+    grad_err = max(t["max_grad_err_of_max_abs"] for t in tr)
+    emit({"phase": "train_tp", "model": "mixtral-8x7b", "layers": L,
+          "dtype": "float32", "batch": [TRAIN_B, TRAIN_S],
+          "mesh": {"model": TP_WORLD}, "backend": res[0]["backend"],
+          "tensors_on": DEVICE, "capacity_factor": TRAIN_PLAN_CF,
+          "ranks": tr, "loss_rel_err": loss_rel, "loss_tol": PLAN_LOSS_TOL,
+          "max_grad_err_of_max_abs": grad_err, "grad_tol": PLAN_GRAD_TOL,
+          "expected_launches": expected, "ranks_wall_s": ranks_s,
+          "card": card})
+    require(all(t["moe_variant"] == "ep_a2a" and t["remat"] for t in tr),
+            f"train_tp: variants {[t['moe_variant'] for t in tr]}")
+    require(all(t["loss_one_rank"] == loss1 for t in tr),
+            "train_tp: the ranks' one-rank steps differ")
+    require(loss_rel <= PLAN_LOSS_TOL,
+            f"train_tp: loss {[t['loss'] for t in tr]} vs {loss1}")
+    require(grad_err <= PLAN_GRAD_TOL,
+            f"train_tp: gradients differ by {grad_err} of max-abs")
+    require(all(abs(t["grad_norm"] - t["grad_norm_one_rank"])
+                <= PLAN_GRAD_TOL * t["grad_norm_one_rank"] for t in tr),
+            "train_tp: grad norms "
+            f"{[(t['grad_norm'], t['grad_norm_one_rank']) for t in tr]}")
+    for r, t in enumerate(tr):
+        require(all(t["launches"][k] == n for k, n in expected.items()),
+                f"train_tp rank {r}: launched {t['launches']}, expected "
+                f"{expected}")
+    # serve_tp
+    sv = [r["serve"] for r in res]
+    scale = float(one["f32"]["logits"].abs().max())
+    f32_err = max(max_err(s["f32"]["logits"], one["f32"]["logits"])
+                  for s in sv)
+    n, Ls = PLAN_STEPS, TP_SERVE_LAYERS
+    expected_s = {"moe_ffn": Ls * (n + 1), "gqa_decode": Ls * n,
+                  "flash_prefill": Ls}
+    line = {"phase": "serve_tp", "model": "mixtral-8x7b",
+            "mesh": {"model": TP_WORLD}, "backend": res[0]["backend"],
+            "tensors_on": DEVICE, "batch": PLAN_B, "prompt": PLAN_PROMPT,
+            "ring": PLAN_SLOTS, "capacity_factor": PLAN_CF,
+            "moe_variant": sv[0]["bf16"]["moe_variant"],
+            "f32": {"layers": 1, "steps": TP_F32_STEPS,
+                    "max_abs_err_vs_one_rank": f32_err,
+                    "one_rank_max_abs": scale, "tol_of_max_abs":
+                        TP_LOGIT_TOL,
+                    "tokens_equal": [bool(torch.equal(
+                        s["f32"]["tokens"], one["f32"]["tokens"]))
+                        for s in sv]},
+            "bf16": {"layers": Ls, "of_layers": _mixtral().num_layers,
+                     "steps": n, "one_rank_decode_tok_per_s":
+                         one["bf16"]["decode_tok_per_s"],
+                     "decode_tok_per_s": [s["bf16"]["decode_tok_per_s"]
+                                          for s in sv],
+                     "tokens_equal_to_one_rank": [float(
+                         (s["bf16"]["tokens"] == one["bf16"]["tokens"])
+                         .float().mean()) for s in sv],
+                     "max_abs_err_vs_one_rank": max(
+                         max_err(s["bf16"]["logits"], one["bf16"]["logits"])
+                         for s in sv)},
+            "launches": [s["bf16"]["launches"] for s in sv],
+            "expected_launches": expected_s, "card": card}
+    emit(line)
+    require(all(s["bf16"]["moe_variant"] == "ep_psum" for s in sv),
+            "serve_tp: the decode plan runs no ep_psum")
+    require(all(torch.isfinite(s[k]["logits"]).all() for s in sv
+                for k in ("f32", "bf16")), "serve_tp: logits not finite")
+    require(f32_err <= TP_LOGIT_TOL * scale and all(
+        line["f32"]["tokens_equal"]),
+        f"serve_tp f32: logits {f32_err} (of max-abs {scale}), tokens "
+        f"{line['f32']['tokens_equal']}")
+    for r, s in enumerate(sv):
+        got = s["bf16"]["launches"]
+        require(all(got[k] == v for k, v in expected_s.items()),
+                f"serve_tp rank {r}: launched {got}, expected {expected_s}")
+    return {"train_tp": tr[0]["launches"], "serve_tp": sv[0]["bf16"][
+        "launches"]}
 
 
 def phase_train_mixtral(torch, np, ops):
@@ -2701,18 +3074,28 @@ def phase_serve(torch, np, ops):
     return eng, prompts, launches, outs, res
 
 
-def plan_decode(torch, cfg, params, prompt, policy, feed=None, tape=None):
+def plan_decode(torch, cfg, params, prompt, policy, feed=None, tape=None,
+                plan=None, steps=PLAN_STEPS):
     """``prompt`` (B, P): its first P - 1 tokens prefilled into a dense
-    ring of ``PLAN_SLOTS``, then ``PLAN_STEPS`` greedy ``make_serve_step``
-    calls from its last token, each fed the step's own token (or
-    ``feed``'s, to hold two paths on the same inputs), all under ``tape``
-    (a ``RoutingTape``) when given.  Returns (logits (steps, B, V),
-    tokens (steps, B), decode seconds)."""
+    ring of ``PLAN_SLOTS`` (this rank's block of it under a ``plan`` over
+    more than one rank, by the plan's cache specs), then ``steps`` greedy
+    ``make_serve_step`` calls from its last token, each fed the step's own
+    token (or ``feed``'s, to hold two paths on the same inputs), all under
+    ``tape`` (a ``RoutingTape``) when given.  Returns (logits (steps, B,
+    V), tokens (steps, B), decode seconds)."""
+    from repro_torch.distributed import sharding as SH
     from repro_torch.models import kvcache
     from repro_torch.models.model import forward
     from repro_torch.serving.steps import make_serve_step
+    from repro_torch.training.optimizer import tree_map
     cache = kvcache.init_cache(cfg, prompt.shape[0], PLAN_SLOTS,
                                device=DEVICE)
+    if plan is not None:            # this rank's block, contiguous
+        cache = tree_map(
+            lambda t: t.clone(memory_format=torch.contiguous_format),
+            SH.shard_tree(cache, SH.cache_specs(
+                cfg, cache, plan.dp_axes, plan.kv_axes, plan.rules,
+                plan.mesh), plan.mesh))
     step = make_serve_step(cfg, policy)
     logits, toks = [], []
     with torch.no_grad(), (tape if tape is not None
@@ -2722,7 +3105,7 @@ def plan_decode(torch, cfg, params, prompt, policy, feed=None, tape=None):
         tok = prompt[:, -1:]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(PLAN_STEPS):
+        for i in range(steps):
             nxt, lg, cache = step(params, cache, tok)
             logits.append(lg)
             toks.append(nxt)
@@ -2996,10 +3379,10 @@ class RoutingTape:
         self._moe = moe
         self._route, self._stage = moe.route, moe.stage_bucket
 
-        def route(cfg, router_w, x, token_groups=None):
+        def route(cfg, router_w, x, token_groups=None, aux_group=None):
             if self._replay is not None:
                 return next(self._replay)["route"]
-            out = self._route(cfg, router_w, x, token_groups)
+            out = self._route(cfg, router_w, x, token_groups, aux_group)
             self.entries.append({"route": out})
             return out
 
@@ -5956,6 +6339,8 @@ def main() -> int:
     # ~50 GB)
     launches_train_check = phase_train_check(torch, np, ops)
     launches_train_plan = phase_train_plan(torch, np, ops)
+    # tensor parallelism: two ranks on the card, against the one-rank step
+    launches_tp = phase_tp(torch, np, ops)
     launches_train = phase_train_mixtral(torch, np, ops)
     eng, serve_prompts, launches, serve_outs, serve_res = phase_serve(
         torch, np, ops)
@@ -6109,6 +6494,7 @@ def main() -> int:
     # path
     new_paths = {"train_check": launches_train_check,
                  "train_plan": launches_train_plan, **launches_serve_plan,
+                 **launches_tp,
                  "train_mixtral": launches_train,
                  "serve_module": launches_module,
                  "serve_overlap": launches_overlap,
@@ -6173,6 +6559,12 @@ def main() -> int:
                     f"{rec['name']} at {model}'s shape never launched")
         if "deepseek" in rec:
             rec["deepseek"]["launches"] = launches_mla[rec["name"]]
+        for sub in rec.get("tp", []):   # a rank's launches on its path
+            path = ("train_tp" if sub["shape"].get("S") == TRAIN_S
+                    else "serve_tp")
+            sub["launches"] = launches_tp[path][counter]
+            require(sub["launches"] > 0,
+                    f"{rec['name']} at {path}'s split shape never launched")
         if "int8" in rec:       # the launches of the int8 paths
             rec["int8"] = {"launches": sum(
                 p[rec["name"]] for p in (launches_int8, launches_paged_int8,
@@ -6192,7 +6584,7 @@ def main() -> int:
                                             "max_abs_err_no_softcap",
                                             "softcap_effect",
                                             "max_abs_err_f32",
-                                            "train_shapes")
+                                            "train_shapes", "tp")
                           if k in r}} for r in records]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -6202,4 +6594,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tp_rank(sys.argv[2:]) if sys.argv[1:2] == ["--tp-rank"]
+             else main())

@@ -23,9 +23,13 @@ an axis name or a tuple of axis names, trailing Nones dropped.
 ``shard_tree`` takes this rank's slice of every leaf, the counterpart of
 ``device_put`` with a ``NamedSharding``.  The plan's policy runs the
 expert-parallel MoE bodies and the sequence-sharded attention as local
-bodies over the mesh's process groups (``distributed.collectives``); the
-dense layers have no tensor-parallel counterpart here (ROADMAP), so a
-whole step under a plan runs on a mesh of one rank.
+bodies over the mesh's process groups (``distributed.collectives``).  Over
+more than one rank it also holds a ``tensor_parallel.ShardCtx``
+(``ExecPolicy.shard``), with which a whole train or decode step runs on
+each rank's slices: the heads, ``ffn``, ``vocab`` and ``effn`` splits over
+'model', FSDP's ``embed`` over 'data' (XLA's partitioner's work in the
+reference).  The Mamba-2 mixer's split, MLA, whisper's encoder, paligemma's
+prefix and ``decode_2d`` raise there (``tensor_parallel.check_supported``).
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.model import ExecPolicy
-from repro_torch.models.params import count_params, param_defs, tree_map_defs
+from repro_torch.models.params import (count_params, param_axes, param_defs,
+                                       tree_map_defs)
 
 EXPERT_BYTES_BUDGET = 8e9        # per-chip expert-slice budget (bf16 bytes)
 
@@ -233,6 +238,7 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
     (batch x d_model)-sized activations instead of gathering weight
     shards.  KV pages shard over ('data','model')."""
     from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.tensor_parallel import ShardCtx
     have = set(mesh.axis_names)
     dp = tuple(a for a in ("pod", "data") if a in have)
     # batch must divide the dp axes; shrink until it does
@@ -278,20 +284,24 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
             moe_fn = C.make_moe_shard_fn(
                 mesh, cfg, variant=variant, dp_axes=dp,
                 expert_axes=expert_axes, use_kernels=use_kernels,
-                ffn_axes=ffn_axes)
+                ffn_axes=ffn_axes, tp=mesh.size > 1)
         elif variant == "grouped_pjit":
             moe_impl = "grouped"
     attn_fn = None
     if shape.mode == "decode" and kv_axes and not cfg.is_attention_free:
         attn_fn = C.make_seq_sharded_attn(mesh, dp, tuple(kv_axes))
 
+    specs = param_specs(cfg, rules, mesh)
+    shard = (ShardCtx(mesh, rules, dp, tuple(kv_axes), expert_axes, specs,
+                      param_axes(cfg), decode_2d) if mesh.size > 1 else None)
     policy = ExecPolicy(
         moe_impl=moe_impl, moe_fn=moe_fn, attn_fn=attn_fn,
         use_kernels=use_kernels,
-        remat=(shape.mode == "train") if remat is None else remat)
+        remat=(shape.mode == "train") if remat is None else remat,
+        shard=shard)
     return Plan(mesh=mesh, rules=rules, dp_axes=dp, kv_axes=tuple(kv_axes),
                 expert_axes=expert_axes, moe_variant=variant,
-                param_specs=param_specs(cfg, rules, mesh), policy=policy)
+                param_specs=specs, policy=policy)
 
 
 def local_slice(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:

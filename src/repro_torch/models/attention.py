@@ -18,6 +18,11 @@ plain PyTorch and f32, as the reference computes it outside any kernel.
 Under a sharding plan, GQA decode over the dense ring runs the plan's
 sequence-sharded attention (``attn_fn``: the same kernel's partials on each
 rank's slice of the ring, combined across the ranks) after the ring write.
+A plan over more than one rank (``shard``) runs this rank's query heads
+(``_gqa_tp``): prefill and training through ``flash_prefill`` on them, and
+decode writes the new token into the ring's slot only on the rank that
+holds it, attends every head over each rank's slots and keeps its own
+heads for ``wo``.
 """
 from __future__ import annotations
 
@@ -116,20 +121,15 @@ def chunk_attention_ring(q, k, v, valid, *, scale: float,
     return o.reshape(B, S, H, v.shape[-1])
 
 
-def _check_attn_fn(attn_fn, cache, quantized: bool) -> None:
-    """What a sequence-sharded decode attention takes here: a dense ring
-    whose slice is this rank's whole ring (one rank on the KV axes), in
-    the model dtype.  No test drives the others."""
+def _check_sharded_ring(cache, quantized: bool) -> None:
+    """What a sharded attention takes here: a dense ring in the model
+    dtype.  No test drives the others."""
     if kvcache.is_paged(cache):
         raise NotImplementedError("a block-paged cache under a sequence-"
                                   "sharded attention is not ported")
     if quantized:
         raise NotImplementedError("int8 KV under a sequence-sharded "
                                   "attention is not ported")
-    if attn_fn.kv_shards != 1:
-        raise NotImplementedError(
-            f"the ring write of a cache sharded over {attn_fn.kv_shards} "
-            f"ranks is not ported: a step under a plan runs on one rank")
 
 
 def _proj(x, w, b=None):
@@ -139,10 +139,107 @@ def _proj(x, w, b=None):
     return y
 
 
+def _local_heads(H: int, Hkv: int, index: int, Dh: int,
+                 cols: int) -> Tuple[int, int, bool]:
+    """(this rank's first query head, how many, whether split) from the
+    columns of its ``wq`` slice; a split within a head is not ported."""
+    if cols % Dh:
+        raise NotImplementedError(f"wq split into {cols} columns, within a "
+                                  f"head of {Dh}, is not ported")
+    Hl = cols // Dh
+    G = H // Hkv
+    if Hl < H and (Hl % G if Hl >= G else G % Hl):
+        raise NotImplementedError(f"{Hl} query heads a rank in groups of "
+                                  f"{G} are not ported")
+    return (index * Hl if Hl < H else 0), Hl, Hl < H
+
+
+def _gqa_tp(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
+            cache, mode, pos, causal, impl, attn_fn, sh):
+    """``gqa_forward`` on this rank's query heads (a plan over more than one
+    rank).  ``wq`` / ``bq`` hold this rank's heads and ``wo`` their rows;
+    ``wk`` / ``wv`` (and biases) its KV heads, or the whole leaf, or a
+    slice finer than a head, which is gathered whole (FSDP's pair, so its
+    gradient is summed over the ranks and cut back)."""
+    from repro_torch.distributed import collectives as C
+    B, S, E = x.shape
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = cfg.query_scale or Dh ** -0.5
+    window = cfg.window_size if spec.attn == ATTN_WINDOW else 0
+    if cache is not None:
+        _check_sharded_ring(cache, cfg.kv_dtype == "int8")
+    if mode not in ("full", "decode"):
+        raise NotImplementedError(f"attention mode {mode!r} under a plan "
+                                  f"over more than one rank is not ported")
+    group = sh.group_of("heads")
+    h0, Hl, split = _local_heads(H, Hkv, sh.index_of("heads"), Dh,
+                                 p["wq"].shape[-1])
+    kv_group = sh.group_of("kv_heads")
+    xin = C.copy_to(x, group) if split else x
+    q = _proj(xin, p["wq"], p.get("bq")).reshape(B, S, Hl, Dh)
+
+    def kv(wn, bn):
+        """(its heads (B,S,h,Dh), the first of them)."""
+        w, b = p[wn], p.get(bn)
+        cols = w.shape[-1]
+        if cols == Hkv * Dh:
+            if split:
+                w = C.copy_to(w, group)
+                b = None if b is None else C.copy_to(b, group)
+        elif cols % Dh or Hl == H or (Hkv // (cols // Dh)) != H // Hl:
+            w = C.fsdp_gather(w, kv_group, w.dim() - 1)
+            b = None if b is None else C.fsdp_gather(b, kv_group, 0)
+        else:                                  # this rank's KV heads
+            return (_proj(xin, w, b).reshape(B, S, cols // Dh, Dh),
+                    sh.index_of("kv_heads") * (cols // Dh))
+        return _proj(xin, w, b).reshape(B, S, Hkv, Dh), 0
+
+    (k, k0), (v, _) = kv("wk", "bk"), kv("wv", "bv")
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    def whole(t):           # every KV head, for the ring
+        return t if t.shape[2] == Hkv else C.gather_from(t.contiguous(),
+                                                         kv_group, 2)
+
+    if mode == "decode":
+        if S != 1 or cache is None:
+            raise ValueError("decode attends one token per row over a cache")
+        qa = C.gather_from(q.contiguous(), group, 2) if split else q
+        kvcache.write_decode(cache, {"k": whole(k), "v": whole(v)}, pos,
+                             ring=sh.ring(cache["slot_pos"].shape[-1]))
+        valid = decode_valid_mask(cache["slot_pos"], pos, window)
+        if attn_fn is not None:
+            o = attn_fn(qa[:, 0], cache["k"], cache["v"], valid, scale=scale,
+                        attn_softcap=cfg.attn_softcap, impl=impl)
+        else:
+            o = combine_partials(*ops.gqa_decode(
+                qa[:, 0], cache["k"], cache["v"], valid, scale=scale,
+                attn_softcap=cfg.attn_softcap, impl=impl))
+        o = o[:, None, h0:h0 + Hl].to(x.dtype)               # (B,1,Hl,Dh)
+    else:
+        G = H // Hkv
+        lo = h0 // G - k0
+        n = max(1, Hl // G)
+        o = ops.flash_prefill(q, k[:, :, lo:lo + n].contiguous(),
+                              v[:, :, lo:lo + n].contiguous(), causal=causal,
+                              window=window, attn_softcap=cfg.attn_softcap,
+                              scale=scale, impl=impl)
+        if cache is not None:    # prefill: persist this rank's ring slots
+            seq_pos = (positions if positions.ndim == 1
+                       else positions[0]).to(torch.int32)
+            kvcache.write_prefill(cache, {"k": whole(k), "v": whole(v)},
+                                  seq_pos,
+                                  ring=sh.ring(cache["slot_pos"].shape[-1]))
+    out = _proj(o.reshape(B, S, Hl * Dh), p["wo"])
+    return (C.reduce_from(out, group) if split else out), cache
+
+
 def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
                 cache: Optional[Dict], mode: str, pos=None,
                 causal: bool = True, kv_override: Optional[Tuple] = None,
-                impl: str = "auto", attn_fn=None):
+                impl: str = "auto", attn_fn=None, shard=None):
     """x: (B,S,E).  mode: 'full' (train / prefill, writing the ring when a
     cache is given), 'decode' (S == 1: write the ring, then attend over
     it) or 'chunk' (write a prompt chunk at its absolute positions, then
@@ -156,7 +253,13 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
 
     attn_fn: a sharding plan's sequence-sharded decode attention
     (``distributed.collectives.make_seq_sharded_attn``), which takes the
-    place of the dense ring's partials after the ring write."""
+    place of the dense ring's partials after the ring write.
+
+    shard: a plan over more than one rank (``_gqa_tp``)."""
+    if shard is not None:
+        return _gqa_tp(cfg, spec, p, x, positions, cache=cache, mode=mode,
+                       pos=pos, causal=causal, impl=impl, attn_fn=attn_fn,
+                       sh=shard)
     B, S, E = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = cfg.query_scale or Dh ** -0.5
@@ -184,7 +287,7 @@ def gqa_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
             raise ValueError("decode attends one token per row over a cache")
         new = kvcache.quantize_kv(k, v) if quantized else {"k": k, "v": v}
         if attn_fn is not None:
-            _check_attn_fn(attn_fn, cache, quantized)
+            _check_sharded_ring(cache, quantized)
             kvcache.write_decode(cache, new, pos)
             valid = decode_valid_mask(cache["slot_pos"], pos, window)
             o = attn_fn(q[:, 0], cache["k"], cache["v"], valid, scale=scale,
@@ -253,7 +356,9 @@ def mla_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
     """x: (B,S,E); modes as `gqa_forward`.  Returns (out, layer_cache).
     A sequence-sharded decode (``attn_fn``) is not ported for MLA: no test
     drives it, and ``gqa_decode`` cannot take the absorbed heads (128
-    query heads over one latent head of 576)."""
+    query heads over one latent head of 576).  A plan over more than one
+    rank refuses MLA before any layer (``tensor_parallel.
+    check_supported``)."""
     if attn_fn is not None and mode == "decode":
         raise NotImplementedError("MLA decode under a sequence-sharded "
                                   "attention is not ported")
@@ -342,7 +447,7 @@ def mla_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions, *,
 
 
 def attn_forward(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, positions,
-                 **kw):
+                 shard=None, **kw):
     if spec.attn == ATTN_MLA:
         return mla_forward(cfg, spec, p, x, positions, **kw)
-    return gqa_forward(cfg, spec, p, x, positions, **kw)
+    return gqa_forward(cfg, spec, p, x, positions, shard=shard, **kw)

@@ -477,16 +477,26 @@ def dequantize_kv(layer_cache: Dict):
 # stack dim), a view into the stacked cache, so the writes land in the pool.
 # ---------------------------------------------------------------------------
 
-def write_prefill(layer_cache: Dict, new: Dict, seq_positions) -> Dict:
+def write_prefill(layer_cache: Dict, new: Dict, seq_positions,
+                  ring=None) -> Dict:
     """Write a full prefill chunk.  new[name]: (B, S, ...); seq_positions:
     (S,) absolute positions being written.  If S exceeds the ring width W
-    (sliding-window layer), only the last W positions are kept."""
-    W = layer_cache["slot_pos"].shape[-1]
+    (sliding-window layer), only the last W positions are kept.
+
+    ring: (first slot, whole width) when this cache holds one rank's block
+    of a ring sharded over the KV axes (``tensor_parallel.ShardCtx.ring``):
+    only the positions whose slot falls in the block are written."""
+    W_loc = layer_cache["slot_pos"].shape[-1]
+    lo, W = ring if ring is not None else (0, W_loc)
     S = seq_positions.shape[0]
     if S > W:
         new = {k: v[:, -W:] for k, v in new.items()}
         seq_positions = seq_positions[-W:]
-    slots = (seq_positions % W).long()
+    slots = (seq_positions % W).long() - lo
+    if ring is not None:
+        mine = torch.nonzero((slots >= 0) & (slots < W_loc))[:, 0]
+        new = {k: v[:, mine] for k, v in new.items()}
+        slots, seq_positions = slots[mine], seq_positions[mine]
     for name, val in new.items():
         buf = layer_cache[name]
         buf[:, slots] = val.to(buf.dtype)
@@ -494,13 +504,28 @@ def write_prefill(layer_cache: Dict, new: Dict, seq_positions) -> Dict:
     return layer_cache
 
 
-def write_decode(layer_cache: Dict, new: Dict, pos) -> Dict:
-    """Write one token per row.  new[name]: (B, 1, ...); pos: (B,)."""
-    W = layer_cache["slot_pos"].shape[-1]
-    slots = (pos % W).long()
+def write_decode(layer_cache: Dict, new: Dict, pos, ring=None) -> Dict:
+    """Write one token per row.  new[name]: (B, 1, ...); pos: (B,).
+    ring: as ``write_prefill``'s; a row whose slot ``pos % W`` lies in
+    another rank's block keeps this block as it is."""
+    W_loc = layer_cache["slot_pos"].shape[-1]
+    if ring is None:
+        slots, mine = (pos % W_loc).long(), None
+    else:
+        lo, W = ring
+        slots = (pos % W).long() - lo
+        mine = (slots >= 0) & (slots < W_loc)
+        slots = torch.clamp(slots, 0, W_loc - 1)
     brow = torch.arange(slots.shape[0], device=slots.device)
+
+    def put(buf, val):
+        val = val.to(buf.dtype)
+        if mine is not None:
+            m = mine.reshape((-1,) + (1,) * (val.dim() - 1))
+            val = torch.where(m, val, buf[brow, slots])
+        buf[brow, slots] = val
+
     for name, val in new.items():
-        buf = layer_cache[name]
-        buf[brow, slots] = val[:, 0].to(buf.dtype)
-    layer_cache["slot_pos"][brow, slots] = pos.to(torch.int32)
+        put(layer_cache[name], val[:, 0])
+    put(layer_cache["slot_pos"], pos.to(torch.int32))
     return layer_cache

@@ -25,7 +25,11 @@ package; a sharding plan's policy also carries the expert-parallel MoE body
 ``remat``, which in a train forward runs each block under
 ``torch.utils.checkpoint``.  The reference's ``remat`` never takes effect:
 its check compares the scan's mode, never "train", with "train"
-(``repro/models/model.py:229``).
+(``repro/models/model.py:229``).  A plan over more than one rank also sets
+``shard`` (``distributed.tensor_parallel.ShardCtx``): each rank then runs
+the step on its slices, the attention on its heads, the dense FFN on its
+slice of ``ffn``, the vocabulary on its rows, and gathers a leaf split
+over the data axes (FSDP) at its use.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import offload, paging
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import ops
 from repro_torch.models.attention import attn_forward, gqa_forward
 from repro_torch.models.common import (act_fn, apply_norm, by_group,
@@ -58,6 +63,8 @@ class ExecPolicy:
     attn_fn: Optional[Callable] = None    # sequence-sharded decode attention
     remat: bool = False                   # train: each block recomputed in
     # the backward (torch.utils.checkpoint)
+    shard: Optional[Any] = None           # tensor_parallel.ShardCtx of a
+    # plan over more than one rank
 
 
 @dataclass
@@ -141,19 +148,25 @@ class _SpanStream:
             self.done[layer].record(torch.cuda.current_stream())
 
 
-def dense_ffn(cfg: ModelConfig, p: Dict, x):
+def dense_ffn(cfg: ModelConfig, p: Dict, x, shard=None):
+    """A dense FFN; under ``shard``, on this rank's slice of its ``ffn``
+    dim (``tensor_parallel.ffn_local``)."""
+    d_ff = cfg.dense_d_ff or cfg.d_ff
     if cfg.ffn_act == "gelu_mlp":
-        h = act_fn("gelu_mlp")(torch.matmul(x, p["wi"].to(x.dtype))
-                               + p["bi"].to(x.dtype))
-        return torch.matmul(h, p["wo"].to(x.dtype)) + p["bo"].to(x.dtype)
-    return gated_ffn(cfg, p["wi"], p["wo"], x)
+        y = TP.ffn_local(shard, p, x, d_ff, lambda p, x: torch.matmul(
+            act_fn("gelu_mlp")(torch.matmul(x, p["wi"].to(x.dtype))
+                               + p["bi"].to(x.dtype)), p["wo"].to(x.dtype)))
+        return y + p["bo"].to(x.dtype)
+    return TP.ffn_local(shard, p, x, d_ff,
+                     lambda p, x: gated_ffn(cfg, p["wi"], p["wo"], x))
 
 
 def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
                 cache: Optional[Dict], mode: str, pos,
                 policy: Optional[ExecPolicy], expert_fetch=None,
                 token_groups: Optional[int] = None, lens=None,
-                causal: bool = True, enc_out=None, xattn_cache=None):
+                causal: bool = True, enc_out=None, xattn_cache=None,
+                key: Optional[str] = None):
     """One layer.  Returns (x, aux_loss, expert_counts); a given cache is
     written in place.  With ``expert_fetch`` (expert-granular paged
     weights) the MoE FFN runs the two-phase step and expert_counts (E,)
@@ -176,8 +189,15 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
     queries to the encoder's positions: outside decode it projects K and
     V from ``enc_out`` (B, encS, E) and, given ``xattn_cache`` (this
     layer's ``{"k", "v"}`` of ``cache["xattn"]``), writes them there; in
-    decode it reads them from there."""
+    decode it reads them from there.
+
+    key: the layer's stack (``"p0"``, ``"prologue"``), under a plan's
+    ``shard`` to gather its leaves split over the data axes (FSDP)."""
     aux, ecounts = 0.0, None
+    shard = policy.shard if policy is not None else None
+    if shard is not None:
+        p = shard.gather_fsdp(p, ("prologue", "p0") if key == "prologue"
+                              else ("blocks", key), stacked=True)
 
     def mix(x, cache):
         h = apply_norm(cfg, p.get("mamba_norm", {}), x)
@@ -189,7 +209,8 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
         y, _ = attn_forward(cfg, spec, p["attn"], h, positions, cache=cache,
                             mode=mode, pos=pos, causal=causal,
                             impl=policy.impl if policy else "auto",
-                            attn_fn=policy.attn_fn if policy else None)
+                            attn_fn=policy.attn_fn if policy else None,
+                            shard=shard)
         if cfg.post_block_norm:
             y = apply_norm(cfg, p["post_attn_norm"], y)
         return x + y
@@ -213,7 +234,7 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Dict, x, *, positions,
             y, aux = moe_apply(cfg, p["moe"], h, policy,
                                token_groups=token_groups)
         else:
-            y = by_group(lambda h: dense_ffn(cfg, p["ffn"], h),
+            y = by_group(lambda h: dense_ffn(cfg, p["ffn"], h, shard),
                          token_groups, h)
         if cfg.post_block_norm:
             y = by_group(lambda y: apply_norm(cfg, p["post_ffn_norm"], y),
@@ -253,13 +274,29 @@ def cross_attend(cfg: ModelConfig, p: Dict, x, positions, *, mode: str,
     return y
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens, positions, patches=None):
+def _table(params, shard, name: str):
+    """The embedding table ("tokens") or the LM head, FSDP-gathered under
+    ``shard``."""
+    w = params["lm_head"] if name == "lm_head" else params["embed"]["tokens"]
+    if shard is None:
+        return w
+    path = ("lm_head",) if name == "lm_head" else ("embed", "tokens")
+    return shard.gather_fsdp(w, path, stacked=False)
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens, positions, patches=None,
+                 shard=None):
     """Token embeddings (B,S,E): scaled where the config says so, the first
     ``min(vision_tokens, S)`` rows then overwritten by the unscaled patch
     embeddings (paligemma's prefix), and the sinusoidal stand-in for
     learned positions added at the tokens' absolute ``positions``
-    (whisper)."""
-    x = params["embed"]["tokens"][tokens]            # (B,S,E) gather
+    (whisper).  Under ``shard`` from this rank's rows of the table
+    (``tensor_parallel.embed_lookup``)."""
+    table = _table(params, shard, "tokens")
+    if shard is not None and table.shape[0] != cfg.vocab_size:
+        x = TP.embed_lookup(shard, table, tokens)
+    else:
+        x = table[tokens]                            # (B,S,E) gather
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.vision_tokens and patches is not None:
@@ -342,6 +379,10 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
     token embeddings (``embed_tokens``); without it the model runs on
     text alone, as the engine serves it."""
     B, S = tokens.shape
+    shard = policy.shard if policy is not None else None
+    if shard is not None:
+        TP.check_supported(cfg, shard, mode=mode, frames=frames,
+                           patches=patches)
     if mode == "decode":
         if cache is None:
             raise ValueError("decode needs a cache")
@@ -369,7 +410,7 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
                              f"(B, {cfg.encoder_seq}, {cfg.d_model}) for "
                              f"its encoder")
         enc_out = encoder_forward(cfg, params, frames, policy)
-    x = embed_tokens(cfg, params, tokens, positions, patches)
+    x = embed_tokens(cfg, params, tokens, positions, patches, shard)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     spans, ctx = {}, {}
     if paged_blocks is not None:
@@ -404,7 +445,7 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
             lens=lens if mode == "prefill" else None, enc_out=enc_out,
             xattn_cache=(paging.layer_slice(cache["xattn"], layer)
                          if spec.cross_attn and cache is not None
-                         else None))
+                         else None), key=key)
         if p is None:
             spans[key].release(layer)
         if ec is not None:
@@ -426,11 +467,20 @@ def forward(cfg: ModelConfig, params, tokens, *, cache=None, mode="train",
 
 
 def unembed(cfg: ModelConfig, params, hidden,
-            token_groups: Optional[int] = None):
+            token_groups: Optional[int] = None, shard=None,
+            vocab_local: bool = False):
     """hidden: (..., E) -> logits (..., V) float32 (with gemma2 softcap).
-    token_groups: a window's rows, projected group by group."""
-    w = (params["embed"]["tokens"].t() if cfg.tie_embeddings
-         else params["lm_head"]).float()
+    token_groups: a window's rows, projected group by group.  Under
+    ``shard`` with the vocabulary split, each rank projects onto its rows
+    of the table; the columns are gathered whole unless ``vocab_local``
+    (the loss's vocab-parallel cross-entropy takes them as they are)."""
+    w = _table(params, shard, "tokens" if cfg.tie_embeddings else "lm_head")
+    w = w.t() if cfg.tie_embeddings else w
+    if shard is not None and w.shape[-1] != cfg.vocab_size:
+        logits = softcap(by_group(lambda h: TP.vocab_logits(shard, h, w),
+                                  token_groups, hidden), cfg.logit_softcap)
+        return logits if vocab_local else TP.gather_vocab(shard, logits)
+    w = w.float()
     logits = by_group(lambda h: torch.matmul(h.float(), w), token_groups,
                       hidden)
     return softcap(logits, cfg.logit_softcap)

@@ -36,9 +36,16 @@ from repro_torch.models.common import act_fn, by_group
 # Router
 # ---------------------------------------------------------------------------
 
-def route(cfg: ModelConfig, router_w, x, token_groups: Optional[int] = None):
+def route(cfg: ModelConfig, router_w, x, token_groups: Optional[int] = None,
+          aux_group=None):
     """x: (T, D) -> (weights (T,k) f32, idx (T,k) int64, aux_loss scalar).
-    token_groups: a window's tokens, scored group by group."""
+    token_groups: a window's tokens, scored group by group.
+
+    aux_group: the process group over whose ranks the batch's tokens are
+    split (a step under a plan).  The load-balance loss is then the global
+    batch's: the tokens routed to each expert (f_e) and the softmax mass
+    (P_e) summed over the group before their product, P_e's sum with an
+    identity backward, so each rank's gradient is its own tokens' share."""
     scores = by_group(lambda x: torch.matmul(x.float(), router_w.float()),
                       token_groups, x)
     if cfg.router_scale:                       # deepseek: sigmoid + renorm
@@ -51,6 +58,19 @@ def route(cfg: ModelConfig, router_w, x, token_groups: Optional[int] = None):
     # Switch-style load-balance loss over softmax probabilities
     sm = torch.softmax(scores, dim=-1)
     T = x.shape[0]
+    if aux_group is not None:
+        from repro_torch.distributed import collectives as C
+        counts = torch.zeros((cfg.num_experts + 1,), dtype=torch.float32,
+                             device=x.device)
+        counts.index_add_(0, idx.reshape(-1),
+                          torch.ones((idx.numel(),), device=x.device))
+        counts[-1] = T
+        counts = C.all_reduce(counts, aux_group)
+        n = counts[-1]
+        mass = C.reduce_from(sm.sum(0), aux_group) / n
+        aux = cfg.num_experts * torch.sum(counts[:-1] / (n * cfg.top_k)
+                                          * mass)
+        return w, idx, aux
     frac = torch.zeros((cfg.num_experts,), dtype=torch.float32,
                        device=x.device)
     frac.index_add_(0, idx.reshape(-1),
@@ -221,72 +241,71 @@ def _expert_slice(mesh, expert_axes) -> Tuple[int, int]:
     return mesh.axis_size(expert_axes), mesh.axis_index(expert_axes)
 
 
+def _local_experts(cfg: ModelConfig, p: Dict, x, w, idx, e0: int, cap: int,
+                   use_kernel: bool, impl: str):
+    """Every token's weighted outputs of the experts e0 .. e0 + E_loc - 1
+    that ``p`` holds (E_loc of them), each expert's bucket ranked over the
+    tokens in order and cut at ``cap`` (the buckets ``moe_grouped`` fills
+    for those experts).  x (T, D), w / idx (T, K) -> (T, D)."""
+    T, D = x.shape
+    K = cfg.top_k
+    E_loc = p["wi"].shape[0]
+    flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
+    local_e = idx.reshape(-1) - e0
+    dest = torch.where((local_e >= 0) & (local_e < E_loc), local_e, -1)
+    slot, keep = _bucket(dest, E_loc, cap)
+    e_safe = torch.where(keep, dest, 0)
+    s_safe = torch.where(keep, slot, cap - 1)
+    xbuf = torch.zeros((E_loc, cap, D), dtype=x.dtype, device=x.device)
+    xbuf = xbuf.index_put((e_safe, s_safe),
+                          torch.where(keep[:, None], x[flat_t], 0),
+                          accumulate=True)
+    ybuf = grouped_ffn(cfg, p["wi"], p["wo"], xbuf, use_kernel,
+                       p.get("wi_scale"), p.get("wo_scale"), impl=impl)
+    y = torch.where(keep[:, None], ybuf[e_safe, s_safe], 0)
+    return combine_routed(x, y * w.reshape(-1, 1).to(x.dtype), K)
+
+
 def moe_ep_psum_local(cfg: ModelConfig, p_local: Dict, x, *, mesh,
                       expert_axes, capacity_factor=None,
                       use_kernel: bool = False, ffn_axes=(),
-                      impl: str = "auto"):
+                      impl: str = "auto", aux_group=None):
     """Tokens replicated over expert_axes (+ffn_axes); p_local holds this
     rank's expert slice wi (E_loc, D, 2, F_loc), wo (E_loc, F_loc, D) and
     the whole router.  With ffn_axes set, each expert's FFN dim is also
     sharded (2D stationary weights) and the output sum covers both axis
     groups: decode moves only (T, D)-sized activations while every weight
     stays on its shard.  The shared experts, replicated over the expert
-    axes, enter the sum divided by their count.  x: (T, D)."""
-    from repro_torch.distributed.collectives import all_reduce
-    T, D = x.shape
+    axes, enter the sum divided by their count.  x: (T, D).  aux_group:
+    as ``route``'s."""
+    from repro_torch.distributed.collectives import reduce_from
+    T = x.shape[0]
     NE, K = cfg.num_experts, cfg.top_k
     M, my = _expert_slice(mesh, expert_axes)
     E_loc = NE // M
     cf = capacity_factor or cfg.capacity_factor
     cap_e = max(1, int(T * K * cf / NE + 0.999))
 
-    w, idx, aux = route(cfg, p_local["router"], x)
-    flat_e = idx.reshape(-1)
-    flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
-    flat_w = w.reshape(-1)
-    local_e = flat_e - my * E_loc
-    mine = (local_e >= 0) & (local_e < E_loc)
-    dest = torch.where(mine, local_e, -1)
-    slot, keep = _bucket(dest, E_loc, cap_e)
-    e_safe = torch.where(keep, dest, 0)
-    s_safe = torch.where(keep, slot, cap_e - 1)
-
-    xbuf = torch.zeros((E_loc, cap_e, D), dtype=x.dtype, device=x.device)
-    xbuf = xbuf.index_put((e_safe, s_safe),
-                          torch.where(keep[:, None], x[flat_t], 0),
-                          accumulate=True)
-    ybuf = grouped_ffn(cfg, p_local["wi"], p_local["wo"], xbuf, use_kernel,
-                       p_local.get("wi_scale"), p_local.get("wo_scale"),
-                       impl=impl)
-    y = torch.where(keep[:, None], ybuf[e_safe, s_safe], 0)
-    out = combine_routed(x, y * flat_w[:, None].to(x.dtype), K)
+    w, idx, aux = route(cfg, p_local["router"], x, aux_group=aux_group)
+    out = _local_experts(cfg, p_local, x, w, idx, my * E_loc, cap_e,
+                         use_kernel, impl)
     if cfg.num_shared_experts:
         out = out + gated_ffn(cfg, p_local["shared"]["wi"],
                               p_local["shared"]["wo"], x) / M
     reduce_axes = tuple(expert_axes) + tuple(ffn_axes)
-    return all_reduce(out, mesh.group(reduce_axes)), aux
-
-
-def _all_to_all(x, group):
-    """Block i of x's leading axis to rank i of ``group``; the blocks
-    received, in rank order.  Differentiable for floating x."""
-    import torch.distributed as dist
-    out = torch.empty_like(x)
-    if x.is_floating_point():
-        from torch.distributed.nn.functional import all_to_all_single
-        return all_to_all_single(out, x.contiguous(), group=group)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
-    return out
+    return reduce_from(out, mesh.group(reduce_axes)), aux
 
 
 def moe_ep_a2a_local(cfg: ModelConfig, p_local: Dict, x, *, mesh,
                      expert_axes, capacity_factor=None,
-                     use_kernel: bool = False, impl: str = "auto"):
+                     use_kernel: bool = False, impl: str = "auto",
+                     aux_group=None):
     """Tokens sharded over expert_axes (x is this rank's token slice):
     routed tokens go to their expert's rank and back by all-to-all, in
     lanes of ``cap`` tokens per (source, destination) pair.  aux is the
-    mean of the ranks' router losses.  x: (T_loc, D)."""
-    from repro_torch.distributed.collectives import all_reduce
+    mean of the ranks' router losses, or with ``aux_group`` (as
+    ``route``'s) the global batch's.  x: (T_loc, D)."""
+    from repro_torch.distributed.collectives import all_to_all, reduce_from
     T, D = x.shape
     NE, K = cfg.num_experts, cfg.top_k
     M, _ = _expert_slice(mesh, expert_axes)
@@ -296,7 +315,7 @@ def moe_ep_a2a_local(cfg: ModelConfig, p_local: Dict, x, *, mesh,
     cap = max(1, int(T * K * cf / M + 0.999))            # per src->dst lane
     cap_e = max(1, int(M * cap * cf / E_loc + 0.999))    # per local expert
 
-    w, idx, aux = route(cfg, p_local["router"], x)
+    w, idx, aux = route(cfg, p_local["router"], x, aux_group=aux_group)
     flat_e = idx.reshape(-1)
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     flat_w = w.reshape(-1)
@@ -313,8 +332,8 @@ def moe_ep_a2a_local(cfg: ModelConfig, p_local: Dict, x, *, mesh,
     send_le.scatter_reduce_(0, d_safe * cap + s_safe,
                             torch.where(keep, flat_e % E_loc, -1).to(
                                 torch.int32), reduce="amax")
-    rx = _all_to_all(send_x, group).reshape(M * cap, D)
-    rle = _all_to_all(send_le, group).long()
+    rx = all_to_all(send_x, group).reshape(M * cap, D)
+    rle = all_to_all(send_le, group).long()
 
     slot2, keep2 = _bucket(rle, E_loc, cap_e)
     e2 = torch.where(keep2, rle, 0)
@@ -326,13 +345,15 @@ def moe_ep_a2a_local(cfg: ModelConfig, p_local: Dict, x, *, mesh,
                        p_local.get("wi_scale"), p_local.get("wo_scale"),
                        impl=impl)
     ry = torch.where(keep2[:, None], ybuf[e2, s2], 0).reshape(M, cap, D)
-    back = _all_to_all(ry, group)
+    back = all_to_all(ry, group)
     y = torch.where(keep[:, None], back[d_safe, s_safe], 0)
     out = combine_routed(x, y * flat_w[:, None].to(x.dtype), K)
     if cfg.num_shared_experts:
         out = out + gated_ffn(cfg, p_local["shared"]["wi"],
                               p_local["shared"]["wo"], x)
-    return out, all_reduce(aux, group) / M
+    if aux_group is None:
+        aux = reduce_from(aux, group) / M
+    return out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -473,11 +494,59 @@ def moe_apply_paged(cfg: ModelConfig, p: Dict, x3, fetch_experts,
     return out.reshape(B, S, D), aux, counts
 
 
+def moe_grouped_tp(cfg: ModelConfig, p: Dict, x3, policy):
+    """The grouped MoE of a plan over more than one rank (the plan's
+    ``grouped_pjit``): x3 (B, S, D) this rank's rows over the dp axes, the
+    same on every other rank; p this rank's slice of one layer's MoE
+    leaves: its experts (over the plan's expert axes) or every expert on
+    its slice of ``effn``.
+
+    Routing runs on this rank's rows.  The rows, their weights and choices
+    are gathered over the dp axes in their global order, so each expert's
+    capacity bucket holds the tokens it holds on one device; this rank's
+    experts (or expert slices) run on them, their outputs are summed over
+    the axes that split the experts and cut back to this rank's rows.  The
+    gradient follows the conjugate pairs (``distributed.collectives``);
+    aux is the global batch's (``route``'s ``aux_group``)."""
+    from repro_torch.distributed import collectives as C
+    sh = policy.shard
+    mesh = sh.mesh
+    B, S, D = x3.shape
+    NE, K = cfg.num_experts, cfg.top_k
+    dp, e_ax = tuple(sh.dp_axes), tuple(sh.expert_axes)
+    if set(dp) & set(e_ax) not in (set(), set(dp)):
+        raise NotImplementedError(f"experts over {e_ax} with the batch over "
+                                  f"{dp}: their overlap is not ported")
+    f_ax = sh.axes_of("effn") if p["wi"].shape[-1] != cfg.d_ff else ()
+    red = sh.group(tuple(a for a in e_ax if a not in dp) + f_ax)
+    g_dp = sh.group(dp)
+    x = x3.reshape(-1, D)
+    T_loc = x.shape[0]
+    w, idx, aux = route(cfg, p["router"], x, aux_group=g_dp)
+    if g_dp is not None:
+        x, w = C.fsdp_gather(x, g_dp, 0), C.fsdp_gather(w, g_dp, 0)
+        idx = C.gather_from(idx, g_dp, 0)
+    x, w = C.copy_to(x, red), C.copy_to(w, red)
+    E_loc = p["wi"].shape[0]
+    e0 = mesh.axis_index(e_ax) * E_loc if E_loc != NE else 0
+    cap = max(1, int(x.shape[0] * K * cfg.capacity_factor / NE + 0.999))
+    out = C.reduce_from(_local_experts(cfg, p, x, w, idx, e0, cap,
+                                       policy.use_kernels, policy.impl), red)
+    if g_dp is not None:
+        if e_ax and set(dp) <= set(e_ax):
+            out = C.reduce_scatter(out, g_dp, 0)
+        else:       # every dp rank computed every row
+            out = out.narrow(0, mesh.axis_index(dp) * T_loc, T_loc)
+    return out.reshape(B, S, D), aux
+
+
 def moe_apply(cfg: ModelConfig, p: Dict, x3, policy=None,
               token_groups: Optional[int] = None):
     """Dispatch on the execution policy. x3: (B, S, D)."""
     if policy is not None and policy.moe_fn is not None:
         return policy.moe_fn(cfg, p, x3, impl=policy.impl)
+    if policy is not None and policy.shard is not None:
+        return moe_grouped_tp(cfg, p, x3, policy)
     B, S, D = x3.shape
     x = x3.reshape(B * S, D)
     if policy is not None and policy.moe_impl == "grouped":

@@ -41,12 +41,15 @@ def make_serve_step(cfg: ModelConfig,
                     policy: Optional[ExecPolicy] = None) -> Callable:
     """One greedy decode step: (params, cache, tokens (B,1)) ->
     (next_token (B,) int32, logits (B,V) f32, cache), the cache written in
-    place and returned."""
+    place and returned.  Under a plan over more than one rank, B is this
+    rank's rows over the dp axes and the logits are whole, gathered over
+    the vocabulary's axes."""
 
     def serve_step(params, cache, tokens):
         out = forward(cfg, params, tokens, cache=cache, mode="decode",
                       policy=policy)
-        logits = unembed(cfg, params, out["hidden"][:, -1])
+        logits = unembed(cfg, params, out["hidden"][:, -1],
+                         shard=policy.shard if policy else None)
         return (torch.argmax(logits, dim=-1).to(torch.int32), logits,
                 out["cache"])
 

@@ -88,9 +88,12 @@ def slices(*tensors) -> Iterator[Tuple]:
                             for t in tensors))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shard=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (a None leaf, a
-    parameter no gradient reached, counts 0)."""
+    parameter no gradient reached, counts 0).  ``shard``: the leaves are
+    this rank's slices of a plan's (``ShardCtx.sq_norm``)."""
+    if shard is not None:
+        return torch.sqrt(shard.sq_norm(tree))
     sq = None
     for g in tree_leaves(tree):
         if g is None:
@@ -104,13 +107,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: Dict, opt: OptConfig
+def apply_updates(params, grads, state: Dict, opt: OptConfig, shard=None
                   ) -> Tuple[Dict, Dict, Dict]:
     """One AdamW step, in place on params, state["mu"], state["nu"]; a None
-    gradient is a zero one.  Returns (params, state, metrics)."""
+    gradient is a zero one.  ``shard``: each leaf is this rank's slice
+    under a plan, clipped by the whole gradients' norm.  Returns (params,
+    state, metrics)."""
     state["step"].add_(1)
     step = int(state["step"])
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shard)
     clip = torch.clamp(opt.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = _schedule(opt, step)
     b1, b2 = opt.b1, opt.b2

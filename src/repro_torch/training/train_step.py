@@ -6,7 +6,10 @@ it on every floating leaf); a leaf no gradient reaches counts as a zero
 gradient, as ``jax.value_and_grad`` gives it.  On CUDA tensors every
 attention layer's backward runs the ``flash_prefill_bwd`` kernel
 (``kernels.ops.flash_prefill``); the MoE trains through ``moe_dense``
-(policy None), as in the reference.
+(policy None), as in the reference.  Under a plan over more than one rank
+(``policy.shard``) every rank computes the global loss on its slices, its
+gradients are summed over the dp axes each leaf is whole over, and the
+clipping norm is the whole gradients' (``tensor_parallel.ShardCtx``).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ def make_loss_fn(cfg: ModelConfig, policy: Optional[ExecPolicy]) -> Callable:
         extras = {k: batch[k] for k in ("frames", "patches") if k in batch}
         out = forward(cfg, params, batch["tokens"], mode="train",
                       policy=policy, **extras)
-        lm = chunked_lm_loss(cfg, params, out["hidden"], batch["targets"])
+        lm = chunked_lm_loss(cfg, params, out["hidden"], batch["targets"],
+                             shard=policy.shard if policy else None)
         aux = out["aux_loss"]
         loss = lm + AUX_LOSS_WEIGHT * aux
         return loss, {"lm_loss": lm, "aux_loss": aux}
@@ -43,16 +47,20 @@ def requires_grad_(params) -> Dict:
     return params
 
 
-def value_and_grad(loss_fn: Callable, params, batch
+def value_and_grad(loss_fn: Callable, params, batch, shard=None
                    ) -> Tuple[torch.Tensor, Dict, Dict]:
     """(loss, metrics, grads): grads mirrors params, a tensor of the
     leaf's dtype for each leaf that requires grad and that the loss
-    reaches, else None.  The metrics are detached."""
+    reaches, else None.  The metrics are detached.  ``shard``: a plan's
+    ``ShardCtx``, whose ``reduce_grads`` sums the gradients over the dp
+    axes."""
     leaves = [p for p in tree_leaves(params) if p.requires_grad]
     loss, metrics = loss_fn(params, batch)
     got = torch.autograd.grad(loss, leaves, allow_unused=True)
     by_id = {id(p): g for p, g in zip(leaves, got)}
     grads = tree_map(lambda p: by_id.get(id(p)), params)
+    if shard is not None:
+        shard.reduce_grads(grads)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, grads
 
@@ -60,11 +68,12 @@ def value_and_grad(loss_fn: Callable, params, batch
 def make_train_step(cfg: ModelConfig, opt: OptConfig,
                     policy: Optional[ExecPolicy] = None) -> Callable:
     loss_fn = make_loss_fn(cfg, policy)
+    shard = policy.shard if policy else None
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = value_and_grad(loss_fn, params, batch)
+        loss, metrics, grads = value_and_grad(loss_fn, params, batch, shard)
         params, opt_state, opt_metrics = apply_updates(
-            params, grads, opt_state, opt)
+            params, grads, opt_state, opt, shard)
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
@@ -77,6 +86,7 @@ def make_microbatched_train_step(cfg: ModelConfig, opt: OptConfig,
     batch's rows split in order), the training analogue of the paper's μ:
     bounds activation memory while the update is the full batch's."""
     loss_fn = make_loss_fn(cfg, policy)
+    shard = policy.shard if policy else None
 
     def train_step(params, opt_state, batch):
         B = batch["tokens"].shape[0]
@@ -87,14 +97,14 @@ def make_microbatched_train_step(cfg: ModelConfig, opt: OptConfig,
         acc_l = 0.0
         for i in range(num_micro):
             mbatch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, _, grads = value_and_grad(loss_fn, params, mbatch)
+            loss, _, grads = value_and_grad(loss_fn, params, mbatch, shard)
             for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
                 if g is not None:
                     a.add_(g.float() / num_micro)
             acc_l = acc_l + loss / num_micro
             del grads
         params, opt_state, opt_metrics = apply_updates(
-            params, acc, opt_state, opt)
+            params, acc, opt_state, opt, shard)
         return params, opt_state, {"loss": acc_l, **opt_metrics}
 
     return train_step

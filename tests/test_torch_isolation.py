@@ -55,7 +55,8 @@ def test_port_imports_without_jax_or_the_jax_package():
             "repro_torch.distributed.collectives",
             "repro_torch.distributed.compression",
             "repro_torch.core.census", "repro_torch.runtime.elastic",
-            "repro_torch.launch.mesh", "repro_torch.launch.train"} <= names
+            "repro_torch.launch.mesh", "repro_torch.launch.train",
+            "repro_torch.distributed.tensor_parallel"} <= names
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "glm4-9b", "olmo-1b",

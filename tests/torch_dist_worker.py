@@ -1,4 +1,5 @@
-"""One rank of ``tests/test_torch_distributed.py``'s process groups.
+"""One rank of ``tests/test_torch_distributed.py``'s and
+``tests/test_torch_tp.py``'s process groups.
 
     python tests/torch_dist_worker.py RANK WORLD INIT_FILE JOB OUT
 
@@ -166,6 +167,128 @@ def case_train(job):
             "new_params": t_opt.tree_map(lambda p: p.detach(), new_p),
             "new_state": new_s,
             "metrics": {k: float(v) for k, v in metrics.items()}}
+    return out
+
+
+def _tp_plan(job, shape):
+    """The job's config, and its plan on the job's mesh over this group."""
+    cfg = _cfg(job)
+    sizes, names = job["mesh"]
+    mesh = make_mesh(sizes, names)
+    return cfg, mesh, SH.make_plan(cfg, shape, mesh)
+
+
+def _rows(x, plan, mesh):
+    """This rank's rows of a batch leaf over the plan's dp axes."""
+    return SH.local_slice(x, SH.Spec(plan.dp_axes or None), mesh)
+
+
+def case_tp_serve(job):
+    """A prefill and greedy steps through ``make_serve_step`` under the
+    job's decode plan, each rank on its slices of the weights, its rows of
+    the batch and its slots of the ring."""
+    from repro_torch.models import kvcache
+    from repro_torch.models.model import forward
+    from repro_torch.serving.steps import make_serve_step
+    prompt, steps = job["prompt"], job["steps"]
+    B, S = prompt.shape
+    shape = dataclasses.replace(get_shape("decode_32k"), global_batch=B,
+                                seq_len=S + steps)
+    cfg, mesh, plan = _tp_plan(job, shape)
+    params = SH.shard_tree(params_from_numpy(job["params"], "cpu"),
+                           plan.param_specs, mesh)
+    cache = kvcache.init_cache(cfg, B, S + steps, device="cpu")
+    cache = {k: (v if k == "pos" else {n: t.contiguous() for n, t in
+                                       v.items()})
+             for k, v in SH.shard_tree(cache, SH.cache_specs(
+                 cfg, cache, plan.dp_axes, plan.kv_axes, plan.rules, mesh),
+                 mesh).items()}
+    prompt = _rows(prompt, plan, mesh)
+    step = make_serve_step(cfg, plan.policy)
+    logits, toks = [], []
+    with torch.no_grad():
+        forward(cfg, params, prompt, cache=cache, mode="prefill",
+                policy=plan.policy)
+        tok = prompt[:, -1:]
+        for _ in range(steps):
+            nxt, lg, cache = step(params, cache, tok)
+            logits.append(lg)
+            toks.append(nxt)
+            tok = nxt[:, None].long()
+    return {"variant": plan.moe_variant, "dp_index": mesh.axis_index(
+        plan.dp_axes), "logits": torch.stack(logits),
+        "tokens": torch.stack(toks)}
+
+
+def case_tp_train(job):
+    """One train step under the job's train plan on this rank's slices
+    (cloned, so AdamW updates them alone) and rows: its gradients (after
+    the dp sums), metrics and the updated slices."""
+    from repro_torch.training import optimizer as t_opt
+    from repro_torch.training import train_step as t_step
+    cfg, mesh, plan = _tp_plan(job, get_shape("train_4k").smoke())
+    params = t_opt.tree_map(lambda t: t.clone(), SH.shard_tree(
+        params_from_numpy(job["params"], "cpu"), plan.param_specs, mesh))
+    t_step.requires_grad_(params)
+    batch = {k: _rows(v, plan, mesh) for k, v in job["batch"].items()}
+    _, _, grads = t_step.value_and_grad(
+        t_step.make_loss_fn(cfg, plan.policy), params, batch,
+        plan.policy.shard)
+    opt = t_opt.OptConfig(warmup_steps=2)
+    state = t_opt.init_opt_state(params, opt)
+    new_p, _, metrics = t_step.make_train_step(cfg, opt, plan.policy)(
+        params, state, batch)
+    micro = {}
+    if job.get("num_micro"):
+        params = t_step.requires_grad_(t_opt.tree_map(
+            lambda t: t.clone(), SH.shard_tree(params_from_numpy(
+                job["params"], "cpu"), plan.param_specs, mesh)))
+        _, _, m = t_step.make_microbatched_train_step(
+            cfg, opt, plan.policy, job["num_micro"])(
+            params, t_opt.init_opt_state(params, opt), batch)
+        micro = {k: float(v) for k, v in m.items()}
+    return {"variant": plan.moe_variant, "micro": micro,
+            "grads": t_opt.tree_map(
+                lambda g: None if g is None else g.detach(), grads),
+            "new_params": t_opt.tree_map(lambda p: p.detach(), new_p),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def case_tp_pairs(job):
+    """The conjugate pairs' gradients at this group's size: a replicated
+    activation through the dense FFN split by ``ffn`` and through the
+    ``ep_a2a`` body under the train plan of a ("model",) mesh (loss
+    sum(y^2) + aux, every rank alike), and the refusal of a backward
+    through ``ep_psum``."""
+    from repro_torch.models.model import dense_ffn
+    cfg = _cfg(job)
+    mesh = make_mesh((dist.get_world_size(),), ("model",))
+    plan = SH.make_plan(cfg, get_shape("train_4k").smoke(), mesh)
+    shard = plan.policy.shard
+    blocks = SH.shard_tree(params_from_numpy(job["params"], "cpu"),
+                           plan.param_specs, mesh)["blocks"]["p0"]
+    out = {}
+    ffn = {"wi": SH.local_slice(job["ffn"]["wi"], SH.Spec(None, None,
+                                                          "model"), mesh),
+           "wo": SH.local_slice(job["ffn"]["wo"], SH.Spec("model"), mesh)}
+    x = job["x"].clone().requires_grad_(True)
+    y = dense_ffn(cfg, ffn, x, shard)
+    y.square().sum().backward()
+    out["ffn"] = {"y": y.detach(), "dx": x.grad}
+    moe = {k: v[0].clone().requires_grad_(True)
+           for k, v in blocks["moe"].items()}
+    x = job["x"].clone().requires_grad_(True)
+    y, aux = plan.policy.moe_fn(cfg, moe, x)
+    (y.square().sum() + aux).backward()
+    out["a2a"] = {"y": y.detach(), "aux": aux.detach(), "dx": x.grad,
+                  "grads": {k: v.grad for k, v in moe.items()}}
+    psum = C.make_moe_shard_fn(mesh, cfg, variant="ep_psum", dp_axes=(),
+                               expert_axes=("model",), tp=True)
+    try:
+        psum(cfg, moe, job["x"].clone().requires_grad_(True))
+        out["psum_raised"] = ""
+    except NotImplementedError as e:
+        out["psum_raised"] = str(e)
     return out
 
 
